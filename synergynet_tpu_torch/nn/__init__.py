@@ -1,0 +1,7 @@
+"""Neural network modules: the MobileNetV2 backbone and SynergyNet."""
+
+from synergynet_tpu_torch.nn.synergy import SynergyNet  # noqa: F401
+from synergynet_tpu_torch.nn.backbones import (  # noqa: F401
+    make_backbone, available_backbones,
+)
+from synergynet_tpu_torch.nn.heads import ParamHead  # noqa: F401
