@@ -8,24 +8,39 @@ them, and fails when the port's package is not beside this script. Phases,
 each fatal on failure:
 
 1. the card: ``nvidia-smi`` name and power limit;
-2. build every kernel of the serving path from ``synergynet_tpu_torch/csrc``
-   (nvcc, sm_90a) and print the build seconds and ptxas resource lines;
-3. each kernel against its plain PyTorch twin on the card, at the serving
-   path's shapes (fused decode: 8 and 1024 faces on the full 53,215-vertex
-   basis, f32), with kernel and plain times (CUDA events, L2 flushed
-   between launches, as the serving path finds it cold);
-4. the serving path at full width — MobileNetV2 1.0 on the shipped trained
-   weights, bf16; the seeded random-init bf16 FaceBoxes detector; 8 faces
-   per 720x1088 frame: ``FusedFrameEngine.__call__`` on a 720x1088 and a
-   480x640 frame, ``process_batch`` on 128 frames; output shapes, finite
-   values, landmarks equal to the dense mesh at the keypoint vertices, and
-   the dense mesh against the plain twin on the path's own param62; every
+2. build every kernel of the serving and overlay paths from
+   ``synergynet_tpu_torch/csrc`` (nvcc, sm_90a, one nvcc per source, all
+   started together) and print the build seconds and ptxas resource lines;
+3. each kernel against its plain PyTorch twin on the card, at its path's
+   shapes, with kernel and plain times (CUDA events, L2 flushed between
+   launches, as the path finds it cold):
+   fused decode (B1): 8 and 1024 faces on the full 53,215-vertex basis,
+   f32, within rtol 1e-4 / atol 1e-3;
+   z-buffer raster (B2): 8 lit BFM meshes (846,720 triangles) decoded from
+   seeded random param62 in rois spread over the 720x1088 canvas, and
+   stress meshes (ties, degenerate, giant, parked, off-canvas, empty):
+   zbuf and color bit-identical;
+4. the serving path at full width -- MobileNetV2 1.0 on the shipped
+   trained weights, bf16; the seeded random-init bf16 FaceBoxes detector;
+   8 faces per 720x1088 frame: ``FusedFrameEngine.__call__`` on a 720x1088
+   and a 480x640 frame, ``process_batch`` on 128 frames; output shapes,
+   finite values, landmarks equal to the dense mesh at the keypoint
+   vertices, and the dense mesh against the plain twin on the path's own
+   param62; every kernel's launch count over these calls (and only these)
+   must be > 0;
+5. the overlay path at full width: ``FusedOverlayEngine.__call__`` on a
+   720x1088, a 480x640 and an oversized 1080x1920 frame; the raster
    kernel's launch count over these calls (and only these) must be > 0;
-5. end-to-end faces/s at 1 and 128 frames per call (CUDA events, after
-   warm-up) and a per-stage breakdown at both;
-6. with ``--profile DIR`` only: ``process_batch`` at 1 and 128 frames under
-   ``torch.profiler`` — device busy time, idle share, device ops per call
-   and the leading ops — with the Chrome traces and a summary in DIR.
+   the overlay has the input's shape and dtype uint8, landmarks, meshes
+   and poses equal ``FusedFrameEngine.__call__``'s, the kernel equals its
+   twin bit for bit on the path's own meshes, the overlay equals the same
+   render through the plain twin, and undrawn pixels equal the frame;
+6. end-to-end faces/s at 1 and 128 frames per call and ms per overlay
+   frame (CUDA events or host clock after a synchronise, after warm-up),
+   with a per-stage breakdown of each;
+7. with ``--profile DIR`` only: ``process_batch`` at 1 and 128 frames under
+   ``torch.profiler`` -- device busy time, idle share, device ops per call
+   and the leading ops -- with the Chrome traces and a summary in DIR.
 
 Prints the kernels as one JSON line, the card's name and power limit, and
 last ``{"ok": true, "device": {...}}``.
@@ -37,12 +52,17 @@ import os
 import subprocess
 import sys
 import time
+from concurrent.futures import ThreadPoolExecutor
+
+import numpy as np
 
 FACES = 8
 BATCH = 128
 CANVAS = (720, 1088)
+OVERLAY_FRAMES = ((720, 1088), (480, 640), (1080, 1920))
 RTOL, ATOL = 1e-4, 1e-3     # the dense decode's tolerance (f32)
 DEVICE = "cuda:0"
+KERNELS = ("fused_decode", "raster_tiled")
 
 
 def log(msg):
@@ -81,13 +101,42 @@ def time_ms(fn, n, torch, flush=None):
     return total / n
 
 
+def stress_meshes(rng, h, w):
+    """Meshes that stress the raster kernel's edge cases: (name, verts
+    (V, 3), tris (T, 3), colors (V, 3)) as numpy f32 / int32."""
+    v = rng.uniform([0, 0, -5], [w, h, 5], (3000, 3)).astype(np.float32)
+    t = rng.integers(0, 3000, (4000, 3)).astype(np.int32)
+    c = rng.uniform(0, 1, (3000, 3)).astype(np.float32)
+    d = v.copy()
+    d[:300, :2] = d[0, :2]                         # zero-area triangles
+    d[300:600, 1] = d[300:600, 0] * 0.5            # collinear triangles
+    g = np.asarray([[-20, -20, 1], [3 * w, -10, 1], [-10, 3 * h, 1],
+                    [10, 10, 2], [w - 10, 20, 2], [20, h - 10, 2]],
+                   np.float32)
+    p = v.copy()
+    p[1500:] += 1e7                                # parked vertices
+    o = v.copy()
+    o[:, 0] += 1e30                                # far off the canvas
+    return [
+        ("random", v, t, c),
+        ("ties", v, np.concatenate([t, t[::-1]]), c),
+        ("degenerate", d, np.concatenate(
+            [t, rng.integers(0, 600, (1000, 3))]).astype(np.int32), c),
+        ("giant", np.concatenate([v, g]), np.concatenate(
+            [t, [[3000, 3001, 3002], [3003, 3004, 3005]]]).astype(np.int32),
+         np.concatenate([c, rng.uniform(0, 1, (6, 3))]).astype(np.float32)),
+        ("parked", p, t, c),
+        ("offcanvas", o, t, c),
+        ("empty", v, t[:0], c),
+    ]
+
+
 def main():
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--profile", metavar="DIR",
                     help="also profile process_batch; traces go to DIR")
     args = ap.parse_args()
 
-    import numpy as np
     import torch
 
     if not torch.cuda.is_available():
@@ -99,23 +148,37 @@ def main():
     from synergynet_tpu_torch.ops.fused_decode import (
         decode_dense_fused, decode_dense_fused_reference)
     from synergynet_tpu_torch.pipeline import (FusedFrameEngine,
-                                               SynergyNet3DMM)
+                                               FusedOverlayEngine,
+                                               SynergyNet3DMM, prepare_frame,
+                                               unpack_face_outputs)
+    from synergynet_tpu_torch.pipeline.api import _resize_linear
+    from synergynet_tpu_torch.pipeline.overlay_engine import (
+        _face_buckets, composite, light_faces)
+    from synergynet_tpu_torch.render import (
+        DEPTH_INIT, plane_records, rasterize_buffers_reference,
+        rasterize_buffers_tiled, rasterize_records,
+        rasterize_records_reference)
 
     dev = torch.device(DEVICE)
     card = card_line()
     log(f"card: {card} | torch {torch.__version__} cuda {torch.version.cuda}"
         f" | {torch.cuda.get_device_name(0)}")
 
-    # -- 2. build -----------------------------------------------------------
+    # -- 2. build, one nvcc per source, all at once ---------------------------
     t0 = time.perf_counter()
-    cuda_build.load_kernel_library("fused_decode")
-    info = cuda_build.build_info("fused_decode")
-    log(f"build fused_decode: nvcc {info['seconds']:.2f} s, load "
+    with ThreadPoolExecutor(len(KERNELS)) as pool:
+        for fut in [pool.submit(cuda_build.load_kernel_library, k)
+                    for k in KERNELS]:
+            fut.result()
+    for k in KERNELS:
+        info = cuda_build.build_info(k)
+        log(f"build {k}: nvcc {info['seconds']:.2f} s")
+        for line in info["ptxas"]:
+            log(f"  {line}")
+    log(f"built {len(KERNELS)} kernels in parallel: "
         f"{time.perf_counter() - t0:.2f} s total")
-    for line in info["ptxas"]:
-        log(f"  {line}")
 
-    # -- 3. kernel vs plain twin at the path's shapes ------------------------
+    # -- 3a. kernel B1 vs plain twin at the path's shapes ----------------------
     api = SynergyNet3DMM(variables="trained", dtype=torch.bfloat16,
                          device=dev)
     pack, basis = api.pack_dev, api.basis
@@ -140,12 +203,72 @@ def main():
         kernel_stats[b] = (ms, plain)
         log(f"fused_decode B={b}: max_abs_err {err:.3e} (rtol {RTOL}, atol "
             f"{ATOL}) | kernel {ms:.4f} ms | plain {plain:.4f} ms | {card}")
-    del flush_buf
+
+    det = FaceBoxes(dtype=torch.bfloat16, device=dev, seed=0)
+    eng = FusedFrameEngine(api, detector=det, max_faces=FACES)
+    ov = FusedOverlayEngine(eng)
+    ch, cw = CANVAS
+    ntri = ov.tris_face.shape[0]
+
+    # -- 3b. kernel B2 vs plain twin: 8 lit meshes, then stress meshes ---------
+    r_err = 0.0
+
+    def raster_twins(rec, h, w, what):
+        """Kernel and plain twin on the same records: bit-identical."""
+        nonlocal r_err
+        got = rasterize_records(rec, 3, h=h, w=w)
+        want = rasterize_records_reference(rec, 3, h=h, w=w)
+        torch.cuda.synchronize()
+        for g, x, name in zip(got, want, ("zbuf", "color")):
+            if not torch.equal(g, x):
+                bad = (g != x).sum().item()
+                fail(f"raster_tiled {what}: {name} differs from the plain "
+                     f"twin at {bad} entries")
+            r_err = max(r_err, (g - x).abs().max().item())
+        return got
+
+    with torch.inference_mode():
+        p = torch.tensor(rng.normal(0, 1, (FACES, 62)).astype(np.float32),
+                         device=dev)
+        size = rng.uniform(80, 600, FACES)
+        x0, y0 = rng.uniform(0, cw - size), rng.uniform(0, ch - size)
+        rois = torch.tensor(np.stack([x0, y0, x0 + size, y0 + size], 1),
+                            dtype=torch.float32, device=dev)
+        dense8 = rescale_to_roi(decode_dense_fused(p, basis, pack), rois)
+        verts8, light8 = light_faces(
+            dense8.transpose(1, 2), torch.ones(FACES, dtype=torch.bool,
+                                               device=dev),
+            ov.tris_face, ov.rings, ov.light_cfg)
+        rec8 = plane_records(verts8.reshape(-1, 3), ov.tris_all,
+                             light8.reshape(-1, 3), h=ch, w=cw)
+        zb, _ = raster_twins(rec8, ch, cw, f"{FACES} random meshes")
+        drawn8 = (zb > DEPTH_INIT).float().mean().item()
+        r_ms = time_ms(lambda: rasterize_records(rec8, 3, h=ch, w=cw), 20,
+                       torch, flush_buf.zero_)
+        r_plain = time_ms(
+            lambda: rasterize_records_reference(rec8, 3, h=ch, w=cw), 5,
+            torch, flush_buf.zero_)
+        log(f"raster_tiled {FACES} meshes x {ntri} triangles on {ch}x{cw}: "
+            f"bit-identical to the plain twin, {drawn8:.3f} of pixels drawn "
+            f"| kernel {r_ms:.4f} ms | plain {r_plain:.4f} ms | {card}")
+        for name, v, t, c in stress_meshes(np.random.default_rng(3), ch, cw):
+            v, t, c = (torch.tensor(a, device=dev) for a in (v, t, c))
+            z, _ = rasterize_buffers_tiled(v, t, c, h=ch, w=cw)
+            zr, _ = rasterize_buffers_reference(v, t, c, h=ch, w=cw)
+            rec = plane_records(v, t, c, h=ch, w=cw)
+            raster_twins(rec, ch, cw, f"stress mesh {name}")
+            if not torch.equal(z, zr):
+                fail(f"raster_tiled stress mesh {name}: entry point differs")
+            n_drawn = (z > DEPTH_INIT).sum().item()
+            if (n_drawn == 0) != (name in ("offcanvas", "empty")):
+                fail(f"raster_tiled stress mesh {name}: {n_drawn} pixels "
+                     "drawn")
+            log(f"raster_tiled stress {name}: {t.shape[0]} triangles, "
+                f"{n_drawn} pixels drawn, bit-identical")
+    del flush_buf, dense8, verts8, light8, rec8
     torch.cuda.empty_cache()
 
     # -- 4. the serving path --------------------------------------------------
-    det = FaceBoxes(dtype=torch.bfloat16, device=dev, seed=0)
-    eng = FusedFrameEngine(api, detector=det, max_faces=FACES)
     kp_vert = pack.keypoints[0::3].long() // 3
 
     def check_faces(pts, verts, poses, what):
@@ -162,7 +285,6 @@ def main():
                                        rtol=RTOL, atol=1e-2)
 
     g = torch.Generator(device=dev).manual_seed(0)
-    ch, cw = CANVAS
     frames = torch.randint(0, 256, (BATCH, ch, cw, 3), generator=g,
                            device=dev).float()
     frames_s2d = space_to_depth(frames, det.stem_r).contiguous()
@@ -215,7 +337,71 @@ def main():
         f" dense vs plain twin max_abs_err {path_err:.3e}, peak "
         f"{peak_gb:.2f} GiB, {time.perf_counter() - t0:.1f} s")
 
-    # -- 5. end-to-end timing ---------------------------------------------------
+    # -- 5. the overlay path ----------------------------------------------------
+    imgs = {hw: np.random.default_rng(2).integers(0, 256, (*hw, 3), np.uint8)
+            for hw in OVERLAY_FRAMES}
+    # Launches count over the overlay path's own calls only.
+    decode_dense_fused.launches = 0
+    rasterize_buffers_tiled.launches = 0
+    t0 = time.perf_counter()
+    results = {hw: ov(img) for hw, img in imgs.items()}
+    torch.cuda.synchronize()
+    r_launches = rasterize_buffers_tiled.launches
+    log(f"overlay path: raster_tiled launched {r_launches} times, "
+        f"fused_decode {decode_dense_fused.launches} times (__call__ x"
+        f"{len(imgs)}), {time.perf_counter() - t0:.1f} s")
+    if r_launches <= 0:
+        fail("the overlay path never launched the raster_tiled kernel")
+    if decode_dense_fused.launches <= 0:
+        fail("the overlay path never launched the fused_decode kernel")
+
+    with torch.inference_mode():
+        for hw, img in imgs.items():
+            pts, verts, poses, overlay = results[hw]
+            if overlay.shape != img.shape or overlay.dtype != np.uint8:
+                fail(f"overlay {hw}: {overlay.shape} {overlay.dtype}")
+            check_faces(pts, verts, poses, f"overlay __call__ {hw}")
+            want = eng(img)
+            if len(want[0]) != len(pts):
+                fail(f"overlay {hw}: {len(pts)} faces, FusedFrameEngine "
+                     f"finds {len(want[0])}")
+            for a, b in zip(pts + verts + [x for p_ in poses for x in p_],
+                            want[0] + want[1]
+                            + [x for p_ in want[2] for x in p_]):
+                if not np.array_equal(a, b):
+                    fail(f"overlay {hw}: faces differ from "
+                         "FusedFrameEngine.__call__'s")
+            # The same render through the plain twin, from the same outputs.
+            canvas, packed, true_hw, scale = prepare_frame(img, det.stem_r,
+                                                           dev)
+            o = eng.process_batch(canvas[None], packed[None], true_hw[None])
+            n, dn = int(o[1][0]), o[5][0]
+            valid = torch.arange(FACES, device=dev) < n
+            vl, lt = light_faces(dn.transpose(1, 2), valid, ov.tris_face,
+                                 ov.rings, ov.light_cfg)
+            rec = plane_records(vl.reshape(-1, 3), ov.tris_all,
+                                lt.reshape(-1, 3), h=ch, w=cw)
+            raster_twins(rec, ch, cw, f"overlay {hw} meshes")
+            zp, cp = rasterize_records_reference(rec, 3, h=ch, w=cw)
+            frame_u8 = canvas.clamp(0, 255).to(torch.uint8)
+            plain = composite(frame_u8, zp, cp, ov.alpha)[0]
+            hs, ws = true_hw.tolist()
+            plain, drawn = plain[:hs, :ws], (zp > DEPTH_INIT)[:hs, :ws]
+            if scale != 1.0:
+                plain = _resize_linear(plain, *img.shape[:2]).to(torch.uint8)
+            else:
+                undrawn = ~drawn.cpu().numpy()
+                if not np.array_equal(overlay[undrawn], img[undrawn]):
+                    fail(f"overlay {hw}: undrawn pixels differ from the "
+                         "frame")
+            if not np.array_equal(overlay, plain.cpu().numpy()):
+                fail(f"overlay {hw}: differs from the plain-twin render")
+            log(f"overlay {hw[0]}x{hw[1]}: {n} faces, {overlay.shape} uint8, "
+                f"{drawn.float().mean().item():.3f} of the canvas drawn, "
+                f"faces equal FusedFrameEngine's, overlay equals the plain-"
+                "twin render, kernel == twin on the path's meshes")
+
+    # -- 6. end-to-end timing ---------------------------------------------------
     e2e = {}
     for b in (1, BATCH):
         a = (frames[:b], frames_s2d[:b], hws[:b])
@@ -240,7 +426,51 @@ def main():
                 f"{k} {v:.3f} ms" for k, v in stages[str(b)].items())
                 + f" | {card}")
 
-    # -- 6. device profile (opt-in) -------------------------------------------
+    img = imgs[CANVAS]
+    for _ in range(2):
+        ov(img)
+    reps = 10
+    t0 = time.perf_counter()
+    for _ in range(reps):
+        ov(img)
+    overlay_ms = (time.perf_counter() - t0) * 1e3 / reps
+    with torch.inference_mode():
+        canvas, packed, true_hw, _ = prepare_frame(img, det.stem_r, dev)
+        a = (canvas[None], packed[None], true_hw[None])
+        o = eng.process_batch(*a)
+        n, dn = int(o[1][0]), o[5][0]
+        fb = next(b for b in _face_buckets(FACES) if b >= max(n, 1))
+        vin = dn[:fb].transpose(1, 2)
+        valid = torch.arange(fb, device=dev) < n
+        vl, lt = light_faces(vin, valid, ov.tris_face, ov.rings, ov.light_cfg)
+        tris = ov.tris_all[:fb * ntri]
+        rec = plane_records(vl.reshape(-1, 3), tris, lt.reshape(-1, 3),
+                            h=ch, w=cw)
+        zb, col = rasterize_records(rec, 3, h=ch, w=cw)
+        frame_u8 = canvas.clamp(0, 255).to(torch.uint8)
+        olay = composite(frame_u8, zb, col, ov.alpha)[0]
+        lmk1, ang1, t3d1 = o[4][0], o[6][0], o[7][0]
+        ov_stages = {name: time_ms(fn, 10, torch) for name, fn in (
+            ("frame prep (prepare_frame)", lambda: prepare_frame(
+                img, det.stem_r, dev)),
+            ("serving (process_batch, B=1)", lambda: eng.process_batch(*a)),
+            ("normals + light", lambda: light_faces(
+                vin, valid, ov.tris_face, ov.rings, ov.light_cfg)),
+            ("record build", lambda: plane_records(
+                vl.reshape(-1, 3), tris, lt.reshape(-1, 3), h=ch, w=cw)),
+            ("raster kernel", lambda: rasterize_records(rec, 3, h=ch, w=cw)),
+            ("blend + composite", lambda: composite(frame_u8, zb, col,
+                                                    ov.alpha)),
+            ("overlay to host", lambda: olay.cpu()),
+            ("faces to host (unpack)", lambda: unpack_face_outputs(
+                n, *(x.cpu().numpy() for x in (lmk1, dn, ang1, t3d1)), 1.0)))}
+    log(f"overlay {ch}x{cw}, {n} faces (bucket {fb}): {overlay_ms:.3f} ms "
+        f"per frame (__call__, host clock, mean of {reps}) | {card}")
+    log("overlay stages: " + ", ".join(
+        f"{k} {v:.3f} ms" for k, v in ov_stages.items())
+        + f"; sum {sum(ov_stages.values()):.3f} ms | {card}")
+
+    # -- 7. device profile (opt-in) -------------------------------------------
     if args.profile:
         from synergynet_tpu_torch.core.profiling import profile_calls
         os.makedirs(args.profile, exist_ok=True)
@@ -269,10 +499,17 @@ def main():
         "replaces": "synergynet_tpu/ops/fused_decode.py:66",
         "launches": launches, "max_abs_err": max_err,
         "ms": ms1k, "plain_ms": plain1k, "faces": FACES * BATCH,
-        "ms_b8": ms8, "plain_ms_b8": plain8}],
+        "ms_b8": ms8, "plain_ms_b8": plain8}, {
+        "name": "raster_tiled", "route": "cuda",
+        "source": "synergynet_tpu_torch/csrc/raster_tiled.cu",
+        "replaces": "synergynet_tpu/render/raster_tiled.py:179",
+        "launches": r_launches, "max_abs_err": r_err,
+        "ms": r_ms, "plain_ms": r_plain, "triangles": FACES * ntri,
+        "canvas": list(CANVAS)}],
         "e2e_faces_per_s": {str(b): v[1] for b, v in e2e.items()},
         "e2e_ms": {str(b): v[0] for b, v in e2e.items()},
-        "stages_ms": stages}), flush=True)
+        "stages_ms": stages, "overlay_ms": overlay_ms,
+        "overlay_stages_ms": ov_stages}), flush=True)
     print(card, flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

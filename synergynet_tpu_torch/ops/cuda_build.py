@@ -70,6 +70,36 @@ def load_kernel_library(name: str) -> ctypes.CDLL:
     return lib
 
 
+def check_tensor(name: str, t, dtypes, shape, device) -> None:
+    """Raise unless ``t`` is a contiguous tensor on ``device`` whose dtype is
+    one of ``dtypes`` and whose shape is ``shape`` (``None`` matches any
+    extent): what a kernel's plain C entry takes on trust."""
+    if t.device != device:
+        raise ValueError(f"{name} is on {t.device}, expected {device}")
+    if t.dtype not in dtypes:
+        raise TypeError(f"{name} is {t.dtype}, the kernel takes one of "
+                        f"{dtypes}")
+    if t.dim() != len(shape) or any(
+            want is not None and got != want
+            for got, want in zip(t.shape, shape)):
+        raise ValueError(f"{name} has shape {tuple(t.shape)}, expected "
+                         f"{tuple('*' if s is None else s for s in shape)}")
+    if not t.is_contiguous():
+        raise ValueError(f"{name} is not contiguous")
+
+
+def require_sm90(device, what: str) -> None:
+    """Raise unless ``device`` is a Hopper card, which the sm_90a builds
+    need."""
+    import torch
+
+    cap = torch.cuda.get_device_capability(device)
+    if cap != (9, 0):
+        raise RuntimeError(
+            f"the {what} kernel is built for sm_90a; {device} is "
+            f"{torch.cuda.get_device_name(device)} (capability {cap})")
+
+
 def build_info(name: str) -> dict:
     """Build seconds (0.0 when an existing build was loaded), library path
     and the ptxas resource lines of a loaded kernel library."""

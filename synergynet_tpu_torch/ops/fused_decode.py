@@ -23,7 +23,9 @@ import torch
 
 from synergynet_tpu_torch.mm3d.assets import ParamPack, STD_SIZE
 from synergynet_tpu_torch.mm3d.codec import dewhiten, full_fp32
-from synergynet_tpu_torch.ops.cuda_build import load_kernel_library
+from synergynet_tpu_torch.ops.cuda_build import (check_tensor,
+                                                 load_kernel_library,
+                                                 require_sm90)
 
 LANE = 128
 N_COEF = 50
@@ -97,25 +99,13 @@ def _launch(alpha, p9, off, basis: DecodeBasis) -> torch.Tensor:
               "off": (off, (b, 3)), "basis.w": (basis.w, (3, npad, N_COEF)),
               "basis.u": (basis.u, (3, npad))}
     for name, (t, shape) in expect.items():
-        if t.device != dev:
-            raise ValueError(f"{name} is on {t.device}, expected {dev}")
-        if t.dtype != torch.float32:
-            raise TypeError(f"{name} is {t.dtype}, the kernel takes float32")
-        if tuple(t.shape) != shape:
-            raise ValueError(f"{name} has shape {tuple(t.shape)}, "
-                             f"expected {shape}")
-        if not t.is_contiguous():
-            raise ValueError(f"{name} is not contiguous")
+        check_tensor(name, t, (torch.float32,), shape, dev)
     if not 0 < nver <= npad:
         raise ValueError(f"nver {nver} outside (0, npad={npad}]")
     if b * 3 * nver >= 2 ** 31 or npad * 3 * N_COEF >= 2 ** 31:
         raise ValueError(f"batch {b} x {nver} vertices exceeds the kernel's "
                          "32-bit extents")
-    if torch.cuda.get_device_capability(dev) != (9, 0):
-        raise RuntimeError(
-            f"the fused-decode kernel is built for sm_90a; {dev} is "
-            f"{torch.cuda.get_device_name(dev)} "
-            f"(capability {torch.cuda.get_device_capability(dev)})")
+    require_sm90(dev, "fused-decode")
     lib = load_kernel_library("fused_decode")
     fn = lib.synergy_fused_decode
     fn.argtypes = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 3 + [

@@ -81,3 +81,115 @@ def test_fused_decode_rejects_what_it_does_not_take(cuda, full):
     p = torch.zeros((2, 62), device=cuda)
     with pytest.raises(ValueError):
         decode_dense_fused(p, basis._replace(w=basis.w.cpu()), pack)
+
+
+# -- kernel B2: the z-buffer rasterizer -------------------------------------
+
+def _raster_cases(rng, h=96, w=160):
+    """Stress meshes: (name, verts (V, 3), tris (T, 3), colors (V, 3))."""
+    v = rng.uniform([0, 0, -5], [w, h, 5], (300, 3)).astype(np.float32)
+    t = rng.integers(0, 300, (400, 3)).astype(np.int32)
+    c = rng.uniform(0, 1, (300, 3)).astype(np.float32)
+    cases = [("random", v, t, c)]
+    # every triangle twice: exact depth ties, the lower index must win
+    cases.append(("ties", v, np.concatenate([t, t[::-1]]), c))
+    d = v.copy()
+    d[:30, :2] = d[0, :2]                          # zero-area triangles
+    d[30:60, 1] = d[30:60, 0] * 0.5                # collinear triangles
+    td = np.concatenate([t, rng.integers(0, 60, (100, 3))]).astype(np.int32)
+    cases.append(("degenerate", d, td, c))
+    g = np.asarray([[-20, -20, 1], [3 * w, -10, 1], [-10, 3 * h, 1],
+                    [10, 10, 2], [w - 10, 20, 2], [20, h - 10, 2]],
+                   np.float32)
+    cases.append(("giant", np.concatenate([v, g]),
+                  np.concatenate([t, [[300, 301, 302], [303, 304, 305]]]
+                                 ).astype(np.int32),
+                  np.concatenate([c, rng.uniform(0, 1, (6, 3))]
+                                 ).astype(np.float32)))
+    p = v.copy()
+    p[150:] += 1e7                                 # parked half
+    cases.append(("parked", p, t, c))
+    o = v.copy()
+    o[:, 0] += 1e30                                # far off the canvas
+    cases.append(("offcanvas", o, t, c))
+    cases.append(("empty", v, t[:0], c))
+    return cases
+
+
+def _full_width_mesh(cuda, faces=8, seed=0):
+    """8 decoded BFM meshes in rois spread over the 720x1088 canvas, with
+    random per-vertex colors."""
+    from synergynet_tpu_torch.mm3d import rescale_to_roi
+    pack = load_param_pack().to(cuda)
+    basis = build_decode_basis(pack).to(cuda)
+    rng = np.random.default_rng(seed)
+    p = torch.tensor(rng.normal(0, 1, (faces, 62)).astype(np.float32),
+                     device=cuda)
+    size = rng.uniform(80, 600, faces)
+    x0 = rng.uniform(0, 1088 - size)
+    y0 = rng.uniform(0, 720 - size)
+    rois = torch.tensor(np.stack([x0, y0, x0 + size, y0 + size], 1),
+                        dtype=torch.float32, device=cuda)
+    dense = rescale_to_roi(decode_dense_fused_reference(p, basis, pack), rois)
+    nver = dense.shape[2]
+    verts = dense.transpose(1, 2).reshape(-1, 3).contiguous()
+    tri = pack.tri.T.long()
+    tris = (tri[None] + torch.arange(faces, device=cuda)[:, None, None]
+            * nver).reshape(-1, 3).contiguous()
+    colors = torch.tensor(rng.uniform(0, 1, (faces * nver, 3)),
+                          dtype=torch.float32, device=cuda)
+    return verts, tris, colors
+
+
+def _assert_raster_twins(verts, tris, colors, h, w):
+    from synergynet_tpu_torch.render import (rasterize_buffers_reference,
+                                             rasterize_buffers_tiled)
+    before = rasterize_buffers_tiled.launches
+    z, c = rasterize_buffers_tiled(verts, tris, colors, h=h, w=w)
+    torch.cuda.synchronize()
+    assert rasterize_buffers_tiled.launches == before + 1
+    zr, cr = rasterize_buffers_reference(verts, tris, colors, h=h, w=w)
+    assert z.shape == (h, w) and c.shape == (h, w, 3)
+    assert torch.equal(z, zr) and torch.equal(c, cr)
+    return z
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("case", range(7))
+def test_raster_kernel_matches_plain_twin_on_stress_meshes(cuda, case):
+    name, v, t, c = _raster_cases(np.random.default_rng(case))[case]
+    z = _assert_raster_twins(*(torch.tensor(a, device=cuda)
+                               for a in (v, t, c)), 96, 160)
+    drawn = (z > -1e8).sum().item()
+    if name in ("offcanvas", "empty"):
+        assert drawn == 0
+    else:
+        assert drawn > 0
+
+
+@pytest.mark.gpu
+def test_raster_kernel_matches_plain_twin_at_full_width(cuda):
+    verts, tris, colors = _full_width_mesh(cuda)
+    assert tris.shape == (8 * 105840, 3)
+    z = _assert_raster_twins(verts, tris, colors, 720, 1088)
+    assert (z > -1e8).float().mean().item() > 0.05
+
+
+@pytest.mark.gpu
+def test_raster_kernel_rejects_what_it_does_not_take(cuda):
+    from synergynet_tpu_torch.render import (plane_records,
+                                             rasterize_buffers_tiled,
+                                             rasterize_records)
+    _, v, t, c = _raster_cases(np.random.default_rng(0))[0]
+    v, t, c = (torch.tensor(a, device=cuda) for a in (v, t, c))
+    with pytest.raises(TypeError):
+        rasterize_buffers_tiled(v.double(), t, c, h=32, w=32)
+    with pytest.raises(ValueError):
+        rasterize_buffers_tiled(v, t.cpu(), c, h=32, w=32)
+    with pytest.raises(ValueError):
+        rasterize_buffers_tiled(v.T.contiguous().T, t, c, h=32, w=32)
+    rec = plane_records(v, t, c, h=32, w=32)
+    with pytest.raises(ValueError):
+        rasterize_records(rec[:, ::2], 3, h=32, w=32)
+    with pytest.raises(ValueError):
+        rasterize_records(rec, 6, h=32, w=32)

@@ -27,6 +27,8 @@ MODULES = [
     "synergynet_tpu_torch.convert",
     "synergynet_tpu_torch.detect",
     "synergynet_tpu_torch.pipeline",
+    "synergynet_tpu_torch.pipeline.overlay_engine",
+    "synergynet_tpu_torch.render",
 ]
 
 
