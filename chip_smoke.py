@@ -8,18 +8,22 @@ them, and fails when the port's package is not beside this script. Phases,
 each fatal on failure:
 
 1. the card: ``nvidia-smi`` name and power limit;
-2. build every kernel of the serving and overlay paths from
-   ``synergynet_tpu_torch/csrc`` (nvcc, sm_90a, one nvcc per source, all
-   started together) and print the build seconds and ptxas resource lines;
+2. build every kernel of the serving, overlay, fused-stem and deferred
+   paths from ``synergynet_tpu_torch/csrc`` (nvcc, sm_90a, one nvcc per
+   source, all started together) and print the build seconds and ptxas
+   resource lines;
 3. each kernel against its plain PyTorch twin on the card, at its path's
    shapes, with kernel and plain times (CUDA events, L2 flushed between
    launches, as the path finds it cold):
    fused decode (B1): 8 and 1024 faces on the full 53,215-vertex basis,
    f32, within rtol 1e-4 / atol 1e-3;
-   z-buffer raster (B2): 8 lit BFM meshes (846,720 triangles) decoded from
-   seeded random param62 in rois spread over the 720x1088 canvas, and
-   stress meshes (ties, degenerate, giant, parked, off-canvas, empty):
-   zbuf and color bit-identical;
+   z-buffer raster (B2) and ids resolve (B3): 8 lit BFM meshes (846,720
+   triangles) decoded from seeded random param62 in rois spread over the
+   720x1088 canvas, and stress meshes (ties, degenerate, giant, parked,
+   off-canvas, empty): zbuf, color and triangle id bit-identical;
+   fused stem (B4): 1 and 128 720x1088 frames packed s2d8, mean
+   subtracted, bf16, within rtol 1.6e-2 / atol 1e-5 (bf16's own
+   tolerance), with the share of elements that differ;
 4. the serving path at full width -- MobileNetV2 1.0 on the shipped
    trained weights, bf16; the seeded random-init bf16 FaceBoxes detector;
    8 faces per 720x1088 frame: ``FusedFrameEngine.__call__`` on a 720x1088
@@ -27,23 +31,33 @@ each fatal on failure:
    finite values, landmarks equal to the dense mesh at the keypoint
    vertices, and the dense mesh against the plain twin on the path's own
    param62; every kernel's launch count over these calls (and only these)
-   must be > 0;
+   must be > 0. Then the same calls and checks on a second engine whose
+   detector runs the fused stem (``stem_mode="pallas"``), with the stem
+   kernel's launch count > 0, and its agreement with the first engine
+   printed (equal face counts, largest roi difference);
 5. the overlay path at full width: ``FusedOverlayEngine.__call__`` on a
    720x1088, a 480x640 and an oversized 1080x1920 frame; the raster
    kernel's launch count over these calls (and only these) must be > 0;
    the overlay has the input's shape and dtype uint8, landmarks, meshes
    and poses equal ``FusedFrameEngine.__call__``'s, the kernel equals its
    twin bit for bit on the path's own meshes, the overlay equals the same
-   render through the plain twin, and undrawn pixels equal the frame;
-6. end-to-end faces/s at 1 and 128 frames per call and ms per overlay
-   frame (CUDA events or host clock after a synchronise, after warm-up),
-   with a per-stage breakdown of each;
+   render through the plain twin, and undrawn pixels equal the frame.
+   Then the deferred raster on the same lit meshes:
+   ``rasterize_buffers_tiled(..., deferred=True)`` equals ``deferred=False``
+   bit for bit, the ids kernel's launch count over those calls is > 0,
+   and the visibility path's triangle ids equal the ids kernel's;
+6. end-to-end faces/s at 1 and 128 frames per call for the XLA-stem and
+   the fused-stem engines in turns, ms per overlay frame (CUDA events or
+   host clock after a synchronise, after warm-up), a per-stage breakdown
+   of each, and the deferred raster's time beside the payload raster's;
 7. with ``--profile DIR`` only: ``process_batch`` at 1 and 128 frames under
    ``torch.profiler`` -- device busy time, idle share, device ops per call
    and the leading ops -- with the Chrome traces and a summary in DIR.
 
-Prints the kernels as one JSON line, the card's name and power limit, and
-last ``{"ok": true, "device": {...}}``.
+Prints the kernels as one JSON line (each with its launches on its path,
+error against its twin, kernel, plain and library ms, and the least time
+the card could take, from this run's shapes), the card's name and power
+limit, and last ``{"ok": true, "device": {...}}``.
 """
 
 import argparse
@@ -61,8 +75,12 @@ BATCH = 128
 CANVAS = (720, 1088)
 OVERLAY_FRAMES = ((720, 1088), (480, 640), (1080, 1920))
 RTOL, ATOL = 1e-4, 1e-3     # the dense decode's tolerance (f32)
+STEM_TOL = dict(rtol=1.6e-2, atol=1e-5)     # bf16's own tolerance
 DEVICE = "cuda:0"
-KERNELS = ("fused_decode", "raster_tiled")
+KERNELS = ("fused_decode", "raster_tiled", "stem_s2d8")
+# Published H100 SXM peaks (dense): HBM bytes/s, bf16 tensor-core and f32
+# (outside the tensor cores) FLOP/s.
+HBM_BPS, BF16_FLOPS, F32_FLOPS = 3.35e12, 989e12, 67e12
 
 
 def log(msg):
@@ -99,6 +117,22 @@ def time_ms(fn, n, torch, flush=None):
         torch.cuda.synchronize()
         total += start.elapsed_time(end)
     return total / n
+
+
+def bound(nbytes, flops, peak):
+    """(bound_ms, bound_by): the larger of the bytes over the HBM rate and
+    the operations over ``peak``."""
+    t_bytes, t_ops = nbytes / HBM_BPS * 1e3, flops / peak * 1e3
+    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def bbox_pixels(rec):
+    """Pixels inside the records' clamped bboxes: the fragments a raster
+    kernel tests for this data."""
+    bb = rec[:, 9:13].long()
+    nx = (bb[:, 1] - bb[:, 0] + 1).clamp(min=0)
+    ny = (bb[:, 3] - bb[:, 2] + 1).clamp(min=0)
+    return int((nx * ny).sum())
 
 
 def stress_meshes(rng, h, w):
@@ -138,12 +172,16 @@ def main():
     args = ap.parse_args()
 
     import torch
+    import torch.nn.functional as F
 
     if not torch.cuda.is_available():
         fail("torch.cuda.is_available() is false: this smoke run needs a card")
     from synergynet_tpu_torch.detect import FaceBoxes
     from synergynet_tpu_torch.detect.net import space_to_depth
+    from synergynet_tpu_torch.detect.stem_fused import (
+        fused_stem1_s2d8, fused_stem1_s2d8_reference)
     from synergynet_tpu_torch.mm3d import rescale_to_roi
+    from synergynet_tpu_torch.mm3d.codec import full_fp32
     from synergynet_tpu_torch.ops import cuda_build
     from synergynet_tpu_torch.ops.fused_decode import (
         decode_dense_fused, decode_dense_fused_reference)
@@ -155,9 +193,10 @@ def main():
     from synergynet_tpu_torch.pipeline.overlay_engine import (
         _face_buckets, composite, light_faces)
     from synergynet_tpu_torch.render import (
-        DEPTH_INIT, plane_records, rasterize_buffers_reference,
-        rasterize_buffers_tiled, rasterize_records,
-        rasterize_records_reference)
+        DEPTH_INIT, compact_records, plane_records,
+        rasterize_buffers_reference, rasterize_buffers_tiled, rasterize_ids,
+        rasterize_ids_reference, rasterize_records,
+        rasterize_records_reference, rasterize_triangles_tiled)
 
     dev = torch.device(DEVICE)
     card = card_line()
@@ -200,9 +239,24 @@ def main():
                      flush_buf.zero_)
         plain = time_ms(lambda: decode_dense_fused_reference(p, basis, pack),
                         20, torch, flush_buf.zero_)
-        kernel_stats[b] = (ms, plain)
+        # The library yardstick: the (B, 50) x (50, 3 Npad) basis product
+        # alone, f32 with TF32 off, without the rotation and offset.
+        alpha = p[:, :50].contiguous()
+        w_t = basis.w.reshape(-1, 50).T.contiguous()
+        with full_fp32():
+            lib = time_ms(lambda: torch.matmul(alpha, w_t), 20, torch,
+                          flush_buf.zero_)
+        del w_t
+        nver, npad = basis.nver, basis.npad
+        nbytes = 4 * (b * (50 + 9 + 3) + 3 * npad * 51 + b * 3 * nver)
+        # Per vertex: 3 x 50 MACs, the mean, 3 x 3 MACs, offset, y flip.
+        b_ms, b_by = bound(nbytes, b * nver * (300 + 3 + 18 + 3 + 1),
+                           F32_FLOPS)
+        kernel_stats[b] = (ms, plain, lib, b_ms, b_by)
         log(f"fused_decode B={b}: max_abs_err {err:.3e} (rtol {RTOL}, atol "
-            f"{ATOL}) | kernel {ms:.4f} ms | plain {plain:.4f} ms | {card}")
+            f"{ATOL}) | kernel {ms:.4f} ms | plain {plain:.4f} ms | "
+            f"matmul alone {lib:.4f} ms | bound {b_ms:.4f} ms ({b_by}) | "
+            f"{card}")
 
     det = FaceBoxes(dtype=torch.bfloat16, device=dev, seed=0)
     eng = FusedFrameEngine(api, detector=det, max_faces=FACES)
@@ -210,8 +264,24 @@ def main():
     ch, cw = CANVAS
     ntri = ov.tris_face.shape[0]
 
-    # -- 3b. kernel B2 vs plain twin: 8 lit meshes, then stress meshes ---------
+    # -- 3b. kernels B2 and B3 vs plain twins: 8 lit meshes, stress meshes ----
     r_err = 0.0
+
+    r3_err = 0.0
+
+    def ids_twins(rec_c, h, w, what):
+        """The ids kernel and its twin on the same records: bit-identical."""
+        nonlocal r3_err
+        got = rasterize_ids(rec_c, h=h, w=w)
+        want = rasterize_ids_reference(rec_c, h=h, w=w)
+        torch.cuda.synchronize()
+        for g, x, name in zip(got, want, ("zbuf", "tri_id")):
+            if not torch.equal(g, x):
+                bad = (g != x).sum().item()
+                fail(f"raster ids {what}: {name} differs from the plain twin"
+                     f" at {bad} entries")
+            r3_err = max(r3_err, (g.double() - x.double()).abs().max().item())
+        return got
 
     def raster_twins(rec, h, w, what):
         """Kernel and plain twin on the same records: bit-identical."""
@@ -248,24 +318,98 @@ def main():
         r_plain = time_ms(
             lambda: rasterize_records_reference(rec8, 3, h=ch, w=cw), 5,
             torch, flush_buf.zero_)
+        frags8 = bbox_pixels(rec8)
+        r_bound = bound(4 * (rec8.numel() + ch * cw * 4),
+                        13 * frags8 + 12 * ch * cw, F32_FLOPS)
         log(f"raster_tiled {FACES} meshes x {ntri} triangles on {ch}x{cw}: "
-            f"bit-identical to the plain twin, {drawn8:.3f} of pixels drawn "
-            f"| kernel {r_ms:.4f} ms | plain {r_plain:.4f} ms | {card}")
+            f"bit-identical to the plain twin, {drawn8:.3f} of pixels drawn, "
+            f"{frags8} bbox pixels | kernel {r_ms:.4f} ms | plain "
+            f"{r_plain:.4f} ms | bound {r_bound[0]:.4f} ms ({r_bound[1]}) | "
+            f"{card}")
+        rec8c, _ = compact_records(verts8.reshape(-1, 3), ov.tris_all,
+                                   light8.reshape(-1, 3), h=ch, w=cw)
+        zb3, ids3 = ids_twins(rec8c, ch, cw, f"{FACES} random meshes")
+        if not torch.equal(zb3, zb):
+            fail("raster ids: zbuf differs from the payload kernel's")
+        r3_ms = time_ms(lambda: rasterize_ids(rec8c, h=ch, w=cw), 20, torch,
+                        flush_buf.zero_)
+        r3_plain = time_ms(lambda: rasterize_ids_reference(rec8c, h=ch,
+                                                           w=cw), 5,
+                           torch, flush_buf.zero_)
+        r3_bound = bound(4 * rec8c.numel() + 8 * ch * cw, 13 * frags8,
+                         F32_FLOPS)
+        log(f"raster ids {FACES} meshes: zbuf and tri_id bit-identical to "
+            f"the plain twin, zbuf equal to the payload kernel's | kernel "
+            f"{r3_ms:.4f} ms | plain {r3_plain:.4f} ms | bound "
+            f"{r3_bound[0]:.4f} ms ({r3_bound[1]}) | {card}")
         for name, v, t, c in stress_meshes(np.random.default_rng(3), ch, cw):
             v, t, c = (torch.tensor(a, device=dev) for a in (v, t, c))
             z, _ = rasterize_buffers_tiled(v, t, c, h=ch, w=cw)
             zr, _ = rasterize_buffers_reference(v, t, c, h=ch, w=cw)
             rec = plane_records(v, t, c, h=ch, w=cw)
             raster_twins(rec, ch, cw, f"stress mesh {name}")
+            rec_c, _ = compact_records(v, t, c, h=ch, w=cw)
+            z3, _ = ids_twins(rec_c, ch, cw, f"stress mesh {name}")
+            if not torch.equal(z3, zr):
+                fail(f"raster ids stress mesh {name}: zbuf differs from "
+                     "the payload kernel's")
             if not torch.equal(z, zr):
                 fail(f"raster_tiled stress mesh {name}: entry point differs")
             n_drawn = (z > DEPTH_INIT).sum().item()
             if (n_drawn == 0) != (name in ("offcanvas", "empty")):
                 fail(f"raster_tiled stress mesh {name}: {n_drawn} pixels "
                      "drawn")
-            log(f"raster_tiled stress {name}: {t.shape[0]} triangles, "
-                f"{n_drawn} pixels drawn, bit-identical")
-    del flush_buf, dense8, verts8, light8, rec8
+            log(f"raster_tiled + ids stress {name}: {t.shape[0]} triangles,"
+                f" {n_drawn} pixels drawn, bit-identical")
+    del dense8, verts8, light8, rec8, rec8c
+
+    # -- 3c. kernel B4 vs plain twin: 1 and 128 real s2d8 frames, bf16 -------
+    det_p = FaceBoxes(dtype=torch.bfloat16, device=dev, seed=0,
+                      stem_mode="pallas")
+    g = torch.Generator(device=dev).manual_seed(0)
+    frames = torch.randint(0, 256, (BATCH, ch, cw, 3), generator=g,
+                           device=dev).float()
+    frames_s2d = space_to_depth(frames, det.stem_r).contiguous()
+    hws = torch.tensor([[ch, cw]] * BATCH, dtype=torch.int32, device=dev)
+    stem = det_p.net.conv1_s2d8
+    k4, s_bias = stem.tap_weights(), stem.bias.detach()
+    x_stem = (frames_s2d - eng._det_mean).to(torch.bfloat16)
+    stem_stats = {}
+    s_err = 0.0
+    with torch.inference_mode():
+        for b in (1, BATCH):
+            xb = x_stem[:b]
+            got = fused_stem1_s2d8(xb, k4, s_bias)
+            want = fused_stem1_s2d8_reference(xb, k4, s_bias)
+            torch.cuda.synchronize()
+            torch.testing.assert_close(got.float(), want.float(), **STEM_TOL)
+            err = (got.float() - want.float()).abs().max().item()
+            differ = (got != want).float().mean().item()
+            s_err = max(s_err, err)
+            del got, want
+            ms = time_ms(lambda: fused_stem1_s2d8(xb, k4, s_bias),
+                         20 if b == 1 else 10, torch, flush_buf.zero_)
+            plain = time_ms(lambda: fused_stem1_s2d8_reference(
+                xb, k4, s_bias), 5, torch, flush_buf.zero_)
+            # The library yardstick: cuDNN's bf16 conv with bias on the
+            # pre-padded input, without the pool.
+            xpad = F.pad(xb.permute(0, 3, 1, 2), (1, 0, 1, 0)).contiguous(
+                memory_format=torch.channels_last)
+            lib = time_ms(lambda: F.conv2d(xpad, stem.weight, stem.bias),
+                          20 if b == 1 else 10, torch, flush_buf.zero_)
+            del xpad
+            npos = b * xb.shape[1] * xb.shape[2]
+            s_bound = bound(2 * (xb.numel() + k4.numel() + npos * 48)
+                            + 4 * 192, 2 * npos * 768 * 192 + 9 * npos * 48,
+                            BF16_FLOPS)
+            stem_stats[b] = (ms, plain, lib) + s_bound
+            log(f"stem_s2d8 B={b} ({tuple(xb.shape)} bf16): max_abs_err "
+                f"{err:.3e}, {differ:.2e} of elements differ from the twin "
+                f"(rtol {STEM_TOL['rtol']}, atol {STEM_TOL['atol']}) | "
+                f"kernel {ms:.4f} ms | plain {plain:.4f} ms | cuDNN conv "
+                f"alone {lib:.4f} ms | bound {s_bound[0]:.4f} ms "
+                f"({s_bound[1]}) | {card}")
+    del flush_buf, x_stem
     torch.cuda.empty_cache()
 
     # -- 4. the serving path --------------------------------------------------
@@ -284,11 +428,25 @@ def main():
             np.testing.assert_allclose(v[:, kp_vert.cpu().numpy()], lm,
                                        rtol=RTOL, atol=1e-2)
 
-    g = torch.Generator(device=dev).manual_seed(0)
-    frames = torch.randint(0, 256, (BATCH, ch, cw, 3), generator=g,
-                           device=dev).float()
-    frames_s2d = space_to_depth(frames, det.stem_r).contiguous()
-    hws = torch.tensor([[ch, cw]] * BATCH, dtype=torch.int32, device=dev)
+    def check_dense(o):
+        """Finite outputs; the dense mesh against the plain twin on the
+        path's own param62 and rois; landmarks equal to the dense mesh at
+        the keypoint vertices. -> the dense mesh's max abs error."""
+        for x in (o[2], o[3], o[4], o[5], o[6], o[7]):
+            if not torch.isfinite(x).all():
+                fail("process_batch: non-finite output")
+        flat_p, flat_r = o[3].reshape(-1, 62), o[2].reshape(-1, 4)
+        d = o[5]
+        with torch.inference_mode():
+            ref = rescale_to_roi(
+                decode_dense_fused_reference(flat_p, basis, pack), flat_r)
+        err = (d.reshape(ref.shape) - ref).abs().max().item()
+        torch.testing.assert_close(d.reshape(ref.shape), ref, rtol=RTOL,
+                                   atol=ATOL)
+        torch.testing.assert_close(d[..., kp_vert], o[4], rtol=RTOL,
+                                   atol=1e-2)
+        return err
+
     torch.cuda.synchronize()
 
     # Launches count over the path's own calls: __call__ twice, then
@@ -298,9 +456,11 @@ def main():
     frames_np = {hw: np.random.default_rng(1).integers(0, 256, (*hw, 3),
                                                        np.uint8)
                  for hw in (CANVAS, (480, 640))}
+    n_xla = {}
     for hw, img in frames_np.items():
         pts, verts, poses = eng(img)
         check_faces(pts, verts, poses, f"__call__ {hw}")
+        n_xla[hw] = len(pts)
         log(f"__call__ {hw[0]}x{hw[1]}: {len(pts)} faces, shapes "
             f"{pts[0].shape} {verts[0].shape}, finite")
 
@@ -320,22 +480,55 @@ def main():
                    (BATCH, FACES, 3)]
     if [tuple(x.shape) for x in out] != want_shapes:
         fail(f"process_batch shapes {[tuple(x.shape) for x in out]}")
-    for x in (rois, p62, lmk, dense, angles, t3d):
-        if not torch.isfinite(x).all():
-            fail("process_batch: non-finite output")
-    flat_p, flat_r = p62.reshape(-1, 62), rois.reshape(-1, 4)
-    with torch.inference_mode():
-        dense_ref = rescale_to_roi(
-            decode_dense_fused_reference(flat_p, basis, pack), flat_r)
-    path_err = (dense.reshape(dense_ref.shape) - dense_ref).abs().max().item()
-    torch.testing.assert_close(dense.reshape(dense_ref.shape), dense_ref,
-                               rtol=RTOL, atol=ATOL)
+    path_err = check_dense(out)
     max_err = max(max_err, path_err)
-    torch.testing.assert_close(dense[..., kp_vert], lmk, rtol=RTOL, atol=1e-2)
-    del dense_ref
     log(f"process_batch B={BATCH}: faces/frame {n_faces.float().mean():.2f},"
         f" dense vs plain twin max_abs_err {path_err:.3e}, peak "
         f"{peak_gb:.2f} GiB, {time.perf_counter() - t0:.1f} s")
+
+    # The same path with the fused stem: launches over its own calls.
+    eng_p = FusedFrameEngine(api, detector=det_p, max_faces=FACES)
+    fused_stem1_s2d8.launches = 0
+    decode_dense_fused.launches = 0
+    t0 = time.perf_counter()
+    same_calls = 0
+    for hw, img in frames_np.items():
+        pts_p, verts_p, poses_p = eng_p(img)
+        check_faces(pts_p, verts_p, poses_p, f"fused-stem __call__ {hw}")
+        same_calls += len(pts_p) == n_xla[hw]
+    out_p = eng_p.process_batch(frames, frames_s2d, hws)
+    torch.cuda.synchronize()
+    s_launches = fused_stem1_s2d8.launches
+    log(f"fused-stem path: stem_s2d8 launched {s_launches} times, "
+        f"fused_decode {decode_dense_fused.launches} times (__call__ x2, "
+        f"process_batch x1), {time.perf_counter() - t0:.1f} s")
+    if s_launches <= 0:
+        fail("the fused-stem serving path never launched the stem kernel")
+    if decode_dense_fused.launches <= 0:
+        fail("the fused-stem serving path never launched fused_decode")
+    if [tuple(x.shape) for x in out_p] != want_shapes:
+        fail(f"fused-stem process_batch shapes "
+             f"{[tuple(x.shape) for x in out_p]}")
+    path_err_p = check_dense(out_p)
+    max_err = max(max_err, path_err_p)
+    # Agreement with the XLA-stem engine, printed only: the two stems round
+    # to bf16 at different points.
+    # Faces are matched to the nearest roi of the same frame: near-equal
+    # scores may order the same faces differently.
+    n_same = out_p[1] == n_faces
+    dist = (out_p[2][:, :, None] - rois[:, None]).abs().amax(-1)
+    dist = dist.masked_fill(~(scores > 0)[:, None], float("inf")).amin(-1)
+    both = (out_p[0] > 0) & n_same[:, None]
+    roi_diff = dist[both].max().item() if both.any() else float("nan")
+    within_1px = (dist[both] <= 1.0).float().mean().item()
+    log(f"fused-stem process_batch B={BATCH}: faces/frame "
+        f"{out_p[1].float().mean():.2f}, dense vs plain twin max_abs_err "
+        f"{path_err_p:.3e}; vs the XLA-stem engine: equal face counts on "
+        f"{n_same.float().mean().item():.3f} of frames and {same_calls} of "
+        f"{len(frames_np)} __call__ frames; each face's roi against the "
+        f"nearest of the same frame: largest difference {roi_diff:.3f} px, "
+        f"{within_1px:.3f} of faces within 1 px")
+    del out_p
 
     # -- 5. the overlay path ----------------------------------------------------
     imgs = {hw: np.random.default_rng(2).integers(0, 256, (*hw, 3), np.uint8)
@@ -355,6 +548,7 @@ def main():
     if decode_dense_fused.launches <= 0:
         fail("the overlay path never launched the fused_decode kernel")
 
+    lit = {}
     with torch.inference_mode():
         for hw, img in imgs.items():
             pts, verts, poses, overlay = results[hw]
@@ -379,8 +573,9 @@ def main():
             valid = torch.arange(FACES, device=dev) < n
             vl, lt = light_faces(dn.transpose(1, 2), valid, ov.tris_face,
                                  ov.rings, ov.light_cfg)
-            rec = plane_records(vl.reshape(-1, 3), ov.tris_all,
-                                lt.reshape(-1, 3), h=ch, w=cw)
+            lit[hw] = (vl.reshape(-1, 3), lt.reshape(-1, 3))
+            rec = plane_records(lit[hw][0], ov.tris_all, lit[hw][1], h=ch,
+                                w=cw)
             raster_twins(rec, ch, cw, f"overlay {hw} meshes")
             zp, cp = rasterize_records_reference(rec, 3, h=ch, w=cw)
             frame_u8 = canvas.clamp(0, 255).to(torch.uint8)
@@ -401,15 +596,53 @@ def main():
                 f"faces equal FusedFrameEngine's, overlay equals the plain-"
                 "twin render, kernel == twin on the path's meshes")
 
+        # The deferred raster on the overlay's own lit meshes: launches
+        # over these calls only, then the checks.
+        rasterize_ids.launches = 0
+        deferred = {hw: rasterize_buffers_tiled(v, ov.tris_all, c, h=ch,
+                                                w=cw, deferred=True)
+                    for hw, (v, c) in lit.items()}
+        torch.cuda.synchronize()
+        r3_launches = rasterize_ids.launches
+        log(f"deferred path: raster ids launched {r3_launches} times over "
+            f"{len(lit)} overlay frames' meshes")
+        if r3_launches <= 0:
+            fail("the deferred path never launched the raster ids kernel")
+        for hw, (v, c) in lit.items():
+            zd, cd = deferred[hw]
+            zk, ck = rasterize_buffers_tiled(v, ov.tris_all, c, h=ch, w=cw)
+            if not (torch.equal(zd, zk) and torch.equal(cd, ck)):
+                fail(f"deferred {hw}: differs from the payload path")
+            rec_c, _ = compact_records(v, ov.tris_all, c, h=ch, w=cw)
+            _, ids = ids_twins(rec_c, ch, cw, f"overlay {hw} meshes")
+            tri, zv, _ = rasterize_triangles_tiled(v, ov.tris_all, h=ch,
+                                                   w=cw)
+            if not (torch.equal(tri, ids) and torch.equal(zv, zd)):
+                fail(f"visibility {hw}: triangle ids differ from the ids "
+                     "kernel's")
+            log(f"deferred {hw[0]}x{hw[1]} meshes: zbuf and color equal the "
+                f"payload path bit for bit; visibility ids equal the ids "
+                f"kernel's ({(ids >= 0).float().mean().item():.3f} drawn)")
+        del deferred
+
     # -- 6. end-to-end timing ---------------------------------------------------
-    e2e = {}
+    # The XLA-stem and fused-stem engines in turns: xla, fused, fused, xla.
+    e2e, e2e_p = {}, {}
     for b in (1, BATCH):
         a = (frames[:b], frames_s2d[:b], hws[:b])
-        ms = time_ms(lambda: eng.process_batch(*a), 10 if b == 1 else 5,
-                     torch)
+        n = 10 if b == 1 else 5
+        runs = {"xla": [], "fused": []}
+        for which in ("xla", "fused", "fused", "xla"):
+            e = eng if which == "xla" else eng_p
+            runs[which].append(time_ms(lambda: e.process_batch(*a), n,
+                                       torch))
+        ms, ms_p = (sum(runs[k]) / 2 for k in ("xla", "fused"))
         e2e[b] = (ms, b * FACES / ms * 1e3)
-        log(f"end-to-end B={b} frames: {ms:.3f} ms/call, "
-            f"{e2e[b][1]:.1f} faces/s | {card}")
+        e2e_p[b] = (ms_p, b * FACES / ms_p * 1e3)
+        log(f"end-to-end B={b} frames: XLA stem {ms:.3f} ms/call "
+            f"({runs['xla']}), {e2e[b][1]:.1f} faces/s; fused stem "
+            f"{ms_p:.3f} ms/call ({runs['fused']}), {e2e_p[b][1]:.1f} "
+            f"faces/s | {card}")
 
     stages = {}
     with torch.inference_mode():
@@ -421,7 +654,9 @@ def main():
                 ("detect", lambda: eng.detect_candidates(s2d, hw)),
                 ("select (top-k + NMS)", lambda: eng.select_faces(s, bx)),
                 ("crop + regress", lambda: eng.regress(fr, r)),
-                ("decode tail", lambda: eng.tail(fp, fr4)))}
+                ("decode tail", lambda: eng.tail(fp, fr4)),
+                ("detect, fused stem", lambda: eng_p.detect_candidates(
+                    s2d, hw)))}
             log(f"stages at B={b}: " + ", ".join(
                 f"{k} {v:.3f} ms" for k, v in stages[str(b)].items())
                 + f" | {card}")
@@ -470,6 +705,19 @@ def main():
         f"{k} {v:.3f} ms" for k, v in ov_stages.items())
         + f"; sum {sum(ov_stages.values()):.3f} ms | {card}")
 
+    # The deferred raster beside the payload raster, on the 720x1088
+    # overlay's lit meshes (all 8 faces), whole entry point each.
+    with torch.inference_mode():
+        v, c = lit[CANVAS]
+        raster_ms = {name: time_ms(fn, 10, torch) for name, fn in (
+            ("payload path (B2)", lambda: rasterize_buffers_tiled(
+                v, ov.tris_all, c, h=ch, w=cw)),
+            ("deferred path (B3)", lambda: rasterize_buffers_tiled(
+                v, ov.tris_all, c, h=ch, w=cw, deferred=True)))}
+    log("raster entry points, 720x1088 overlay meshes: " + ", ".join(
+        f"{k} {v_:.3f} ms" for k, v_ in raster_ms.items())
+        + f"; kernels alone B2 {r_ms:.4f} ms, B3 {r3_ms:.4f} ms | {card}")
+
     # -- 7. device profile (opt-in) -------------------------------------------
     if args.profile:
         from synergynet_tpu_torch.core.profiling import profile_calls
@@ -491,25 +739,49 @@ def main():
         with open(os.path.join(args.profile, "profile.json"), "w") as f:
             json.dump(summary, f, indent=1)
 
-    ms8, plain8 = kernel_stats[FACES]
-    ms1k, plain1k = kernel_stats[FACES * BATCH]
+    ms8, plain8, lib8, bound8, _ = kernel_stats[FACES]
+    ms1k, plain1k, lib1k, bound1k, by1k = kernel_stats[FACES * BATCH]
+    s_ms, s_plain, s_lib, s_bound, s_by = stem_stats[BATCH]
     print(json.dumps({"kernels": [{
         "name": "fused_decode", "route": "cuda",
         "source": "synergynet_tpu_torch/csrc/fused_decode.cu",
         "replaces": "synergynet_tpu/ops/fused_decode.py:66",
         "launches": launches, "max_abs_err": max_err,
-        "ms": ms1k, "plain_ms": plain1k, "faces": FACES * BATCH,
-        "ms_b8": ms8, "plain_ms_b8": plain8}, {
+        "ms": ms1k, "plain_ms": plain1k, "bound_ms": bound1k,
+        "bound_by": by1k, "library_ms": lib1k,
+        "library": "torch.matmul (B,50)x(50,3*Npad) f32, no rotation",
+        "faces": FACES * BATCH, "ms_b8": ms8, "plain_ms_b8": plain8,
+        "bound_ms_b8": bound8, "library_ms_b8": lib8}, {
         "name": "raster_tiled", "route": "cuda",
         "source": "synergynet_tpu_torch/csrc/raster_tiled.cu",
         "replaces": "synergynet_tpu/render/raster_tiled.py:179",
         "launches": r_launches, "max_abs_err": r_err,
-        "ms": r_ms, "plain_ms": r_plain, "triangles": FACES * ntri,
-        "canvas": list(CANVAS)}],
+        "ms": r_ms, "plain_ms": r_plain, "bound_ms": r_bound[0],
+        "bound_by": r_bound[1], "library_ms": None,
+        "triangles": FACES * ntri, "canvas": list(CANVAS)}, {
+        "name": "raster_ids", "route": "cuda",
+        "source": "synergynet_tpu_torch/csrc/raster_tiled.cu",
+        "replaces": "synergynet_tpu/render/raster_tiled.py:524",
+        "launches": r3_launches, "max_abs_err": r3_err,
+        "ms": r3_ms, "plain_ms": r3_plain, "bound_ms": r3_bound[0],
+        "bound_by": r3_bound[1], "library_ms": None,
+        "triangles": FACES * ntri, "canvas": list(CANVAS)}, {
+        "name": "stem_s2d8", "route": "cuda",
+        "source": "synergynet_tpu_torch/csrc/stem_s2d8.cu",
+        "replaces": "synergynet_tpu/detect/stem_pallas.py:76",
+        "launches": s_launches, "max_abs_err": s_err,
+        "ms": s_ms, "plain_ms": s_plain, "bound_ms": s_bound,
+        "bound_by": s_by, "library_ms": s_lib,
+        "library": "F.conv2d bf16 + bias (cuDNN), conv only, no pool",
+        "frames": BATCH, "ms_b1": stem_stats[1][0],
+        "plain_ms_b1": stem_stats[1][1], "library_ms_b1": stem_stats[1][2],
+        "bound_ms_b1": stem_stats[1][3]}],
         "e2e_faces_per_s": {str(b): v[1] for b, v in e2e.items()},
         "e2e_ms": {str(b): v[0] for b, v in e2e.items()},
+        "e2e_fused_stem_ms": {str(b): v[0] for b, v in e2e_p.items()},
         "stages_ms": stages, "overlay_ms": overlay_ms,
-        "overlay_stages_ms": ov_stages}), flush=True)
+        "overlay_stages_ms": ov_stages, "raster_path_ms": raster_ms}),
+        flush=True)
     print(card, flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

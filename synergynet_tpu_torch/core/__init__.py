@@ -1,1 +1,2 @@
-"""Shared plumbing: file locations and checkpoint loading."""
+"""Shared plumbing: file locations, checkpoint loading and the device
+rule of the entry points."""

@@ -1,0 +1,16 @@
+"""The device an entry point runs on: the card unless the caller asks for
+the CPU."""
+
+from __future__ import annotations
+
+import torch
+
+
+def resolve_device(device) -> torch.device:
+    """``device`` as a ``torch.device``; raises when it names CUDA and no
+    card is available, rather than carrying on on the CPU."""
+    dev = torch.device(device)
+    if dev.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError(f"device {dev} requested but no CUDA card is "
+                           "available; pass device='cpu' to run on the CPU")
+    return dev

@@ -1,9 +1,12 @@
 // Z-buffer rasterizer of plane records for Hopper (sm_90a).
 //
-// Replaces the Pallas TPU kernel synergynet_tpu/render/raster_tiled.py::
-// _raster_kernel. Input: one record per triangle (f32, row width
-// 13 + 3 * npay), as synergynet_tpu_torch/render/raster_tiled.py::
-// plane_records lays it out:
+// Replaces two Pallas TPU kernels of synergynet_tpu/render/raster_tiled.py:
+// _raster_kernel (entry synergy_raster_tiled: depth and payloads) and
+// _raster_kernel_compact (entry synergy_raster_ids: depth and winning
+// triangle id, for the deferred-payload path). Input: one record per
+// triangle (f32, row width 13 + 3 * npay; 13 for the ids entry), as
+// synergynet_tpu_torch/render/raster_tiled.py::plane_records and
+// compact_records lay it out:
 //
 //   0-8   u, v, depth planes (a, b, c): value(x, y) = (a*x + b*y) + c
 //   9-12  x_min x_max y_min y_max      clamped inclusive bbox, integers
@@ -27,7 +30,9 @@
 //    a NaN depth fails the depth test, as it fails JAX's strictly-greater
 //    update;
 // 3. one thread per pixel decodes the winner: the depth from the key, the
-//    payload planes evaluated at the pixel.
+//    payload planes evaluated at the pixel (synergy_raster_tiled), or the
+//    depth and the triangle id, -1 where undrawn (synergy_raster_ids). The
+//    id is the key's low 32 bits, so the compact record carries none.
 //
 // Planes are evaluated as __fadd_rn(__fadd_rn(__fmul_rn(a, x),
 // __fmul_rn(b, y)), c): nvcc would otherwise contract them into FMAs, and
@@ -40,6 +45,10 @@
 // pixel. Warps diverge on unequal bbox sizes and one canvas-spanning
 // triangle keeps its thread for its whole bbox. Tile-local resolve in
 // shared memory is the lever for a later version.
+//
+// The ids entry reads 52 B a triangle (~44 MB at 846,720 triangles) and
+// writes 8 B a pixel (6.3 MB at 720x1088): bound by bytes, ~0.015 ms at
+// 3.35 TB/s, and in practice by the same atomics as the payload entry.
 
 #include <cuda_runtime.h>
 
@@ -120,6 +129,33 @@ __global__ void resolve_kernel(const float* __restrict__ rec,
     out[k] = plane(r[3 * k], r[3 * k + 1], r[3 * k + 2], fx, fy);
 }
 
+__global__ void resolve_ids_kernel(const long long* __restrict__ keys,
+                                   float* __restrict__ zbuf,
+                                   int* __restrict__ ids, int npix) {
+  const int i = blockIdx.x * blockDim.x + threadIdx.x;
+  if (i >= npix) return;
+  const long long key = keys[i];
+  if (key == EMPTY_KEY) {
+    zbuf[i] = DEPTH_INIT;
+    ids[i] = -1;
+    return;
+  }
+  const int s = (int)(key >> 32);
+  zbuf[i] = __int_as_float(s < 0 ? s ^ 0x7FFFFFFF : s);
+  ids[i] = (int)(0xFFFFFFFFu - (unsigned)(key & 0xFFFFFFFFLL));
+}
+
+// Steps 1 and 2: fill the keys, then scatter every triangle's fragments.
+cudaError_t resolve_keys(const float* rec, long long* keys, int ntri,
+                         int rec_w, int npix, int w, cudaStream_t s) {
+  fill_keys<<<(npix + THREADS - 1) / THREADS, THREADS, 0, s>>>(keys, npix);
+  cudaError_t err = cudaGetLastError();
+  if (err != cudaSuccess || ntri <= 0) return err;
+  raster_kernel<<<(ntri + THREADS - 1) / THREADS, THREADS, 0, s>>>(
+      rec, keys, ntri, rec_w, w);
+  return cudaGetLastError();
+}
+
 }  // namespace
 
 // rec (ntri, 13 + 3 * npay) f32, keys (h * w) int64 scratch, zbuf (h, w)
@@ -132,17 +168,27 @@ extern "C" int synergy_raster_tiled(const float* rec, long long* keys,
   const int npix = h * w;
   const int rec_w = PAYLOAD0 + 3 * npay;
   if (npix <= 0) return (int)cudaSuccess;
-  const int pix_blocks = (npix + THREADS - 1) / THREADS;
-  fill_keys<<<pix_blocks, THREADS, 0, s>>>(keys, npix);
-  cudaError_t err = cudaGetLastError();
+  const cudaError_t err = resolve_keys(rec, keys, ntri, rec_w, npix, w, s);
   if (err != cudaSuccess) return (int)err;
-  if (ntri > 0) {
-    raster_kernel<<<(ntri + THREADS - 1) / THREADS, THREADS, 0, s>>>(
-        rec, keys, ntri, rec_w, w);
-    err = cudaGetLastError();
-    if (err != cudaSuccess) return (int)err;
-  }
-  resolve_kernel<<<pix_blocks, THREADS, 0, s>>>(rec, keys, zbuf, pay, rec_w,
-                                                npay, npix, w);
+  resolve_kernel<<<(npix + THREADS - 1) / THREADS, THREADS, 0, s>>>(
+      rec, keys, zbuf, pay, rec_w, npay, npix, w);
+  return (int)cudaGetLastError();
+}
+
+// rec (ntri, rec_w) f32 with rec_w >= 13 (payload planes, if any, are not
+// read), keys (h * w) int64 scratch, zbuf (h, w) f32, ids (h, w) int32:
+// contiguous, on the current device. Launches on `stream` and returns the
+// first launch error, or cudaGetLastError().
+extern "C" int synergy_raster_ids(const float* rec, long long* keys,
+                                  float* zbuf, int* ids, int ntri, int rec_w,
+                                  int h, int w, void* stream) {
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const int npix = h * w;
+  if (npix <= 0) return (int)cudaSuccess;
+  if (rec_w < PAYLOAD0) return (int)cudaErrorInvalidValue;
+  const cudaError_t err = resolve_keys(rec, keys, ntri, rec_w, npix, w, s);
+  if (err != cudaSuccess) return (int)err;
+  resolve_ids_kernel<<<(npix + THREADS - 1) / THREADS, THREADS, 0, s>>>(
+      keys, zbuf, ids, npix);
   return (int)cudaGetLastError();
 }

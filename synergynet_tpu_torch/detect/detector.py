@@ -22,6 +22,7 @@ import numpy as np
 import torch
 
 from synergynet_tpu_torch.convert import faceboxes_state_dict
+from synergynet_tpu_torch.core.device import resolve_device
 from synergynet_tpu_torch.core.paths import asset_dir
 from synergynet_tpu_torch.detect.anchors import generate_anchors
 from synergynet_tpu_torch.detect.net import (FaceBoxesNet, fold_bn_variables,
@@ -139,19 +140,21 @@ def to_folded_s2d8(variables: dict) -> dict:
 
 class FaceBoxes:
     """The serving detector: ``net`` (folded s2d8 :class:`FaceBoxesNet` on
-    ``device``), ``anchors`` (A, 4) on ``device`` for the fixed canvas, and
-    ``variables`` (the folded flax-layout tree the net was loaded from)."""
+    ``device``, the card unless the caller asks for the CPU), ``anchors``
+    (A, 4) on ``device`` for the fixed canvas, and ``variables`` (the folded
+    flax-layout tree the net was loaded from). ``stem_mode="pallas"`` runs
+    the stem through the fused kernel (``csrc/stem_s2d8.cu``)."""
 
     stem_s2d = True
     stem_r = STEM_R
 
     def __init__(self, variables: Optional[dict] = None,
-                 dtype: torch.dtype = torch.float32, device="cpu",
+                 dtype: torch.dtype = torch.float32, device="cuda",
                  stem_mode: Optional[str] = None, seed: int = 0):
+        self.device = resolve_device(device)
         if variables is None:
             variables = load_faceboxes_variables(seed)
         self.variables = to_folded_s2d8(variables)
-        self.device = torch.device(device)
         net = FaceBoxesNet(dtype=dtype, stem_mode=stem_mode)
         net.load_state_dict(faceboxes_state_dict(self.variables))
         self.net = net.to(self.device).eval()

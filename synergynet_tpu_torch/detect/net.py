@@ -6,7 +6,8 @@ serving path (``FaceBoxesNet(stem_s2d=True, folded=True, stem_r=8)``):
 - ``conv1_s2d8`` (:class:`StemS2D8`): the 7x7/4 CRelu stem as a 2x2 conv
   over the space-to-depth(8) input with 4x phase-packed outputs, then the
   3x3/2 max-pool as shifted maxes over the phases
-  (:func:`phase_maxpool_s2d8`);
+  (:func:`phase_maxpool_s2d8`); with ``stem_mode="pallas"`` the fused
+  kernel of :mod:`synergynet_tpu_torch.detect.stem_fused` instead;
 - ``conv2``: the folded 5x5/2 CRelu (one channel-doubled conv + ReLU) and
   a 3x3/2 max-pool;
 - three Inception blocks, ``conv3_*`` and ``conv4_*`` (folded conv + ReLU);
@@ -29,7 +30,7 @@ from torch import nn
 
 NUM_CLASSES = 2
 ANCHORS_PER_CELL = (21, 1, 1)
-STEM_MODES = (None, "xla")
+STEM_MODES = (None, "xla", "pallas")
 
 
 class FoldedConv(nn.Module):
@@ -93,10 +94,13 @@ class StemS2D8(nn.Module):
     """conv1 + max-pool of the deep-s2d stem: 2x2 conv 192 -> 4*cout with
     padding ((1, 0), (1, 0)), bias, ReLU, then :func:`phase_maxpool_s2d8`.
 
-    This is the JAX package's XLA stem. Its Pallas stem
-    (``detect/stem_pallas.py::_stem_kernel``) is not ported yet, so
-    ``stem_mode="pallas"`` raises ``NotImplementedError``; any other mode
-    but None / "xla" raises ``ValueError``.
+    ``mode`` None or "xla" runs that as a cuDNN conv and shifted maxes, the
+    JAX package's XLA stem. "pallas" keeps the JAX package's name for its
+    Pallas stem (``detect/stem_pallas.py::_stem_kernel``) and runs the
+    hand-written fused kernel of
+    :func:`~synergynet_tpu_torch.detect.stem_fused.fused_stem1_s2d8` (its
+    plain twin on a CPU tensor), on tap weights re-laid out once per
+    weight version.
     """
 
     def __init__(self, cin: int = 192, cout: int = 48):
@@ -104,17 +108,32 @@ class StemS2D8(nn.Module):
         self.cout = cout
         self.weight = nn.Parameter(torch.zeros(4 * cout, cin, 2, 2))
         self.bias = nn.Parameter(torch.zeros(4 * cout))
+        self._taps = (None, None)
 
-    def forward(self, x):
+    def tap_weights(self) -> torch.Tensor:
+        """The (4, cin, 4*cout) tap layout of ``weight``, cached until the
+        weight changes (in place, or by a move to another device)."""
+        from synergynet_tpu_torch.detect.stem_fused import taps_from_oihw
+        key = (self.weight.device, self.weight.data_ptr(),
+               self.weight._version, self.weight.dtype)
+        if self._taps[0] != key:
+            with torch.no_grad():
+                self._taps = (key, taps_from_oihw(self.weight.detach()))
+        return self._taps[1]
+
+    def forward(self, x, mode: Optional[str] = None):
+        if mode == "pallas":
+            from synergynet_tpu_torch.detect.stem_fused import \
+                fused_stem1_s2d8
+            y = fused_stem1_s2d8(x.permute(0, 2, 3, 1).contiguous(),
+                                 self.tap_weights(), self.bias.detach(),
+                                 self.cout)
+            return y.permute(0, 3, 1, 2)
         y = F.conv2d(F.pad(x, (1, 0, 1, 0)), self.weight, self.bias)
         return phase_maxpool_s2d8(F.relu(y), self.cout)
 
 
 def check_stem_mode(stem_mode: Optional[str]) -> None:
-    if stem_mode == "pallas":
-        raise NotImplementedError(
-            "stem_mode='pallas': the fused stem kernel "
-            "(detect/stem_pallas.py::_stem_kernel) is not ported yet")
     if stem_mode not in STEM_MODES:
         raise ValueError(f"unknown stem_mode {stem_mode!r}; "
                          f"expected one of {STEM_MODES}")
@@ -131,6 +150,7 @@ class FaceBoxesNet(nn.Module):
         super().__init__()
         check_stem_mode(stem_mode)
         self.dtype = dtype
+        self.stem_mode = stem_mode
         self.conv1_s2d8 = StemS2D8()
         self.conv2 = FoldedConv(48, 128, 5, 2, 2)
         self.inception1 = Inception()
@@ -149,7 +169,7 @@ class FaceBoxesNet(nn.Module):
     def forward(self, x: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
         x = x.permute(0, 3, 1, 2).to(self.dtype).contiguous(
             memory_format=torch.channels_last)
-        x = self.conv1_s2d8(x)
+        x = self.conv1_s2d8(x, self.stem_mode)
         x = F.max_pool2d(self.conv2(x), 3, stride=2, padding=1)
         x = self.inception3(self.inception2(self.inception1(x)))
         src1 = x                                             # stride 32

@@ -25,14 +25,18 @@ from synergynet_tpu_torch.mm3d.assets import ParamPack, STD_SIZE
 
 @contextlib.contextmanager
 def full_fp32():
-    """Run the enclosed products in full fp32: TF32 off for cuBLAS
-    (``torch.backends.cuda.matmul.allow_tf32 = False``), restored after."""
-    prev = torch.backends.cuda.matmul.allow_tf32
+    """Run the enclosed products and convolutions in full fp32: TF32 off
+    for cuBLAS (``torch.backends.cuda.matmul.allow_tf32``) and for cuDNN
+    (``torch.backends.cudnn.allow_tf32``), both restored after."""
+    prev = (torch.backends.cuda.matmul.allow_tf32,
+            torch.backends.cudnn.allow_tf32)
     torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
     try:
         yield
     finally:
-        torch.backends.cuda.matmul.allow_tf32 = prev
+        (torch.backends.cuda.matmul.allow_tf32,
+         torch.backends.cudnn.allow_tf32) = prev
 
 
 def dewhiten(param: torch.Tensor, pack: ParamPack) -> torch.Tensor:

@@ -27,6 +27,7 @@ import torch.nn.functional as F
 from synergynet_tpu_torch.convert import synergy_state_dict
 from synergynet_tpu_torch.core.checkpoint import (load_trained_variables,
                                                   shipped_trained_path)
+from synergynet_tpu_torch.core.device import resolve_device
 from synergynet_tpu_torch.detect.anchors import decode_boxes
 from synergynet_tpu_torch.detect.detector import (
     BGR_MEAN, CANVAS, CONFIDENCE_THRESHOLD, NMS_THRESHOLD, NMS_TOP_K,
@@ -47,7 +48,8 @@ CROP = 120
 
 
 class SynergyNet3DMM:
-    """The regressor and 3DMM constants on ``device``.
+    """The regressor and 3DMM constants on ``device`` (the card unless
+    the caller asks for the CPU; raises when there is no card).
 
     ``variables``: the string ``"trained"`` (the shipped full-recipe
     weights) or a flax SynergyNet tree (converted by
@@ -57,13 +59,13 @@ class SynergyNet3DMM:
 
     def __init__(self, variables: dict | str, arch: str = "mobilenet_v2",
                  pack: Optional[ParamPack] = None,
-                 dtype: torch.dtype = torch.float32, device="cpu"):
+                 dtype: torch.dtype = torch.float32, device="cuda"):
+        self.device = resolve_device(device)
         if isinstance(variables, str):
             if variables != "trained":
                 raise ValueError(f"unknown variables spec {variables!r} "
                                  "(only 'trained' is recognised)")
             variables = load_trained_variables(shipped_trained_path(arch))
-        self.device = torch.device(device)
         self.dtype = dtype
         self.pack = pack if pack is not None else load_param_pack()
         model = SynergyNet(arch=arch, dtype=dtype)
@@ -200,12 +202,14 @@ def _resize_linear(img: torch.Tensor, h: int, w: int) -> torch.Tensor:
     return y[0].permute(1, 2, 0).round().clamp(0.0, 255.0)
 
 
-def prepare_frame(img_bgr: np.ndarray, stem_r: int, device="cpu"):
-    """Fit a BGR uint8 frame onto the fixed detector canvas on ``device``.
+def prepare_frame(img_bgr: np.ndarray, stem_r: int, device="cuda"):
+    """Fit a BGR uint8 frame onto the fixed detector canvas on ``device``
+    (the card unless the caller asks for the CPU).
 
     Returns (canvas f32 (CH, CW, 3), s2d-packed canvas, true_hw int32 (2,),
     scale): frames larger than 720x1080 scale down by the reference rule
     and sit at the canvas origin on a zero border."""
+    device = resolve_device(device)
     h, w = img_bgr.shape[:2]
     scale = _fit_scale(h, w)
     img = torch.from_numpy(np.ascontiguousarray(img_bgr)).to(device)

@@ -1,7 +1,9 @@
-"""Z-buffer rasterizer of plane records: the CUDA kernel and its plain twin.
+"""Z-buffer rasterizer of plane records: the CUDA kernels and their twins.
 
 Counterpart of ``synergynet_tpu/render/raster_tiled.py``, whose Pallas TPU
-kernel ``_raster_kernel`` this replaces with ``csrc/raster_tiled.cu``.
+kernels ``_raster_kernel`` (depth + payloads, kernel B2) and
+``_raster_kernel_compact`` (depth + winning triangle id, kernel B3) this
+replaces with the two entries of ``csrc/raster_tiled.cu``.
 
 1. **Plane records** (:func:`plane_records`, plain torch on the tensor's
    device, shared by the kernel and its twin): every triangle becomes the
@@ -25,13 +27,23 @@ The TPU kernel's bin sort, replication grid and chunk maps exist to fit
 its tile-local gather into VMEM; neither the kernel nor the twin here
 needs them.
 
-On a CUDA tensor :func:`rasterize_buffers_tiled` launches the kernel, or
-raises; on a CPU tensor it runs the plain twin. The twin
-(:func:`rasterize_buffers_reference`) enumerates each triangle's bbox
-pixels, evaluates the same planes in the same operation order and
-resolves with ``scatter_reduce_(..., "amax")`` on the same key, so kernel
-and twin agree bit for bit. ``rasterize_buffers_tiled.launches`` counts
-kernel launches.
+3. **Deferred payloads** (``rasterize_buffers_tiled(..., deferred=True)``):
+   :func:`compact_records` keeps only the u/v/depth planes and the bbox,
+   :func:`rasterize_ids` resolves depth and the winning triangle id, and
+   :func:`eval_deferred_payloads` evaluates the payload planes once per
+   winning pixel, in the same operation order as the payload kernel, so
+   both paths give the same buffers bit for bit.
+4. **Visibility** (:func:`rasterize_triangles_tiled`): the payload kernel
+   with two planes, the triangle id as a constant and w0 = 1 - u - v.
+
+On a CUDA tensor :func:`rasterize_records` and :func:`rasterize_ids`
+launch their kernel, or raise; on a CPU tensor they run the plain twins.
+The twins (:func:`rasterize_records_reference`,
+:func:`rasterize_ids_reference`) enumerate each triangle's bbox pixels,
+evaluate the same planes in the same operation order and resolve with
+``scatter_reduce_(..., "amax")`` on the same key, so kernels and twins
+agree bit for bit. ``rasterize_buffers_tiled.launches`` counts launches of
+the payload kernel, ``rasterize_ids.launches`` those of the ids kernel.
 """
 
 from __future__ import annotations
@@ -136,11 +148,10 @@ def _plane(a, b, c, x, y):
     return a * x + b * y + c
 
 
-def rasterize_records_reference(rec: torch.Tensor, n_payload: int, *,
-                                h: int, w: int
-                                ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """The plain PyTorch twin of the kernel, on any device: enumerate every
-    bbox pixel, build the keys, keep the per-pixel max, decode."""
+def _reference_keys(rec: torch.Tensor, *, h: int, w: int) -> torch.Tensor:
+    """The twins' resolve: enumerate every bbox pixel, build the keys, keep
+    the per-pixel max. -> (h * w) int64 keys, ``_EMPTY_KEY`` where
+    undrawn."""
     dev = rec.device
     t = rec.shape[0]
     keys = torch.full((h * w,), _EMPTY_KEY, dtype=torch.int64, device=dev)
@@ -179,13 +190,30 @@ def rasterize_records_reference(rec: torch.Tensor, n_payload: int, *,
             key = (s << 32) | (_LOW - tri[ok])
             keys.scatter_reduce_(0, py[ok] * w + px[ok], key, "amax")
         start = end
+    return keys
 
+
+def _decode_keys(keys: torch.Tensor
+                 ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """(N,) keys -> (drawn, depth (``DEPTH_INIT`` where undrawn), winning
+    triangle (int64, 0 where undrawn))."""
     drawn = keys > _EMPTY_KEY
     s = (keys >> 32).to(torch.int32)
     depth = torch.where(s < 0, s ^ 0x7FFFFFFF, s).view(torch.float32)
     zbuf = torch.where(drawn, depth, torch.full_like(depth, DEPTH_INIT))
     tri = torch.where(drawn, _LOW - (keys & _LOW), torch.zeros_like(keys))
-    pix = torch.arange(h * w, device=dev)
+    return drawn, zbuf, tri
+
+
+def rasterize_records_reference(rec: torch.Tensor, n_payload: int, *,
+                                h: int, w: int
+                                ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The plain PyTorch twin of the payload kernel, on any device:
+    enumerate every bbox pixel, build the keys, keep the per-pixel max,
+    decode."""
+    t = rec.shape[0]
+    drawn, zbuf, tri = _decode_keys(_reference_keys(rec, h=h, w=w))
+    pix = torch.arange(h * w, device=rec.device)
     x, y = (pix % w).float(), (pix // w).float()
     pay = []
     for k in range(n_payload):
@@ -196,6 +224,18 @@ def rasterize_records_reference(rec: torch.Tensor, n_payload: int, *,
     color = (torch.stack(pay, dim=1) if pay
              else rec.new_zeros((h * w, 0)))
     return zbuf.reshape(h, w), color.reshape(h, w, n_payload)
+
+
+def rasterize_ids_reference(rec: torch.Tensor, *, h: int, w: int
+                            ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The plain PyTorch twin of the ids kernel, on any device: the key
+    build and ``scatter_reduce_(amax)`` of :func:`rasterize_records_reference`,
+    decoded to (zbuf (h, w) f32, ``DEPTH_INIT`` where undrawn; tri_id (h, w)
+    int32, -1 where undrawn). Payload planes in ``rec``, if any, are not
+    read."""
+    drawn, zbuf, tri = _decode_keys(_reference_keys(rec, h=h, w=w))
+    tri_id = torch.where(drawn, tri, torch.full_like(tri, -1))
+    return zbuf.reshape(h, w), tri_id.to(torch.int32).reshape(h, w)
 
 
 def _launch(rec: torch.Tensor, n_payload: int, *, h: int, w: int
@@ -209,10 +249,7 @@ def _launch(rec: torch.Tensor, n_payload: int, *, h: int, w: int
     check_tensor("records", rec, (torch.float32,),
                  (None, PAYLOAD0 + 3 * n_payload), dev)
     t = rec.shape[0]
-    if not (0 < h and 0 < w and h * w * n_payload < 2 ** 31
-            and t < 2 ** 31 - 1):
-        raise ValueError(f"{t} triangles on a {h}x{w} canvas exceed the "
-                         "kernel's 32-bit extents")
+    _check_extents(t, h, w, n_payload)
     require_sm90(dev, "raster")
     lib = load_kernel_library("raster_tiled")
     fn = lib.synergy_raster_tiled
@@ -245,26 +282,163 @@ def rasterize_records(rec: torch.Tensor, n_payload: int, *, h: int, w: int
     raise ValueError(f"no raster kernel for device {rec.device}")
 
 
+def _check_extents(t: int, h: int, w: int, n_out: int) -> None:
+    if not (0 < h and 0 < w and h * w * n_out < 2 ** 31
+            and t < 2 ** 31 - 1):
+        raise ValueError(f"{t} triangles on a {h}x{w} canvas exceed the "
+                         "kernel's 32-bit extents")
+
+
+def _launch_ids(rec: torch.Tensor, *, h: int, w: int
+                ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Check what the ids kernel takes, allocate outputs and the key
+    scratch, launch on the current stream. Raises on anything else; never
+    falls back."""
+    dev = rec.device
+    check_tensor("records", rec, (torch.float32,), (None, PAYLOAD0), dev)
+    _check_extents(rec.shape[0], h, w, 1)
+    require_sm90(dev, "raster")
+    lib = load_kernel_library("raster_tiled")
+    fn = lib.synergy_raster_ids
+    fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 4 + [
+        ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+    keys = torch.empty((h * w,), dtype=torch.int64, device=dev)
+    zbuf = torch.empty((h, w), dtype=torch.float32, device=dev)
+    ids = torch.empty((h, w), dtype=torch.int32, device=dev)
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        rc = fn(rec.data_ptr(), keys.data_ptr(), zbuf.data_ptr(),
+                ids.data_ptr(), rec.shape[0], PAYLOAD0, h, w, stream)
+    if rc != 0:
+        raise RuntimeError(f"raster ids kernel launch failed: CUDA error {rc}")
+    rasterize_ids.launches += 1
+    return zbuf, ids
+
+
+def rasterize_ids(rec: torch.Tensor, *, h: int, w: int
+                  ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """(T, PAYLOAD0) compact records (:func:`compact_records`) -> (zbuf
+    (h, w) f32 init ``DEPTH_INIT``, tri_id (h, w) int32, -1 where
+    undrawn): the contract of the JAX package's ``_launch_compact``. On a
+    CUDA tensor the ids entry of ``csrc/raster_tiled.cu`` (or an error); on
+    a CPU tensor the plain twin :func:`rasterize_ids_reference`."""
+    if rec.device.type == "cuda":
+        return _launch_ids(rec, h=h, w=w)
+    if rec.device.type == "cpu":
+        return rasterize_ids_reference(rec, h=h, w=w)
+    raise ValueError(f"no raster kernel for device {rec.device}")
+
+
+rasterize_ids.launches = 0
+
+
+def compact_records(vertices: torch.Tensor, triangles: torch.Tensor,
+                    payloads: torch.Tensor, *, h: int, w: int
+                    ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The deferred-payload record build, counterpart of the JAX package's
+    ``_plane_setup_compact``: -> ((T, PAYLOAD0) records, which are
+    :func:`plane_records` without payloads, and the (T, P, 3) payload
+    plane coefficients, computed as :func:`plane_records` computes its
+    payload columns). The JAX record's triangle-id field is not needed:
+    the kernel's key carries the id."""
+    attr_plane, cols, bbox = _bary_setup(vertices, triangles)
+    rec = torch.stack(list(cols) + _clamp_bbox(bbox, h=h, w=w), dim=1)
+    planes = [torch.stack(attr_plane(*(payloads[:, k][triangles[:, j]]
+                                       for j in range(3))), dim=1)
+              for k in range(payloads.shape[1])]
+    planes = (torch.stack(planes, dim=1) if planes
+              else rec.new_zeros((rec.shape[0], 0, 3)))
+    return rec, planes
+
+
+def eval_deferred_payloads(tri_id: torch.Tensor, drawn: torch.Tensor,
+                           planes: torch.Tensor) -> torch.Tensor:
+    """(h, w) winning ids + (h, w) drawn mask + (T, P, 3) payload planes ->
+    (h, w, P) payloads, 0 where undrawn: one plane evaluation per winning
+    pixel, counterpart of the JAX package's ``_eval_deferred_payloads``
+    (which returns (P, h, w)). Plain torch, as JAX runs it outside its
+    kernel: (a*x + b*y) + c with every operation rounded on its own, the
+    payload kernel's order, so the deferred payloads equal the in-kernel
+    ones bit for bit."""
+    h, w = tri_id.shape
+    p = planes.shape[1]
+    if planes.shape[0] == 0:
+        return planes.new_zeros((h, w, p))
+    c = planes[tri_id.clamp(0, planes.shape[0] - 1).long()]   # (h, w, P, 3)
+    dev = planes.device
+    x = torch.arange(w, device=dev, dtype=torch.float32)[None, :, None]
+    y = torch.arange(h, device=dev, dtype=torch.float32)[:, None, None]
+    val = _plane(c[..., 0], c[..., 1], c[..., 2], x, y)
+    return torch.where(drawn[..., None], val, torch.zeros_like(val))
+
+
+def _check_mesh(vertices: torch.Tensor, triangles: torch.Tensor,
+                colors=None) -> None:
+    dev = vertices.device
+    check_tensor("vertices", vertices, (torch.float32,), (None, 3), dev)
+    check_tensor("triangles", triangles, (torch.int32, torch.int64),
+                 (None, 3), dev)
+    if colors is not None:
+        check_tensor("colors", colors, (torch.float32,),
+                     (vertices.shape[0], 3), dev)
+
+
 def rasterize_buffers_tiled(vertices: torch.Tensor, triangles: torch.Tensor,
-                            colors: torch.Tensor, *, h: int, w: int
+                            colors: torch.Tensor, *, h: int, w: int,
+                            deferred: bool = False
                             ) -> Tuple[torch.Tensor, torch.Tensor]:
     """(V, 3) f32 image-space vertices, (T, 3) int triangles, (V, 3) f32
     per-vertex colors -> (depth (h, w) f32 init ``DEPTH_INIT``, color
     (h, w, 3) f32, 0 where undrawn): the contract of the JAX package's
     ``rasterize_buffers_tiled``. All three tensors are contiguous and on one
-    device; a CUDA device launches the kernel, a CPU device runs the plain
-    twin."""
-    dev = vertices.device
-    check_tensor("vertices", vertices, (torch.float32,), (None, 3), dev)
-    check_tensor("triangles", triangles, (torch.int32, torch.int64),
-                 (None, 3), dev)
-    check_tensor("colors", colors, (torch.float32,), (vertices.shape[0], 3),
-                 dev)
+    device; a CUDA device launches the kernels, a CPU device runs the plain
+    twins. ``deferred``: resolve depth and winning id only (kernel B3),
+    then evaluate the colors per winning pixel; the same buffers."""
+    _check_mesh(vertices, triangles, colors)
+    if deferred:
+        rec, planes = compact_records(vertices, triangles, colors, h=h, w=w)
+        zbuf, tri_id = rasterize_ids(rec, h=h, w=w)
+        return zbuf, eval_deferred_payloads(tri_id, zbuf > DEPTH_INIT,
+                                            planes)
     rec = plane_records(vertices, triangles, colors, h=h, w=w)
     return rasterize_records(rec, 3, h=h, w=w)
 
 
 rasterize_buffers_tiled.launches = 0
+
+
+def _visibility_records(vertices: torch.Tensor, triangles: torch.Tensor, *,
+                       h: int, w: int) -> torch.Tensor:
+    """(T, PAYLOAD0 + 6) records whose two payload planes are the triangle
+    id as a constant (exact in f32 below 2^24) and w0 = 1 - u - v, as the
+    JAX package's ``_rasterize_visibility`` sets them."""
+    _, cols, bbox = _bary_setup(vertices, triangles)
+    au, bu, cu, av, bv, cv = cols[:6]
+    t = triangles.shape[0]
+    zero = torch.zeros_like(au)
+    ids = torch.arange(t, device=vertices.device, dtype=torch.float32)
+    return torch.stack(list(cols) + _clamp_bbox(bbox, h=h, w=w)
+                       + [zero, zero, ids, -(au + av), -(bu + bv),
+                          1.0 - (cu + cv)], dim=1)
+
+
+def rasterize_triangles_tiled(vertices: torch.Tensor,
+                              triangles: torch.Tensor, *, h: int, w: int
+                              ) -> Tuple[torch.Tensor, torch.Tensor,
+                                         torch.Tensor]:
+    """Visibility buffers through the payload kernel, the contract of the
+    JAX package's ``rasterize_triangles_tiled``: (tri_id (h, w) int32, -1
+    where undrawn; depth (h, w) f32 init ``DEPTH_INIT``; barycentric w0
+    (h, w) f32, 0 where undrawn)."""
+    _check_mesh(vertices, triangles)
+    rec = _visibility_records(vertices, triangles, h=h, w=w)
+    zbuf, pay = rasterize_records(rec, 2, h=h, w=w)
+    drawn = zbuf > DEPTH_INIT
+    tri_id = torch.where(drawn, pay[..., 0].to(torch.int32),
+                         torch.full_like(zbuf, -1, dtype=torch.int32))
+    w0 = torch.where(drawn, pay[..., 1], torch.zeros_like(zbuf))
+    return tri_id, zbuf, w0
 
 
 def rasterize_buffers_reference(vertices: torch.Tensor,

@@ -12,6 +12,7 @@ import pytest
 import torch
 
 from synergynet_tpu_torch.mm3d import load_param_pack
+from synergynet_tpu_torch.mm3d.codec import full_fp32
 from synergynet_tpu_torch.ops import (build_decode_basis, decode_dense_fused,
                                       decode_dense_fused_reference)
 
@@ -193,3 +194,141 @@ def test_raster_kernel_rejects_what_it_does_not_take(cuda):
         rasterize_records(rec[:, ::2], 3, h=32, w=32)
     with pytest.raises(ValueError):
         rasterize_records(rec, 6, h=32, w=32)
+
+
+# -- kernel B3: depth + winning triangle id, the deferred path ---------------
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("case", range(7))
+def test_raster_ids_kernel_matches_plain_twin_on_stress_meshes(cuda, case):
+    from synergynet_tpu_torch.render import (compact_records, rasterize_ids,
+                                             rasterize_ids_reference,
+                                             rasterize_triangles_tiled)
+    name, v, t, c = _raster_cases(np.random.default_rng(case))[case]
+    v, t, c = (torch.tensor(a, device=cuda) for a in (v, t, c))
+    rec, _ = compact_records(v, t, c, h=96, w=160)
+    before = rasterize_ids.launches
+    z, ids = rasterize_ids(rec, h=96, w=160)
+    torch.cuda.synchronize()
+    assert rasterize_ids.launches == before + 1
+    zr, idr = rasterize_ids_reference(rec, h=96, w=160)
+    assert torch.equal(z, zr) and torch.equal(ids, idr)
+    assert ((ids >= 0) == (z > -1e8)).all()
+    tri, zv, _ = rasterize_triangles_tiled(v, t, h=96, w=160)
+    assert torch.equal(tri, ids) and torch.equal(zv, z)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("case", range(7))
+def test_deferred_equals_payload_path_on_stress_meshes(cuda, case):
+    from synergynet_tpu_torch.render import rasterize_buffers_tiled
+    _, v, t, c = _raster_cases(np.random.default_rng(case))[case]
+    v, t, c = (torch.tensor(a, device=cuda) for a in (v, t, c))
+    zd, cd = rasterize_buffers_tiled(v, t, c, h=96, w=160, deferred=True)
+    zk, ck = rasterize_buffers_tiled(v, t, c, h=96, w=160)
+    assert torch.equal(zd, zk) and torch.equal(cd, ck)
+
+
+@pytest.mark.gpu
+def test_deferred_equals_payload_path_at_full_width(cuda):
+    from synergynet_tpu_torch.render import (compact_records, rasterize_ids,
+                                             rasterize_ids_reference,
+                                             rasterize_buffers_tiled)
+    verts, tris, colors = _full_width_mesh(cuda, seed=1)
+    zd, cd = rasterize_buffers_tiled(verts, tris, colors, h=720, w=1088,
+                                     deferred=True)
+    zk, ck = rasterize_buffers_tiled(verts, tris, colors, h=720, w=1088)
+    assert torch.equal(zd, zk) and torch.equal(cd, ck)
+    rec, _ = compact_records(verts, tris, colors, h=720, w=1088)
+    got = rasterize_ids(rec, h=720, w=1088)
+    want = rasterize_ids_reference(rec, h=720, w=1088)
+    assert all(torch.equal(a, b) for a, b in zip(got, want))
+
+
+@pytest.mark.gpu
+def test_raster_ids_rejects_what_it_does_not_take(cuda):
+    from synergynet_tpu_torch.render import compact_records, rasterize_ids
+    _, v, t, c = _raster_cases(np.random.default_rng(0))[0]
+    v, t, c = (torch.tensor(a, device=cuda) for a in (v, t, c))
+    rec, _ = compact_records(v, t, c, h=32, w=32)
+    with pytest.raises(TypeError):
+        rasterize_ids(rec.double(), h=32, w=32)
+    with pytest.raises(ValueError):
+        rasterize_ids(torch.cat([rec, rec[:, :3]], 1), h=32, w=32)
+    with pytest.raises(ValueError):
+        rasterize_ids(rec[:, ::2], h=32, w=32)
+    with pytest.raises(ValueError):
+        rasterize_ids(rec, h=0, w=32)
+
+
+# -- kernel B4: the fused s2d8 stem -------------------------------------------
+
+STEM_TOL = dict(rtol=1.6e-2, atol=1e-5)     # bf16's own tolerance
+
+
+def _stem_case(cuda, b, h8, w8, seed=0):
+    """Seeded bf16 s2d8 frames (a mean-subtracted image's spread), taps and
+    bias, on the card."""
+    g = torch.Generator(device=cuda).manual_seed(seed)
+    x = (torch.randn((b, h8, w8, 192), generator=g, device=cuda) * 60
+         ).to(torch.bfloat16)
+    k4 = (torch.randn((4, 192, 192), generator=g, device=cuda) * 0.02
+          ).to(torch.bfloat16)
+    bias = (torch.randn((192,), generator=g, device=cuda) * 0.5
+            ).to(torch.bfloat16)
+    return x, k4, bias
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("shape", [(2, 90, 136), (3, 7, 17), (1, 1, 136),
+                                   (2, 31, 35), (1, 1, 1)])
+def test_stem_kernel_matches_plain_twin(cuda, shape):
+    from synergynet_tpu_torch.detect.stem_fused import (
+        fused_stem1_s2d8, fused_stem1_s2d8_reference)
+    x, k4, bias = _stem_case(cuda, *shape)
+    before = fused_stem1_s2d8.launches
+    got = fused_stem1_s2d8(x, k4, bias)
+    torch.cuda.synchronize()
+    assert fused_stem1_s2d8.launches == before + 1
+    assert got.shape == (*shape, 48) and got.dtype == torch.bfloat16
+    want = fused_stem1_s2d8_reference(x, k4, bias)
+    torch.testing.assert_close(got.float(), want.float(), **STEM_TOL)
+    assert (got.float() > 0).float().mean() > 0.2
+
+
+@pytest.mark.gpu
+def test_stem_net_mode_runs_the_kernel(cuda):
+    from synergynet_tpu_torch.detect.net import StemS2D8
+    from synergynet_tpu_torch.detect.stem_fused import fused_stem1_s2d8
+    stem = StemS2D8().to(cuda, torch.bfloat16)
+    with torch.no_grad():
+        stem.weight.normal_(0, 0.02)
+        stem.bias.normal_(0, 0.5)
+        x = (torch.randn((2, 192, 16, 40), device=cuda) * 60).to(
+            torch.bfloat16).contiguous(memory_format=torch.channels_last)
+        before = fused_stem1_s2d8.launches
+        got = stem(x, "pallas")
+        assert fused_stem1_s2d8.launches == before + 1
+        with full_fp32():
+            want = stem.float()(x.float(), "xla")
+    # The f32 XLA stem on the same bf16 values; the kernel rounds its
+    # pooled result to bf16 once.
+    torch.testing.assert_close(got.float(), want, **STEM_TOL)
+
+
+@pytest.mark.gpu
+def test_stem_kernel_rejects_what_it_does_not_take(cuda):
+    from synergynet_tpu_torch.detect.stem_fused import fused_stem1_s2d8
+    x, k4, bias = _stem_case(cuda, 1, 4, 8)
+    with pytest.raises(TypeError):
+        fused_stem1_s2d8(x.float(), k4, bias)
+    with pytest.raises(TypeError):
+        fused_stem1_s2d8(x, k4.float(), bias)
+    with pytest.raises(ValueError):
+        fused_stem1_s2d8(x[..., :96].contiguous(), k4, bias)
+    with pytest.raises(ValueError):
+        fused_stem1_s2d8(x[:, :, ::2], k4, bias)
+    with pytest.raises(ValueError):
+        fused_stem1_s2d8(x, k4.cpu(), bias)
+    with pytest.raises(ValueError):
+        fused_stem1_s2d8(x, k4, bias, cout=24)

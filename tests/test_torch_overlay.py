@@ -107,8 +107,8 @@ def engines():
     jdet = JaxFaceBoxes(variables=random_init_variables())
     japi = JaxApi(variables="trained", detector=jdet)
     jov = JaxOverlay(JaxEngine(japi, detector=jdet, max_faces=F_MAX))
-    tdet = FaceBoxes(variables=jax.device_get(jdet.variables))
-    tapi = SynergyNet3DMM(variables="trained")
+    tdet = FaceBoxes(variables=jax.device_get(jdet.variables), device="cpu")
+    tapi = SynergyNet3DMM(variables="trained", device="cpu")
     tov = FusedOverlayEngine(FusedFrameEngine(tapi, detector=tdet,
                                               max_faces=F_MAX))
     return jov, tov

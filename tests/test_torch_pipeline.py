@@ -51,8 +51,8 @@ def engines():
     jdet = JaxFaceBoxes(variables=random_init_variables())
     japi = JaxApi(variables="trained", detector=jdet)
     jeng = JaxEngine(japi, detector=jdet, max_faces=F_MAX)
-    tdet = FaceBoxes(variables=jax.device_get(jdet.variables))
-    tapi = SynergyNet3DMM(variables="trained")
+    tdet = FaceBoxes(variables=jax.device_get(jdet.variables), device="cpu")
+    tapi = SynergyNet3DMM(variables="trained", device="cpu")
     teng = FusedFrameEngine(tapi, detector=tdet, max_faces=F_MAX)
     return jeng, teng
 
@@ -115,7 +115,7 @@ def _jax_select(scores, boxes):
 def test_prepare_frame_matches(hw):
     img = np.random.default_rng(6).integers(0, 256, (*hw, 3), np.uint8)
     jc, jp, jhw, js = jax_prepare_frame(img, 8)
-    tc, tp, thw, ts = prepare_frame(img, 8)
+    tc, tp, thw, ts = prepare_frame(img, 8, device="cpu")
     assert ts == js and np.array_equal(thw.numpy(), np.asarray(jhw))
     diff = np.abs(tc.numpy() - jc)
     if js == 1.0:

@@ -1,0 +1,117 @@
+"""The port's fused s2d8 stem (the plain twin of kernel B4) against the JAX
+package's Pallas stem in interpret mode, on the same seeded inputs.
+
+Tolerances: f32 at rtol 1e-5 / atol 1e-4 (``tests/test_detect.py``'s own
+Pallas-vs-XLA stem tolerance; the two sum the taps in other orders); bf16
+at rtol 1.6e-2 / atol 1e-5, bf16's own tolerance, since both round the
+f32 result to bf16 once and an order difference can flip the last bit;
+the twin against the port's XLA stem at f32 at the same 1e-5 / 1e-4.
+"""
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from synergynet_tpu.detect.detector import FaceBoxes as JaxFaceBoxes
+from synergynet_tpu.detect.net import FaceBoxesNet as JaxFaceBoxesNet
+from synergynet_tpu.detect.net import space_to_depth as jax_s2d
+from synergynet_tpu.detect.stem_pallas import fused_stem1_s2d8 as jax_stem
+from synergynet_tpu.detect.torch_import import random_init_variables
+from synergynet_tpu_torch.detect import FaceBoxes
+from synergynet_tpu_torch.detect.net import StemS2D8
+from synergynet_tpu_torch.detect.stem_fused import (
+    fused_stem1_s2d8, fused_stem1_s2d8_reference, taps_from_oihw)
+
+torch.set_num_threads(2)
+
+F32 = dict(rtol=1e-5, atol=1e-4)
+BF16 = dict(rtol=1.6e-2, atol=1e-5)
+
+
+def _stem_inputs(seed, b=1, h8=8, w8=136):
+    rng = np.random.default_rng(seed)
+    x = rng.normal(0, 30, (b, h8, w8, 192)).astype(np.float32)
+    k = rng.normal(0, 0.05, (2, 2, 192, 192)).astype(np.float32)
+    bias = rng.normal(0, 0.5, (192,)).astype(np.float32)
+    return x, k, bias
+
+
+def test_taps_match_jax_reshape():
+    _, k, _ = _stem_inputs(0)
+    oihw = torch.from_numpy(np.ascontiguousarray(k.transpose(3, 2, 0, 1)))
+    got = taps_from_oihw(oihw)
+    assert got.shape == (4, 192, 192) and got.is_contiguous()
+    np.testing.assert_array_equal(got.numpy(), k.reshape(4, 192, 192))
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_twin_matches_jax_pallas_stem(dtype):
+    x, k, bias = _stem_inputs(1)
+    jdt = jnp.dtype(dtype)
+    want = jax_stem(jnp.asarray(x, jdt), jnp.asarray(k, jdt),
+                    jnp.asarray(bias, jdt), interpret=True, hb=4)
+    want = np.array(want.astype(jnp.float32))
+    tdt = getattr(torch, dtype)
+    xt = torch.from_numpy(x).to(tdt)
+    k4 = torch.from_numpy(k.reshape(4, 192, 192)).to(tdt)
+    bt = torch.from_numpy(bias).to(tdt)
+    got = fused_stem1_s2d8_reference(xt, k4, bt)
+    assert got.shape == (1, 8, 136, 48) and got.dtype == tdt
+    tol = F32 if dtype == "float32" else BF16
+    torch.testing.assert_close(got.float(), torch.from_numpy(want), **tol)
+    # On a CPU tensor the entry point is the twin and counts no launch.
+    before = fused_stem1_s2d8.launches
+    assert torch.equal(fused_stem1_s2d8(xt, k4, bt), got)
+    assert fused_stem1_s2d8.launches == before
+
+
+@pytest.mark.parametrize("shape", [(2, 5, 17), (1, 1, 3), (1, 16, 136)])
+def test_twin_matches_xla_stem_f32(shape):
+    b, h8, w8 = shape
+    x, k, bias = _stem_inputs(2, b, h8, w8)
+    stem = StemS2D8()
+    with torch.no_grad():
+        stem.weight.copy_(torch.from_numpy(k.transpose(3, 2, 0, 1)))
+        stem.bias.copy_(torch.from_numpy(bias))
+        xt = torch.from_numpy(x).permute(0, 3, 1, 2).contiguous(
+            memory_format=torch.channels_last)
+        want = stem(xt, "xla")
+        got = stem(xt, "pallas")
+    assert got.shape == want.shape == (b, 48, h8, w8)
+    torch.testing.assert_close(got, want, **F32)
+
+
+def test_tap_weights_follow_the_weight():
+    stem = StemS2D8()
+    with torch.no_grad():
+        stem.weight.normal_()
+    t1 = stem.tap_weights()
+    assert stem.tap_weights() is t1                 # cached
+    with torch.no_grad():
+        stem.weight.mul_(2.0)
+    t2 = stem.tap_weights()
+    assert t2 is not t1 and torch.equal(t2, 2.0 * t1)
+    stem.to(torch.bfloat16)
+    assert stem.tap_weights().dtype == torch.bfloat16
+
+
+def test_net_with_fused_stem_matches_jax(rng):
+    h, w = 256, 384
+    variables = random_init_variables()
+    jax_det = JaxFaceBoxes(variables=variables)
+    img = rng.uniform(-120, 140, (2, h, w, 3)).astype(np.float32)
+    x = np.ascontiguousarray(jax_s2d(img, 8))
+    jnet = JaxFaceBoxesNet(stem_s2d=True, folded=True, stem_r=8,
+                           stem_mode="pallas")
+    jloc, jconf = jnet.apply(jax_det.variables, jnp.asarray(x), train=False)
+    det = FaceBoxes(variables=jax.device_get(jax_det.variables),
+                    device="cpu", stem_mode="pallas")
+    assert det.net.stem_mode == "pallas"
+    with torch.no_grad():
+        loc, conf = det.net(torch.from_numpy(x))
+    np.testing.assert_allclose(loc.numpy(), np.asarray(jloc), rtol=0,
+                               atol=1e-4)
+    np.testing.assert_allclose(conf.numpy(), np.asarray(jconf), rtol=0,
+                               atol=1e-4)
