@@ -16,14 +16,16 @@ each fatal on failure:
    shapes, with kernel and plain times (CUDA events, L2 flushed between
    launches, as the path finds it cold):
    fused decode (B1): 8 and 1024 faces on the full 53,215-vertex basis,
-   f32, within rtol 1e-4 / atol 1e-3;
+   f32, within rtol 1e-4 / atol 1e-3, its time as min / median / max over
+   20 runs, its share of the bound and its ratio to the library call;
    z-buffer raster (B2) and ids resolve (B3): 8 lit BFM meshes (846,720
    triangles) decoded from seeded random param62 in rois spread over the
    720x1088 canvas, and stress meshes (ties, degenerate, giant, parked,
    off-canvas, empty): zbuf, color and triangle id bit-identical;
    fused stem (B4): 1 and 128 720x1088 frames packed s2d8, mean
    subtracted, bf16, within rtol 1.6e-2 / atol 1e-5 (bf16's own
-   tolerance), with the share of elements that differ;
+   tolerance), with the share of elements that differ, and its time as
+   min / median / max over 20 runs beside the bound and cuDNN's conv;
 4. the serving path at full width -- MobileNetV2 1.0 on the shipped
    trained weights, bf16; the seeded random-init bf16 FaceBoxes detector;
    8 faces per 720x1088 frame: ``FusedFrameEngine.__call__`` on a 720x1088
@@ -56,8 +58,11 @@ each fatal on failure:
 
 Prints the kernels as one JSON line (each with its launches on its path,
 error against its twin, kernel, plain and library ms, and the least time
-the card could take, from this run's shapes), the card's name and power
-limit, and last ``{"ok": true, "device": {...}}``.
+the card could take, from this run's shapes; B1's and B4's ``ms`` is the
+median of 20 runs on the device clock, with ``ms_min`` / ``ms_max`` and
+the entry point's mean ``ms_entry`` beside it; each entry's ``timing``
+says how its times were taken), the card's name and power limit, and last
+``{"ok": true, "device": {...}}``.
 """
 
 import argparse
@@ -117,6 +122,29 @@ def time_ms(fn, n, torch, flush=None):
         torch.cuda.synchronize()
         total += start.elapsed_time(end)
     return total / n
+
+
+def time_spread(fn, n, torch, flush):
+    """(min, median, max) milliseconds of ``fn()`` on the device over ``n``
+    runs after two warm-ups, by CUDA events around each run; ``flush()``
+    runs untimed before each, so every run finds the L2 cache cold. A spin
+    of ~0.5 ms on the device follows the flush, so the host has enqueued
+    ``fn()``'s launches before the start event is reached: the time is the
+    device's, not the host's launch overhead."""
+    for _ in range(2):
+        fn()
+    runs = []
+    for _ in range(n):
+        flush()
+        torch.cuda._sleep(1_000_000)
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        fn()
+        end.record()
+        torch.cuda.synchronize()
+        runs.append(start.elapsed_time(end))
+    return min(runs), float(np.median(runs)), max(runs)
 
 
 def bound(nbytes, flops, peak):
@@ -182,7 +210,7 @@ def main():
         fused_stem1_s2d8, fused_stem1_s2d8_reference)
     from synergynet_tpu_torch.mm3d import rescale_to_roi
     from synergynet_tpu_torch.mm3d.codec import full_fp32
-    from synergynet_tpu_torch.ops import cuda_build
+    from synergynet_tpu_torch.ops import cuda_build, fused_decode
     from synergynet_tpu_torch.ops.fused_decode import (
         decode_dense_fused, decode_dense_fused_reference)
     from synergynet_tpu_torch.pipeline import (FusedFrameEngine,
@@ -235,8 +263,17 @@ def main():
         torch.testing.assert_close(got, want, rtol=RTOL, atol=ATOL)
         max_err = max(max_err, err)
         del got, want
-        ms = time_ms(lambda: decode_dense_fused(p, basis, pack), 20, torch,
-                     flush_buf.zero_)
+        # The kernel alone, through its launch wrapper: the (B, 62) prologue
+        # (de-whitening, a few eager ops) stays outside, as in the JAX
+        # package.
+        operands = fused_decode._prologue(p, pack)
+        spread = time_spread(lambda: fused_decode._launch(*operands, basis),
+                             20, torch, flush_buf.zero_)
+        ms = spread[1]
+        # The entry point whole, prologue and the host's launch gaps inside
+        # the events: the series' earlier yardstick, kept beside it.
+        entry = time_ms(lambda: decode_dense_fused(p, basis, pack), 20,
+                        torch, flush_buf.zero_)
         plain = time_ms(lambda: decode_dense_fused_reference(p, basis, pack),
                         20, torch, flush_buf.zero_)
         # The library yardstick: the (B, 50) x (50, 3 Npad) basis product
@@ -244,19 +281,22 @@ def main():
         alpha = p[:, :50].contiguous()
         w_t = basis.w.reshape(-1, 50).T.contiguous()
         with full_fp32():
-            lib = time_ms(lambda: torch.matmul(alpha, w_t), 20, torch,
-                          flush_buf.zero_)
+            lib = time_spread(lambda: torch.matmul(alpha, w_t), 20, torch,
+                              flush_buf.zero_)[1]
         del w_t
         nver, npad = basis.nver, basis.npad
         nbytes = 4 * (b * (50 + 9 + 3) + 3 * npad * 51 + b * 3 * nver)
         # Per vertex: 3 x 50 MACs, the mean, 3 x 3 MACs, offset, y flip.
         b_ms, b_by = bound(nbytes, b * nver * (300 + 3 + 18 + 3 + 1),
                            F32_FLOPS)
-        kernel_stats[b] = (ms, plain, lib, b_ms, b_by)
+        kernel_stats[b] = (ms, plain, lib, b_ms, b_by, spread, entry)
         log(f"fused_decode B={b}: max_abs_err {err:.3e} (rtol {RTOL}, atol "
-            f"{ATOL}) | kernel {ms:.4f} ms | plain {plain:.4f} ms | "
-            f"matmul alone {lib:.4f} ms | bound {b_ms:.4f} ms ({b_by}) | "
-            f"{card}")
+            f"{ATOL}) | kernel min/median/max {spread[0]:.4f} / "
+            f"{spread[1]:.4f} / {spread[2]:.4f} ms over 20 | entry point "
+            f"{entry:.4f} ms (mean, host gaps inside) | plain "
+            f"{plain:.4f} ms | matmul alone {lib:.4f} ms | bound {b_ms:.4f} "
+            f"ms ({b_by}) | {b_ms / ms:.3f} of bound, {ms / lib:.3f}x the "
+            f"matmul | {card}")
 
     det = FaceBoxes(dtype=torch.bfloat16, device=dev, seed=0)
     eng = FusedFrameEngine(api, detector=det, max_faces=FACES)
@@ -387,28 +427,34 @@ def main():
             differ = (got != want).float().mean().item()
             s_err = max(s_err, err)
             del got, want
-            ms = time_ms(lambda: fused_stem1_s2d8(xb, k4, s_bias),
-                         20 if b == 1 else 10, torch, flush_buf.zero_)
+            spread = time_spread(lambda: fused_stem1_s2d8(xb, k4, s_bias),
+                                 20, torch, flush_buf.zero_)
+            ms = spread[1]
+            entry = time_ms(lambda: fused_stem1_s2d8(xb, k4, s_bias),
+                            20 if b == 1 else 10, torch, flush_buf.zero_)
             plain = time_ms(lambda: fused_stem1_s2d8_reference(
                 xb, k4, s_bias), 5, torch, flush_buf.zero_)
             # The library yardstick: cuDNN's bf16 conv with bias on the
             # pre-padded input, without the pool.
             xpad = F.pad(xb.permute(0, 3, 1, 2), (1, 0, 1, 0)).contiguous(
                 memory_format=torch.channels_last)
-            lib = time_ms(lambda: F.conv2d(xpad, stem.weight, stem.bias),
-                          20 if b == 1 else 10, torch, flush_buf.zero_)
+            lib = time_spread(lambda: F.conv2d(xpad, stem.weight, stem.bias),
+                              20, torch, flush_buf.zero_)[1]
             del xpad
             npos = b * xb.shape[1] * xb.shape[2]
             s_bound = bound(2 * (xb.numel() + k4.numel() + npos * 48)
                             + 4 * 192, 2 * npos * 768 * 192 + 9 * npos * 48,
                             BF16_FLOPS)
-            stem_stats[b] = (ms, plain, lib) + s_bound
+            stem_stats[b] = (ms, plain, lib) + s_bound + (spread, entry)
             log(f"stem_s2d8 B={b} ({tuple(xb.shape)} bf16): max_abs_err "
                 f"{err:.3e}, {differ:.2e} of elements differ from the twin "
                 f"(rtol {STEM_TOL['rtol']}, atol {STEM_TOL['atol']}) | "
-                f"kernel {ms:.4f} ms | plain {plain:.4f} ms | cuDNN conv "
-                f"alone {lib:.4f} ms | bound {s_bound[0]:.4f} ms "
-                f"({s_bound[1]}) | {card}")
+                f"kernel min/median/max {spread[0]:.4f} / {spread[1]:.4f} / "
+                f"{spread[2]:.4f} ms over 20 | entry point {entry:.4f} ms "
+                f"(mean, host gaps inside) | plain {plain:.4f} ms | cuDNN "
+                f"conv alone {lib:.4f} ms | bound {s_bound[0]:.4f} ms "
+                f"({s_bound[1]}) | {s_bound[0] / ms:.3f} of bound, "
+                f"{ms / lib:.3f}x the cuDNN conv | {card}")
     del flush_buf, x_stem
     torch.cuda.empty_cache()
 
@@ -739,9 +785,19 @@ def main():
         with open(os.path.join(args.profile, "profile.json"), "w") as f:
             json.dump(summary, f, indent=1)
 
-    ms8, plain8, lib8, bound8, _ = kernel_stats[FACES]
-    ms1k, plain1k, lib1k, bound1k, by1k = kernel_stats[FACES * BATCH]
-    s_ms, s_plain, s_lib, s_bound, s_by = stem_stats[BATCH]
+    ms8, plain8, lib8, bound8, _, spread8, entry8 = kernel_stats[FACES]
+    ms1k, plain1k, lib1k, bound1k, by1k, spread1k, entry1k = kernel_stats[
+        FACES * BATCH]
+    s_ms, s_plain, s_lib, s_bound, s_by, s_spread, s_entry = stem_stats[
+        BATCH]
+    spread_timing = ("ms: median of 20 L2-flushed runs on the device clock "
+                     "(a device spin before each start event keeps the "
+                     "host's launch overhead out), ms_min / ms_max beside "
+                     "it; ms_entry: the entry point whole, mean of the "
+                     "L2-flushed runs, CUDA events around the host's "
+                     "launches (the series' earlier timing of ms)")
+    mean_timing = ("ms: mean of 20 L2-flushed runs, CUDA events around the "
+                   "host's launches")
     print(json.dumps({"kernels": [{
         "name": "fused_decode", "route": "cuda",
         "source": "synergynet_tpu_torch/csrc/fused_decode.cu",
@@ -750,21 +806,26 @@ def main():
         "ms": ms1k, "plain_ms": plain1k, "bound_ms": bound1k,
         "bound_by": by1k, "library_ms": lib1k,
         "library": "torch.matmul (B,50)x(50,3*Npad) f32, no rotation",
-        "faces": FACES * BATCH, "ms_b8": ms8, "plain_ms_b8": plain8,
+        "timing": spread_timing + "; ms times the launch wrapper "
+        "(_launch) without the (B, 62) prologue",
+        "ms_min": spread1k[0], "ms_max": spread1k[2], "ms_entry": entry1k,
+        "ms_entry_b8": entry8,
+        "faces": FACES * BATCH, "ms_b8": ms8, "ms_min_b8": spread8[0],
+        "ms_max_b8": spread8[2], "plain_ms_b8": plain8,
         "bound_ms_b8": bound8, "library_ms_b8": lib8}, {
         "name": "raster_tiled", "route": "cuda",
         "source": "synergynet_tpu_torch/csrc/raster_tiled.cu",
         "replaces": "synergynet_tpu/render/raster_tiled.py:179",
         "launches": r_launches, "max_abs_err": r_err,
         "ms": r_ms, "plain_ms": r_plain, "bound_ms": r_bound[0],
-        "bound_by": r_bound[1], "library_ms": None,
+        "bound_by": r_bound[1], "library_ms": None, "timing": mean_timing,
         "triangles": FACES * ntri, "canvas": list(CANVAS)}, {
         "name": "raster_ids", "route": "cuda",
         "source": "synergynet_tpu_torch/csrc/raster_tiled.cu",
         "replaces": "synergynet_tpu/render/raster_tiled.py:524",
         "launches": r3_launches, "max_abs_err": r3_err,
         "ms": r3_ms, "plain_ms": r3_plain, "bound_ms": r3_bound[0],
-        "bound_by": r3_bound[1], "library_ms": None,
+        "bound_by": r3_bound[1], "library_ms": None, "timing": mean_timing,
         "triangles": FACES * ntri, "canvas": list(CANVAS)}, {
         "name": "stem_s2d8", "route": "cuda",
         "source": "synergynet_tpu_torch/csrc/stem_s2d8.cu",
@@ -773,7 +834,11 @@ def main():
         "ms": s_ms, "plain_ms": s_plain, "bound_ms": s_bound,
         "bound_by": s_by, "library_ms": s_lib,
         "library": "F.conv2d bf16 + bias (cuDNN), conv only, no pool",
+        "timing": spread_timing,
+        "ms_min": s_spread[0], "ms_max": s_spread[2], "ms_entry": s_entry,
+        "ms_entry_b1": stem_stats[1][6],
         "frames": BATCH, "ms_b1": stem_stats[1][0],
+        "ms_min_b1": stem_stats[1][5][0], "ms_max_b1": stem_stats[1][5][2],
         "plain_ms_b1": stem_stats[1][1], "library_ms_b1": stem_stats[1][2],
         "bound_ms_b1": stem_stats[1][3]}],
         "e2e_faces_per_s": {str(b): v[1] for b, v in e2e.items()},

@@ -102,8 +102,10 @@ def require_sm90(device, what: str) -> None:
 
 def build_info(name: str) -> dict:
     """Build seconds (0.0 when an existing build was loaded), library path
-    and the ptxas resource lines of a loaded kernel library."""
+    and the ptxas resource lines of a loaded kernel library (registers,
+    static shared memory, stack and spills)."""
     info = dict(_LOADED[name][1])
     with open(info["log"]) as f:
-        info["ptxas"] = [ln.strip() for ln in f if "ptxas" in ln]
+        info["ptxas"] = [ln.strip() for ln in f
+                         if "ptxas" in ln or "spill" in ln]
     return info

@@ -29,6 +29,7 @@ from synergynet_tpu_torch.ops.cuda_build import (check_tensor,
 
 LANE = 128
 N_COEF = 50
+FEW_FACES = 8       # the few-faces tiling's face tile (csrc/fused_decode.cu)
 
 
 class DecodeBasis(NamedTuple):
@@ -90,6 +91,13 @@ def decode_dense_fused_reference(param: torch.Tensor, basis: DecodeBasis,
     return _decode_plain(*_prologue(param, pack), basis)
 
 
+def decode_variant(b: int) -> int:
+    """The kernel's tiling for ``b`` faces: 0, few faces (one tile of
+    ``FEW_FACES`` faces, bound by the basis read), for b <= FEW_FACES; 1,
+    many faces (32-face register tiles, bound by the FMAs), above."""
+    return 0 if b <= FEW_FACES else 1
+
+
 def _launch(alpha, p9, off, basis: DecodeBasis) -> torch.Tensor:
     """Check what the kernel takes, allocate the output, launch on the
     current stream. Raises on anything else; never falls back."""
@@ -102,13 +110,17 @@ def _launch(alpha, p9, off, basis: DecodeBasis) -> torch.Tensor:
         check_tensor(name, t, (torch.float32,), shape, dev)
     if not 0 < nver <= npad:
         raise ValueError(f"nver {nver} outside (0, npad={npad}]")
+    if npad % 2 or basis.w.data_ptr() % 16:
+        raise ValueError("the kernel stages the basis in 16-byte chunks: "
+                         f"npad ({npad}) must be even and basis.w 16-byte "
+                         "aligned")
     if b * 3 * nver >= 2 ** 31 or npad * 3 * N_COEF >= 2 ** 31:
         raise ValueError(f"batch {b} x {nver} vertices exceeds the kernel's "
                          "32-bit extents")
     require_sm90(dev, "fused-decode")
     lib = load_kernel_library("fused_decode")
     fn = lib.synergy_fused_decode
-    fn.argtypes = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 3 + [
+    fn.argtypes = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 4 + [
         ctypes.c_void_p]
     fn.restype = ctypes.c_int
     out = torch.empty((b, 3, nver), dtype=torch.float32, device=dev)
@@ -118,7 +130,7 @@ def _launch(alpha, p9, off, basis: DecodeBasis) -> torch.Tensor:
         stream = torch.cuda.current_stream(dev).cuda_stream
         rc = fn(alpha.data_ptr(), p9.data_ptr(), off.data_ptr(),
                 basis.w.data_ptr(), basis.u.data_ptr(), out.data_ptr(),
-                b, nver, npad, stream)
+                b, nver, npad, decode_variant(b), stream)
     if rc != 0:
         raise RuntimeError(f"fused-decode kernel launch failed: CUDA error "
                            f"{rc}")

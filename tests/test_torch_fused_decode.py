@@ -13,6 +13,7 @@ from synergynet_tpu.ops import decode_dense_fused as jax_decode_fused
 from synergynet_tpu_torch.mm3d import ParamPack
 from synergynet_tpu_torch.ops import (build_decode_basis, decode_dense_fused,
                                       decode_dense_fused_reference)
+from synergynet_tpu_torch.ops.fused_decode import FEW_FACES, decode_variant
 
 torch.set_num_threads(2)
 
@@ -62,3 +63,13 @@ def test_plain_twin_matches_codec(small_pack, rng):
     got = decode_dense_fused_reference(p, build_decode_basis(tpack), tpack)
     np.testing.assert_allclose(got.numpy(), decode_dense(p, tpack).numpy(),
                                rtol=RTOL, atol=ATOL)
+
+
+@pytest.mark.parametrize("b,want", [(1, 0), (FEW_FACES - 1, 0),
+                                    (FEW_FACES, 0), (FEW_FACES + 1, 1),
+                                    (64, 1), (1024, 1)])
+def test_decode_variant(b, want):
+    """The wrapper's tiling: few faces (one 8-face tile, the B=1 serving
+    call) up to FEW_FACES, the register-tiled many-faces kernel above."""
+    assert FEW_FACES == 8
+    assert decode_variant(b) == want

@@ -34,8 +34,15 @@ def full(cuda):
     return pack, build_decode_basis(pack).to(cuda)
 
 
+# Face counts on both sides of the few-faces tile (8 faces, also the switch
+# between the two tilings), of the many-faces tile (32 faces) and of the
+# four tiles a block walks (128 faces).
+DECODE_FACES = [1, 7, 8, 9, 16, 17, 31, 32, 33, 37, 127, 128, 129, 1024,
+                1031]
+
+
 @pytest.mark.gpu
-@pytest.mark.parametrize("b", [1, 8, 37, 1024])
+@pytest.mark.parametrize("b", DECODE_FACES)
 def test_fused_decode_matches_plain_twin(cuda, full, b):
     pack, basis = full
     rng = np.random.default_rng(b)
@@ -52,8 +59,10 @@ def test_fused_decode_matches_plain_twin(cuda, full, b):
 
 
 @pytest.mark.gpu
-def test_fused_decode_ragged_small_basis(cuda):
-    """A vertex count that is not a tile multiple, with padding columns."""
+@pytest.mark.parametrize("b", [5, 19])
+def test_fused_decode_ragged_small_basis(cuda, b):
+    """A vertex count that is not a tile multiple, with padding columns,
+    under both tilings."""
     rng = np.random.default_rng(0)
     nver, npad = 97, 128
     w = torch.zeros((3, npad, 50))
@@ -65,12 +74,23 @@ def test_fused_decode_ragged_small_basis(cuda):
     from synergynet_tpu_torch.ops import DecodeBasis
     basis = DecodeBasis(w.to(cuda), u.to(cuda), nver)
     pack = load_param_pack().to(cuda)
-    p = torch.tensor(rng.normal(0, 1, (19, 62)).astype(np.float32),
+    p = torch.tensor(rng.normal(0, 1, (b, 62)).astype(np.float32),
                      device=cuda)
     got = decode_dense_fused(p, basis, pack)
     torch.testing.assert_close(got, decode_dense_fused_reference(p, basis,
                                                                  pack),
                                rtol=RTOL, atol=ATOL)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("b", [8, 1024])
+def test_fused_decode_is_deterministic(cuda, full, b):
+    pack, basis = full
+    rng = np.random.default_rng(100 + b)
+    p = torch.tensor(rng.normal(0, 1, (b, 62)).astype(np.float32),
+                     device=cuda)
+    assert torch.equal(decode_dense_fused(p, basis, pack),
+                       decode_dense_fused(p, basis, pack))
 
 
 @pytest.mark.gpu
@@ -279,9 +299,16 @@ def _stem_case(cuda, b, h8, w8, seed=0):
     return x, k4, bias
 
 
+# Full frames; shapes on both sides of the 15 x 17 output tile; one row,
+# one column, one pixel; more tiles than the card has blocks at once, so
+# blocks walk several tiles through the load ring.
+STEM_SHAPES = [(2, 90, 136), (3, 7, 17), (1, 1, 136), (2, 31, 35), (1, 1, 1),
+               (1, 14, 16), (1, 15, 17), (1, 16, 18), (2, 29, 33),
+               (1, 30, 1), (64, 16, 18)]
+
+
 @pytest.mark.gpu
-@pytest.mark.parametrize("shape", [(2, 90, 136), (3, 7, 17), (1, 1, 136),
-                                   (2, 31, 35), (1, 1, 1)])
+@pytest.mark.parametrize("shape", STEM_SHAPES)
 def test_stem_kernel_matches_plain_twin(cuda, shape):
     from synergynet_tpu_torch.detect.stem_fused import (
         fused_stem1_s2d8, fused_stem1_s2d8_reference)
@@ -294,6 +321,86 @@ def test_stem_kernel_matches_plain_twin(cuda, shape):
     want = fused_stem1_s2d8_reference(x, k4, bias)
     torch.testing.assert_close(got.float(), want.float(), **STEM_TOL)
     assert (got.float() > 0).float().mean() > 0.2
+
+
+@pytest.mark.gpu
+def test_stem_kernel_at_128_full_frames(cuda):
+    """128 full frames of small integers and weights on a 2**-7 grid: every
+    f32 sum of the conv is exact in any order, so the kernel must equal the
+    exact result (the conv in f64, ReLU, pool, one bf16 rounding) bit for
+    bit, and the plain twin within bf16's tolerance."""
+    import torch.nn.functional as F
+    from synergynet_tpu_torch.detect.net import phase_maxpool_s2d8
+    from synergynet_tpu_torch.detect.stem_fused import (
+        fused_stem1_s2d8, fused_stem1_s2d8_reference)
+    g = torch.Generator(device=cuda).manual_seed(5)
+    x = torch.randint(-16, 17, (128, 90, 136, 192), generator=g,
+                      device=cuda).to(torch.bfloat16)
+    k4 = (torch.randint(-8, 9, (4, 192, 192), generator=g, device=cuda)
+          * 2.0 ** -7).to(torch.bfloat16)
+    bias = (torch.randint(-64, 65, (192,), generator=g, device=cuda)
+            * 2.0 ** -7).to(torch.bfloat16)
+    got = fused_stem1_s2d8(x, k4, bias)
+    w = k4.double().reshape(2, 2, 192, 192).permute(3, 2, 0, 1)
+    exact = []
+    for xb in x.split(16):
+        y = F.conv2d(F.pad(xb.double().permute(0, 3, 1, 2), (1, 0, 1, 0)), w,
+                     bias.double())
+        exact.append(phase_maxpool_s2d8(F.relu(y), 48).permute(0, 2, 3, 1)
+                     .to(torch.bfloat16))
+    assert torch.equal(got, torch.cat(exact))
+    torch.testing.assert_close(
+        got.float(), fused_stem1_s2d8_reference(x, k4, bias).float(),
+        **STEM_TOL)
+
+
+@pytest.mark.gpu
+def test_stem_kernel_at_128_random_frames_within_f32_order_of_exact(cuda):
+    """128 full frames of random data, where f32 sums of 768 products
+    depend on their order. The exact result is the conv in f64, ReLU and
+    the pool; each pooled f32 value may differ from it by at most
+    n * 2u * (sum of |terms|) over the window (n = 769 terms with the
+    bias, u = 2**-24, doubled for an accumulator that truncates), so its
+    one bf16 rounding lies between the roundings of exact -/+ that bound.
+    The kernel and the plain twin (cuDNN in f32) must both lie there; where
+    they differ from each other by more than bf16's tolerance, it is
+    rounding order, not a wrong sum."""
+    import torch.nn.functional as F
+    from synergynet_tpu_torch.detect.net import phase_maxpool_s2d8
+    from synergynet_tpu_torch.detect.stem_fused import (
+        fused_stem1_s2d8, fused_stem1_s2d8_reference)
+    x, k4, bias = _stem_case(cuda, 128, 90, 136)
+    got = fused_stem1_s2d8(x, k4, bias)
+    twin = fused_stem1_s2d8_reference(x, k4, bias)
+    w = k4.double().reshape(2, 2, 192, 192).permute(3, 2, 0, 1)
+    gamma = 769 * 2.0 * 2.0 ** -24
+    outside = 0
+    for i, xb in enumerate(x.split(16)):
+        xp = F.pad(xb.double().permute(0, 3, 1, 2), (1, 0, 1, 0))
+        exact = phase_maxpool_s2d8(F.relu(F.conv2d(xp, w, bias.double())),
+                                   48).permute(0, 2, 3, 1)
+        mag = F.conv2d(xp.abs(), w.abs(), bias.double().abs())
+        err = phase_maxpool_s2d8(mag, 48).permute(0, 2, 3, 1) * gamma
+        lo = (exact - err).to(torch.bfloat16).double()
+        hi = (exact + err).to(torch.bfloat16).double()
+        for name, out in (("kernel", got), ("twin", twin)):
+            o = out[16 * i:16 * (i + 1)].double()
+            assert bool(((o >= lo) & (o <= hi)).all()), name
+        g, t = got[16 * i:16 * (i + 1)].float(), twin[16 * i:16 * (i + 1)
+                                                      ].float()
+        outside += int(((g - t).abs() > STEM_TOL["atol"]
+                        + STEM_TOL["rtol"] * t.abs()).sum())
+    # The disagreements beyond bf16's tolerance are rare.
+    assert outside <= got.numel() * 1e-6
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("shape", [(1, 90, 136), (16, 90, 136)])
+def test_stem_kernel_is_deterministic(cuda, shape):
+    from synergynet_tpu_torch.detect.stem_fused import fused_stem1_s2d8
+    x, k4, bias = _stem_case(cuda, *shape, seed=6)
+    assert torch.equal(fused_stem1_s2d8(x, k4, bias),
+                       fused_stem1_s2d8(x, k4, bias))
 
 
 @pytest.mark.gpu

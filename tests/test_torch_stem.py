@@ -20,7 +20,7 @@ from synergynet_tpu.detect.net import space_to_depth as jax_s2d
 from synergynet_tpu.detect.stem_pallas import fused_stem1_s2d8 as jax_stem
 from synergynet_tpu.detect.torch_import import random_init_variables
 from synergynet_tpu_torch.detect import FaceBoxes
-from synergynet_tpu_torch.detect.net import StemS2D8
+from synergynet_tpu_torch.detect.net import StemS2D8, phase_maxpool_s2d8
 from synergynet_tpu_torch.detect.stem_fused import (
     fused_stem1_s2d8, fused_stem1_s2d8_reference, taps_from_oihw)
 
@@ -115,3 +115,23 @@ def test_net_with_fused_stem_matches_jax(rng):
                                atol=1e-4)
     np.testing.assert_allclose(conf.numpy(), np.asarray(jconf), rtol=0,
                                atol=1e-4)
+
+
+@pytest.mark.parametrize("seed", [0, 1])
+def test_pool_of_rounded_conv_equals_rounded_pool(seed):
+    """The invariant kernel B4's bf16 conv tile rests on: rounding to
+    nearest is monotonic, so pooling the bf16-rounded ReLU output gives,
+    bit for bit, the bf16 rounding of the f32 pool. Seeded data with exact
+    ties, zeros, negatives (ReLU'd to 0) and values one f32 ulp apart."""
+    rng = np.random.default_rng(seed)
+    y = rng.normal(0, 3, (2, 4 * 48, 9, 11)).astype(np.float32)
+    y[:, :, ::3] = 0.0                                    # zero rows
+    y[0, 48:96] = y[0, :48]                               # tied phases
+    flat = y.reshape(-1)
+    near = rng.choice(flat.size, flat.size // 4, replace=False)
+    flat[near] = np.nextafter(flat[near - 1], np.float32(np.inf))
+    relu = torch.relu(torch.from_numpy(y))
+    want = phase_maxpool_s2d8(relu, 48).to(torch.bfloat16)
+    got = phase_maxpool_s2d8(relu.to(torch.bfloat16), 48)
+    assert got.dtype == torch.bfloat16
+    assert torch.equal(got.view(torch.int16), want.view(torch.int16))
