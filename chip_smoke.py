@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Smoke run of the PyTorch port (``synergynet_tpu_torch``) on one CUDA card.
 
-    python3 chip_smoke.py [--profile DIR]
+    python3 chip_smoke.py [--profile DIR] [--parent DIR]
 
 Needs one NVIDIA Hopper card and the CUDA toolkit (nvcc); fails without
 them, and fails when the port's package is not beside this script. Phases,
@@ -18,10 +18,14 @@ each fatal on failure:
    fused decode (B1): 8 and 1024 faces on the full 53,215-vertex basis,
    f32, within rtol 1e-4 / atol 1e-3, its time as min / median / max over
    20 runs, its share of the bound and its ratio to the library call;
-   z-buffer raster (B2) and ids resolve (B3): 8 lit BFM meshes (846,720
-   triangles) decoded from seeded random param62 in rois spread over the
-   720x1088 canvas, and stress meshes (ties, degenerate, giant, parked,
-   off-canvas, empty): zbuf, color and triangle id bit-identical;
+   z-buffer raster (B2) and ids resolve (B3), both taking the mesh: 8 lit
+   BFM meshes (846,720 triangles, int32 and int64) decoded from seeded
+   random param62 in rois spread over the 720x1088 canvas, and stress
+   meshes (ties, degenerate, giant, parked, off-canvas, empty): zbuf,
+   payloads, triangle id and w0 bit-identical to the record-based twins,
+   the visibility path equal to its record route and the deferred path to
+   the payload path; times as for B1, with the bound of the mesh form and
+   of the record form;
    fused stem (B4): 1 and 128 720x1088 frames packed s2d8, mean
    subtracted, bf16, within rtol 1.6e-2 / atol 1e-5 (bf16's own
    tolerance), with the share of elements that differ, and its time as
@@ -41,10 +45,10 @@ each fatal on failure:
    720x1088, a 480x640 and an oversized 1080x1920 frame; the raster
    kernel's launch count over these calls (and only these) must be > 0;
    the overlay has the input's shape and dtype uint8, landmarks, meshes
-   and poses equal ``FusedFrameEngine.__call__``'s, the kernel equals its
-   twin bit for bit on the path's own meshes, the overlay equals the same
-   render through the plain twin, and undrawn pixels equal the frame.
-   Then the deferred raster on the same lit meshes:
+   and poses equal ``FusedFrameEngine.__call__``'s, both raster kernels
+   equal their twins bit for bit on the path's own meshes, the overlay
+   equals the same render through the plain twin, and undrawn pixels equal
+   the frame. Then the deferred raster on the same lit meshes:
    ``rasterize_buffers_tiled(..., deferred=True)`` equals ``deferred=False``
    bit for bit, the ids kernel's launch count over those calls is > 0,
    and the visibility path's triangle ids equal the ids kernel's;
@@ -52,13 +56,18 @@ each fatal on failure:
    the fused-stem engines in turns, ms per overlay frame (CUDA events or
    host clock after a synchronise, after warm-up), a per-stage breakdown
    of each, and the deferred raster's time beside the payload raster's;
-7. with ``--profile DIR`` only: ``process_batch`` at 1 and 128 frames under
-   ``torch.profiler`` -- device busy time, idle share, device ops per call
-   and the leading ops -- with the Chrome traces and a summary in DIR.
+   with ``--parent DIR`` (a checkout of an earlier commit) the same-work
+   A/B of the raster entry points: the parent's and this tree's, mesh in
+   and buffers out, in turns (parent, this, this, parent), each turn
+   ``chip_smoke.py --raster-worker`` in a process of its own;
+7. with ``--profile DIR`` only: ``process_batch`` at 1 and 128 frames and
+   one overlay frame under ``torch.profiler`` -- device busy time, idle
+   share, device ops per call, the leading ops and the raster's fill, walk
+   and resolve -- with the Chrome traces and a summary in DIR.
 
 Prints the kernels as one JSON line (each with its launches on its path,
 error against its twin, kernel, plain and library ms, and the least time
-the card could take, from this run's shapes; B1's and B4's ``ms`` is the
+the card could take, from this run's shapes; each kernel's ``ms`` is the
 median of 20 runs on the device clock, with ``ms_min`` / ``ms_max`` and
 the entry point's mean ``ms_entry`` beside it; each entry's ``timing``
 says how its times were taken), the card's name and power limit, and last
@@ -124,19 +133,20 @@ def time_ms(fn, n, torch, flush=None):
     return total / n
 
 
-def time_spread(fn, n, torch, flush):
+def time_spread(fn, n, torch, flush, spin=1_000_000):
     """(min, median, max) milliseconds of ``fn()`` on the device over ``n``
     runs after two warm-ups, by CUDA events around each run; ``flush()``
     runs untimed before each, so every run finds the L2 cache cold. A spin
-    of ~0.5 ms on the device follows the flush, so the host has enqueued
-    ``fn()``'s launches before the start event is reached: the time is the
-    device's, not the host's launch overhead."""
+    of ``spin`` cycles (~0.5 ms by default) on the device follows the
+    flush, so the host has enqueued ``fn()``'s launches before the start
+    event is reached: the time is the device's, not the host's launch
+    overhead, as long as the host enqueues ``fn()`` within the spin."""
     for _ in range(2):
         fn()
     runs = []
     for _ in range(n):
         flush()
-        torch.cuda._sleep(1_000_000)
+        torch.cuda._sleep(spin)
         start = torch.cuda.Event(enable_timing=True)
         end = torch.cuda.Event(enable_timing=True)
         start.record()
@@ -155,12 +165,164 @@ def bound(nbytes, flops, peak):
 
 
 def bbox_pixels(rec):
-    """Pixels inside the records' clamped bboxes: the fragments a raster
-    kernel tests for this data."""
+    """Pixels inside the twin's records' clamped bboxes: the fragments a
+    raster kernel tests for this data."""
     bb = rec[:, 9:13].long()
     nx = (bb[:, 1] - bb[:, 0] + 1).clamp(min=0)
     ny = (bb[:, 3] - bb[:, 2] + 1).clamp(min=0)
     return int((nx * ny).sum())
+
+
+def raster_bounds(nver, ntri, n_payload, frags, drawn, h, w, tri_bytes):
+    """(bound_ms, bound_by) of kernels B2 (``n_payload`` payloads) or B3
+    (``n_payload`` 0: depth and id out) in the mesh form (reads vertices,
+    triangles and payloads, writes the buffers) and in the earlier record
+    form (reads (T, 13 + 3P) f32 plane records). Operations, f32: the setup (53 a
+    triangle: u, v and depth planes), 13 a bbox pixel (three planes and
+    u + v) and, for B2, the winner's 41-flop setup and 16 a payload a drawn
+    pixel."""
+    out = h * w * 4 * (1 + max(n_payload, 1))
+    resolve = drawn * (41 + 16 * n_payload) if n_payload else 0
+    mesh = bound(4 * nver * (3 + n_payload) + tri_bytes * 3 * ntri + out,
+                 53 * ntri + 13 * frags + resolve, F32_FLOPS)
+    records = bound(4 * ntri * (13 + 3 * n_payload) + out,
+                    13 * frags + resolve, F32_FLOPS)
+    return mesh, records
+
+
+def lit_meshes(torch, dev):
+    """8 BFM meshes decoded by the plain twin from seeded random param62 in
+    rois spread over the 720x1088 canvas and lit as the overlay lights
+    them, from the package on ``sys.path``: (verts (F*V, 3), tris (F*T, 3)
+    int32, light (F*V, 3)), the overlay path's raster input at full
+    width."""
+    from synergynet_tpu_torch.mm3d import load_param_pack, rescale_to_roi
+    from synergynet_tpu_torch.ops import (build_decode_basis,
+                                          decode_dense_fused_reference)
+    from synergynet_tpu_torch.pipeline.overlay_engine import light_faces
+    from synergynet_tpu_torch.render import one_ring_table
+    pack = load_param_pack().to(dev)
+    basis = build_decode_basis(pack).to(dev)
+    ch, cw = CANVAS
+    rng = np.random.default_rng(0)
+    p = torch.tensor(rng.normal(0, 1, (FACES, 62)).astype(np.float32),
+                     device=dev)
+    size = rng.uniform(80, 600, FACES)
+    x0, y0 = rng.uniform(0, cw - size), rng.uniform(0, ch - size)
+    rois = torch.tensor(np.stack([x0, y0, x0 + size, y0 + size], 1),
+                        dtype=torch.float32, device=dev)
+    with torch.inference_mode():
+        dense = rescale_to_roi(decode_dense_fused_reference(p, basis, pack),
+                               rois)
+        tris = np.ascontiguousarray(pack.tri.cpu().numpy().T).astype(np.int32)
+        nver = dense.shape[2]
+        rings = one_ring_table(tris, nver).long().to(dev)
+        verts, light = light_faces(
+            dense.transpose(1, 2), torch.ones(FACES, dtype=torch.bool,
+                                              device=dev),
+            torch.from_numpy(tris).to(dev), rings)
+    tris_all = (tris[None] + (np.arange(FACES, dtype=np.int32) * nver)[
+        :, None, None]).reshape(-1, 3)
+    return (verts.reshape(-1, 3).contiguous(),
+            torch.from_numpy(tris_all).to(dev),
+            light.reshape(-1, 3).contiguous())
+
+
+# Spin before the start event in the same-work A/B: ~10 ms, longer than the
+# host takes to enqueue the record form's ~60 eager ops.
+AB_SPIN = 20_000_000
+
+
+def raster_split(top):
+    """Device ms per call of the raster kernels' three launches from
+    ``profile_calls``' op list, and of everything else."""
+    split = {"fill": 0.0, "walk": 0.0, "resolve": 0.0, "other": 0.0}
+    for name, ms in top:
+        key = ("fill" if "fill_keys" in name else
+               "walk" if "raster_kernel" in name or "raster_mesh_kernel"
+               in name else "resolve" if "resolve" in name else "other")
+        split[key] += ms
+    return split
+
+
+def raster_worker(pkg_dir):
+    """One turn of the same-work A/B: import the package at ``pkg_dir``
+    (this checkout, or a parent's), rasterize :func:`lit_meshes` through
+    its payload and ids entry points as its overlay and deferred paths
+    call them -- mesh in, buffers out, whatever the package builds on the
+    way -- and print one JSON line: each entry's device time (median, min,
+    max of 20 L2-flushed runs behind a ~10 ms spin), its mean with the
+    host's gaps inside, and the device ms of each launch under
+    ``torch.profiler``."""
+    sys.path.insert(0, os.path.abspath(pkg_dir))
+    import torch
+    from synergynet_tpu_torch.core.profiling import profile_calls
+    from synergynet_tpu_torch import render
+    if not torch.cuda.is_available():
+        fail("torch.cuda.is_available() is false: this smoke run needs a card")
+    dev = torch.device(DEVICE)
+    ch, cw = CANVAS
+    v, t, c = lit_meshes(torch, dev)
+    if hasattr(render, "rasterize_mesh"):
+        form = "mesh: setup inside the kernels, int32 triangles"
+        entries = {
+            "payload": lambda: render.rasterize_mesh(v, t, c, h=ch, w=cw),
+            "ids": lambda: render.rasterize_mesh_ids(v, t, h=ch, w=cw)}
+    else:
+        # The earlier record form: int64 triangles, as its overlay engine
+        # passed them, and the record build before each kernel.
+        form = "records: plane_records / compact_records, int64 triangles"
+        t = t.long()
+        none = v.new_zeros((v.shape[0], 0))
+        entries = {
+            "payload": lambda: render.rasterize_records(
+                render.plane_records(v, t, c, h=ch, w=cw), 3, h=ch, w=cw),
+            "ids": lambda: render.rasterize_ids(
+                render.compact_records(v, t, none, h=ch, w=cw)[0], h=ch,
+                w=cw)}
+    flush_buf = torch.empty(256 * 2 ** 20, dtype=torch.uint8, device=dev)
+    out = {"package": os.path.abspath(render.__file__), "form": form}
+    trace_dir = os.path.join(os.path.abspath(pkg_dir), "build")
+    os.makedirs(trace_dir, exist_ok=True)
+    with torch.inference_mode():
+        for name, fn in entries.items():
+            spread = time_spread(fn, 20, torch, flush_buf.zero_, AB_SPIN)
+            entry = time_ms(fn, 20, torch, flush_buf.zero_)
+            prof = profile_calls(fn, 5, os.path.join(
+                trace_dir, f"raster_ab_{name}.json"), top=1000)
+            out[name] = {"ms": spread[1], "ms_min": spread[0],
+                         "ms_max": spread[2], "ms_entry": entry,
+                         "device_ms": raster_split(prof["top"]),
+                         "busy_ms": prof["busy_ms"]}
+    print("raster_worker " + json.dumps(out), flush=True)
+
+
+def raster_ab(parent_dir, card):
+    """The same-work A/B in turns (parent, this tree, this tree, parent),
+    each turn :func:`raster_worker` in a process of its own. -> {"parent":
+    [turn, turn], "change": [turn, turn]}."""
+    here = os.path.dirname(os.path.abspath(__file__))
+    turns = {"parent": [], "change": []}
+    for who in ("parent", "change", "change", "parent"):
+        pkg = parent_dir if who == "parent" else here
+        proc = subprocess.run(
+            [sys.executable, os.path.abspath(__file__), "--raster-worker",
+             pkg], capture_output=True, text=True, timeout=600)
+        line = [ln for ln in proc.stdout.splitlines()
+                if ln.startswith("raster_worker ")]
+        if proc.returncode != 0 or not line:
+            fail(f"raster A/B turn on {pkg} failed (exit {proc.returncode})"
+                 f":\n{proc.stdout[-3000:]}\n{proc.stderr[-3000:]}")
+        turn = json.loads(line[-1][len("raster_worker "):])
+        turns[who].append(turn)
+        log(f"raster A/B {who} ({turn['form']}): " + "; ".join(
+            f"{k} {turn[k]['ms']:.4f} ms ({turn[k]['ms_min']:.4f}-"
+            f"{turn[k]['ms_max']:.4f}) on the device clock, entry "
+            f"{turn[k]['ms_entry']:.4f} ms, launches "
+            + ", ".join(f"{n} {ms:.4f}" for n, ms in
+                        turn[k]["device_ms"].items())
+            for k in ("payload", "ids")) + f" | {card}")
+    return turns
 
 
 def stress_meshes(rng, h, w):
@@ -196,8 +358,16 @@ def stress_meshes(rng, h, w):
 def main():
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--profile", metavar="DIR",
-                    help="also profile process_batch; traces go to DIR")
+                    help="also profile process_batch and one overlay frame; "
+                    "traces go to DIR")
+    ap.add_argument("--parent", metavar="DIR",
+                    help="a checkout of the parent commit: time its raster "
+                    "entry points against this tree's, in turns")
+    ap.add_argument("--raster-worker", metavar="DIR", help=argparse.SUPPRESS)
     args = ap.parse_args()
+    if args.raster_worker:
+        raster_worker(args.raster_worker)
+        return
 
     import torch
     import torch.nn.functional as F
@@ -221,10 +391,11 @@ def main():
     from synergynet_tpu_torch.pipeline.overlay_engine import (
         _face_buckets, composite, light_faces)
     from synergynet_tpu_torch.render import (
-        DEPTH_INIT, compact_records, plane_records,
-        rasterize_buffers_reference, rasterize_buffers_tiled, rasterize_ids,
-        rasterize_ids_reference, rasterize_records,
-        rasterize_records_reference, rasterize_triangles_tiled)
+        DEPTH_INIT, plane_records, rasterize_buffers_reference,
+        rasterize_buffers_tiled, rasterize_mesh, rasterize_mesh_ids,
+        rasterize_mesh_ids_reference, rasterize_records_reference,
+        rasterize_triangles_tiled)
+    from synergynet_tpu_torch.render.raster_tiled import _visibility_records
 
     dev = torch.device(DEVICE)
     card = card_line()
@@ -306,102 +477,90 @@ def main():
 
     # -- 3b. kernels B2 and B3 vs plain twins: 8 lit meshes, stress meshes ----
     r_err = 0.0
-
     r3_err = 0.0
 
-    def ids_twins(rec_c, h, w, what):
-        """The ids kernel and its twin on the same records: bit-identical."""
-        nonlocal r3_err
-        got = rasterize_ids(rec_c, h=h, w=w)
-        want = rasterize_ids_reference(rec_c, h=h, w=w)
+    def raster_twins(v, t, c, h, w, what):
+        """Both mesh kernels against their twins on the same mesh, bit for
+        bit: B2's zbuf and payloads, B3's zbuf, ids and w0; the visibility
+        path against its record route (the JAX package's), the deferred
+        path against the payload path. -> (zbuf, ids)."""
+        nonlocal r_err, r3_err
+        got = rasterize_mesh(v, t, c, h=h, w=w)
+        got3 = rasterize_mesh_ids(v, t, h=h, w=w, w0=True)
         torch.cuda.synchronize()
-        for g, x, name in zip(got, want, ("zbuf", "tri_id")):
+        want = rasterize_buffers_reference(v, t, c, h=h, w=w)
+        want3 = rasterize_mesh_ids_reference(v, t, h=h, w=w, w0=True)
+        for g, x, name in zip(got + got3, want + want3,
+                              ("zbuf", "color", "ids zbuf", "tri_id", "w0")):
             if not torch.equal(g, x):
                 bad = (g != x).sum().item()
-                fail(f"raster ids {what}: {name} differs from the plain twin"
-                     f" at {bad} entries")
-            r3_err = max(r3_err, (g.double() - x.double()).abs().max().item())
-        return got
+                fail(f"raster {what}: {name} differs from the plain twin at "
+                     f"{bad} entries")
+        r_err = max(r_err, max((g - x).abs().max().item()
+                               for g, x in zip(got, want)))
+        r3_err = max(r3_err, max((g.double() - x.double()).abs().max().item()
+                                 for g, x in zip(got3, want3)))
+        if not torch.equal(got3[0], got[0]):
+            fail(f"raster ids {what}: zbuf differs from the payload kernel's")
+        rec = _visibility_records(v, t, h=h, w=w)
+        zr, pay = rasterize_records_reference(rec, 2, h=h, w=w)
+        drawn = zr > DEPTH_INIT
+        tri, zv, w0 = rasterize_triangles_tiled(v, t, h=h, w=w)
+        if not (torch.equal(zv, zr) and torch.equal(tri, torch.where(
+                drawn, pay[..., 0].to(torch.int32), -1)) and torch.equal(
+                w0, torch.where(drawn, pay[..., 1], 0.0))):
+            fail(f"visibility {what}: differs from the record route")
+        zd, cd = rasterize_buffers_tiled(v, t, c, h=h, w=w, deferred=True)
+        if not (torch.equal(zd, got[0]) and torch.equal(cd, got[1])):
+            fail(f"deferred {what}: differs from the payload path")
+        return got[0], got3[1]
 
-    def raster_twins(rec, h, w, what):
-        """Kernel and plain twin on the same records: bit-identical."""
-        nonlocal r_err
-        got = rasterize_records(rec, 3, h=h, w=w)
-        want = rasterize_records_reference(rec, 3, h=h, w=w)
-        torch.cuda.synchronize()
-        for g, x, name in zip(got, want, ("zbuf", "color")):
-            if not torch.equal(g, x):
-                bad = (g != x).sum().item()
-                fail(f"raster_tiled {what}: {name} differs from the plain "
-                     f"twin at {bad} entries")
-            r_err = max(r_err, (g - x).abs().max().item())
-        return got
-
+    v8, t8, c8 = lit_meshes(torch, dev)
     with torch.inference_mode():
-        p = torch.tensor(rng.normal(0, 1, (FACES, 62)).astype(np.float32),
-                         device=dev)
-        size = rng.uniform(80, 600, FACES)
-        x0, y0 = rng.uniform(0, cw - size), rng.uniform(0, ch - size)
-        rois = torch.tensor(np.stack([x0, y0, x0 + size, y0 + size], 1),
-                            dtype=torch.float32, device=dev)
-        dense8 = rescale_to_roi(decode_dense_fused(p, basis, pack), rois)
-        verts8, light8 = light_faces(
-            dense8.transpose(1, 2), torch.ones(FACES, dtype=torch.bool,
-                                               device=dev),
-            ov.tris_face, ov.rings, ov.light_cfg)
-        rec8 = plane_records(verts8.reshape(-1, 3), ov.tris_all,
-                             light8.reshape(-1, 3), h=ch, w=cw)
-        zb, _ = raster_twins(rec8, ch, cw, f"{FACES} random meshes")
-        drawn8 = (zb > DEPTH_INIT).float().mean().item()
-        r_ms = time_ms(lambda: rasterize_records(rec8, 3, h=ch, w=cw), 20,
-                       torch, flush_buf.zero_)
-        r_plain = time_ms(
-            lambda: rasterize_records_reference(rec8, 3, h=ch, w=cw), 5,
-            torch, flush_buf.zero_)
+        zb, _ = raster_twins(v8, t8, c8, ch, cw, f"{FACES} lit meshes")
+        z64, _ = raster_twins(v8, t8.long(), c8, ch, cw,
+                              f"{FACES} lit meshes, int64 triangles")
+        drawn8 = (zb > DEPTH_INIT).sum().item()
+        rec8 = plane_records(v8, t8, c8, h=ch, w=cw)
         frags8 = bbox_pixels(rec8)
-        r_bound = bound(4 * (rec8.numel() + ch * cw * 4),
-                        13 * frags8 + 12 * ch * cw, F32_FLOPS)
-        log(f"raster_tiled {FACES} meshes x {ntri} triangles on {ch}x{cw}: "
-            f"bit-identical to the plain twin, {drawn8:.3f} of pixels drawn, "
-            f"{frags8} bbox pixels | kernel {r_ms:.4f} ms | plain "
-            f"{r_plain:.4f} ms | bound {r_bound[0]:.4f} ms ({r_bound[1]}) | "
-            f"{card}")
-        rec8c, _ = compact_records(verts8.reshape(-1, 3), ov.tris_all,
-                                   light8.reshape(-1, 3), h=ch, w=cw)
-        zb3, ids3 = ids_twins(rec8c, ch, cw, f"{FACES} random meshes")
-        if not torch.equal(zb3, zb):
-            fail("raster ids: zbuf differs from the payload kernel's")
-        r3_ms = time_ms(lambda: rasterize_ids(rec8c, h=ch, w=cw), 20, torch,
-                        flush_buf.zero_)
-        r3_plain = time_ms(lambda: rasterize_ids_reference(rec8c, h=ch,
-                                                           w=cw), 5,
-                           torch, flush_buf.zero_)
-        r3_bound = bound(4 * rec8c.numel() + 8 * ch * cw, 13 * frags8,
-                         F32_FLOPS)
-        log(f"raster ids {FACES} meshes: zbuf and tri_id bit-identical to "
-            f"the plain twin, zbuf equal to the payload kernel's | kernel "
-            f"{r3_ms:.4f} ms | plain {r3_plain:.4f} ms | bound "
-            f"{r3_bound[0]:.4f} ms ({r3_bound[1]}) | {card}")
+        r_bounds = raster_bounds(v8.shape[0], t8.shape[0], 3, frags8,
+                                 drawn8, ch, cw, 4)
+        r3_bounds = raster_bounds(v8.shape[0], t8.shape[0], 0, frags8,
+                                  drawn8, ch, cw, 4)
+        r_spread = time_spread(lambda: rasterize_mesh(v8, t8, c8, h=ch, w=cw),
+                               20, torch, flush_buf.zero_)
+        r_entry = time_ms(lambda: rasterize_mesh(v8, t8, c8, h=ch, w=cw), 20,
+                          torch, flush_buf.zero_)
+        r_plain = time_ms(lambda: rasterize_buffers_reference(
+            v8, t8, c8, h=ch, w=cw), 5, torch, flush_buf.zero_)
+        r3_spread = time_spread(lambda: rasterize_mesh_ids(v8, t8, h=ch,
+                                                           w=cw),
+                                20, torch, flush_buf.zero_)
+        r3_entry = time_ms(lambda: rasterize_mesh_ids(v8, t8, h=ch, w=cw),
+                           20, torch, flush_buf.zero_)
+        r3_plain = time_ms(lambda: rasterize_mesh_ids_reference(
+            v8, t8, h=ch, w=cw), 5, torch, flush_buf.zero_)
+        for name, spread, entry, plain, (mb, rb) in (
+                ("B2 payloads", r_spread, r_entry, r_plain, r_bounds),
+                ("B3 depth + id", r3_spread, r3_entry, r3_plain, r3_bounds)):
+            log(f"raster {name}, {FACES} lit meshes x {ntri} triangles on "
+                f"{ch}x{cw}: bit-identical to the plain twin (int32 and "
+                f"int64 triangles), {drawn8 / (ch * cw):.3f} of pixels drawn,"
+                f" {frags8} bbox pixels | kernel min/median/max "
+                f"{spread[0]:.4f} / {spread[1]:.4f} / {spread[2]:.4f} ms over "
+                f"20 | entry point {entry:.4f} ms (mean, host gaps inside) |"
+                f" plain {plain:.4f} ms | bound, mesh form {mb[0]:.4f} ms "
+                f"({mb[1]}), record form {rb[0]:.4f} ms ({rb[1]}) | "
+                f"{mb[0] / spread[1]:.3f} of bound | {card}")
         for name, v, t, c in stress_meshes(np.random.default_rng(3), ch, cw):
             v, t, c = (torch.tensor(a, device=dev) for a in (v, t, c))
-            z, _ = rasterize_buffers_tiled(v, t, c, h=ch, w=cw)
-            zr, _ = rasterize_buffers_reference(v, t, c, h=ch, w=cw)
-            rec = plane_records(v, t, c, h=ch, w=cw)
-            raster_twins(rec, ch, cw, f"stress mesh {name}")
-            rec_c, _ = compact_records(v, t, c, h=ch, w=cw)
-            z3, _ = ids_twins(rec_c, ch, cw, f"stress mesh {name}")
-            if not torch.equal(z3, zr):
-                fail(f"raster ids stress mesh {name}: zbuf differs from "
-                     "the payload kernel's")
-            if not torch.equal(z, zr):
-                fail(f"raster_tiled stress mesh {name}: entry point differs")
+            z, _ = raster_twins(v, t, c, ch, cw, f"stress mesh {name}")
             n_drawn = (z > DEPTH_INIT).sum().item()
             if (n_drawn == 0) != (name in ("offcanvas", "empty")):
-                fail(f"raster_tiled stress mesh {name}: {n_drawn} pixels "
-                     "drawn")
-            log(f"raster_tiled + ids stress {name}: {t.shape[0]} triangles,"
-                f" {n_drawn} pixels drawn, bit-identical")
-    del dense8, verts8, light8, rec8, rec8c
+                fail(f"raster stress mesh {name}: {n_drawn} pixels drawn")
+            log(f"raster B2 + B3 stress {name}: {t.shape[0]} triangles, "
+                f"{n_drawn} pixels drawn, bit-identical")
+    del v8, t8, c8, rec8
 
     # -- 3c. kernel B4 vs plain twin: 1 and 128 real s2d8 frames, bf16 -------
     det_p = FaceBoxes(dtype=torch.bfloat16, device=dev, seed=0,
@@ -581,11 +740,11 @@ def main():
             for hw in OVERLAY_FRAMES}
     # Launches count over the overlay path's own calls only.
     decode_dense_fused.launches = 0
-    rasterize_buffers_tiled.launches = 0
+    rasterize_mesh.launches = 0
     t0 = time.perf_counter()
     results = {hw: ov(img) for hw, img in imgs.items()}
     torch.cuda.synchronize()
-    r_launches = rasterize_buffers_tiled.launches
+    r_launches = rasterize_mesh.launches
     log(f"overlay path: raster_tiled launched {r_launches} times, "
         f"fused_decode {decode_dense_fused.launches} times (__call__ x"
         f"{len(imgs)}), {time.perf_counter() - t0:.1f} s")
@@ -620,10 +779,10 @@ def main():
             vl, lt = light_faces(dn.transpose(1, 2), valid, ov.tris_face,
                                  ov.rings, ov.light_cfg)
             lit[hw] = (vl.reshape(-1, 3), lt.reshape(-1, 3))
-            rec = plane_records(lit[hw][0], ov.tris_all, lit[hw][1], h=ch,
-                                w=cw)
-            raster_twins(rec, ch, cw, f"overlay {hw} meshes")
-            zp, cp = rasterize_records_reference(rec, 3, h=ch, w=cw)
+            raster_twins(*lit[hw][:1], ov.tris_all, lit[hw][1], ch, cw,
+                         f"overlay {hw} meshes")
+            zp, cp = rasterize_buffers_reference(lit[hw][0], ov.tris_all,
+                                                 lit[hw][1], h=ch, w=cw)
             frame_u8 = canvas.clamp(0, 255).to(torch.uint8)
             plain = composite(frame_u8, zp, cp, ov.alpha)[0]
             hs, ws = true_hw.tolist()
@@ -644,12 +803,12 @@ def main():
 
         # The deferred raster on the overlay's own lit meshes: launches
         # over these calls only, then the checks.
-        rasterize_ids.launches = 0
+        rasterize_mesh_ids.launches = 0
         deferred = {hw: rasterize_buffers_tiled(v, ov.tris_all, c, h=ch,
                                                 w=cw, deferred=True)
                     for hw, (v, c) in lit.items()}
         torch.cuda.synchronize()
-        r3_launches = rasterize_ids.launches
+        r3_launches = rasterize_mesh_ids.launches
         log(f"deferred path: raster ids launched {r3_launches} times over "
             f"{len(lit)} overlay frames' meshes")
         if r3_launches <= 0:
@@ -659,8 +818,7 @@ def main():
             zk, ck = rasterize_buffers_tiled(v, ov.tris_all, c, h=ch, w=cw)
             if not (torch.equal(zd, zk) and torch.equal(cd, ck)):
                 fail(f"deferred {hw}: differs from the payload path")
-            rec_c, _ = compact_records(v, ov.tris_all, c, h=ch, w=cw)
-            _, ids = ids_twins(rec_c, ch, cw, f"overlay {hw} meshes")
+            _, ids = rasterize_mesh_ids(v, ov.tris_all, h=ch, w=cw)
             tri, zv, _ = rasterize_triangles_tiled(v, ov.tris_all, h=ch,
                                                    w=cw)
             if not (torch.equal(tri, ids) and torch.equal(zv, zd)):
@@ -725,9 +883,8 @@ def main():
         valid = torch.arange(fb, device=dev) < n
         vl, lt = light_faces(vin, valid, ov.tris_face, ov.rings, ov.light_cfg)
         tris = ov.tris_all[:fb * ntri]
-        rec = plane_records(vl.reshape(-1, 3), tris, lt.reshape(-1, 3),
-                            h=ch, w=cw)
-        zb, col = rasterize_records(rec, 3, h=ch, w=cw)
+        vl, lt = vl.reshape(-1, 3), lt.reshape(-1, 3)
+        zb, col = rasterize_mesh(vl, tris, lt, h=ch, w=cw)
         frame_u8 = canvas.clamp(0, 255).to(torch.uint8)
         olay = composite(frame_u8, zb, col, ov.alpha)[0]
         lmk1, ang1, t3d1 = o[4][0], o[6][0], o[7][0]
@@ -737,9 +894,8 @@ def main():
             ("serving (process_batch, B=1)", lambda: eng.process_batch(*a)),
             ("normals + light", lambda: light_faces(
                 vin, valid, ov.tris_face, ov.rings, ov.light_cfg)),
-            ("record build", lambda: plane_records(
-                vl.reshape(-1, 3), tris, lt.reshape(-1, 3), h=ch, w=cw)),
-            ("raster kernel", lambda: rasterize_records(rec, 3, h=ch, w=cw)),
+            ("raster (B2, setup inside)", lambda: rasterize_mesh(
+                vl, tris, lt, h=ch, w=cw)),
             ("blend + composite", lambda: composite(frame_u8, zb, col,
                                                     ov.alpha)),
             ("overlay to host", lambda: olay.cpu()),
@@ -762,7 +918,9 @@ def main():
                 v, ov.tris_all, c, h=ch, w=cw, deferred=True)))}
     log("raster entry points, 720x1088 overlay meshes: " + ", ".join(
         f"{k} {v_:.3f} ms" for k, v_ in raster_ms.items())
-        + f"; kernels alone B2 {r_ms:.4f} ms, B3 {r3_ms:.4f} ms | {card}")
+        + f"; kernels alone B2 {r_spread[1]:.4f} ms, B3 {r3_spread[1]:.4f} "
+        f"ms | {card}")
+    raster_turns = raster_ab(args.parent, card) if args.parent else None
 
     # -- 7. device profile (opt-in) -------------------------------------------
     if args.profile:
@@ -782,6 +940,19 @@ def main():
                 f" | {card}")
             for name, ms in p["top"]:
                 log(f"  {ms:9.3f} ms  {name[:110]}")
+        p = profile_calls(lambda: ov(img), 5, os.path.join(
+            args.profile, "trace_overlay.json"), top=1000)
+        split = raster_split(p["top"])
+        summary["overlay"] = dict(p, calls=5, unprofiled_ms=overlay_ms,
+                                  raster_device_ms=split)
+        log(f"profile overlay {ch}x{cw} (5 calls): device busy "
+            f"{p['busy_ms']:.3f} of {p['wall_ms']:.3f} ms per call, idle "
+            f"share {p['idle_share']:.3f}, {p['ops']:.1f} device ops per "
+            "call; raster launches, device ms per call: " + ", ".join(
+                f"{k} {v_:.4f}" for k, v_ in split.items() if k != "other")
+            + f" | {card}")
+        for name, ms in p["top"][:10]:
+            log(f"  {ms:9.3f} ms  {name[:110]}")
         with open(os.path.join(args.profile, "profile.json"), "w") as f:
             json.dump(summary, f, indent=1)
 
@@ -796,8 +967,10 @@ def main():
                      "it; ms_entry: the entry point whole, mean of the "
                      "L2-flushed runs, CUDA events around the host's "
                      "launches (the series' earlier timing of ms)")
-    mean_timing = ("ms: mean of 20 L2-flushed runs, CUDA events around the "
-                   "host's launches")
+    raster_timing = (spread_timing + "; the mesh entry point (rasterize_mesh"
+                     " / rasterize_mesh_ids), setup inside the kernel; "
+                     "bound_ms: the mesh form, bound_records_ms: the "
+                     "earlier plane-record form")
     print(json.dumps({"kernels": [{
         "name": "fused_decode", "route": "cuda",
         "source": "synergynet_tpu_torch/csrc/fused_decode.cu",
@@ -817,16 +990,23 @@ def main():
         "source": "synergynet_tpu_torch/csrc/raster_tiled.cu",
         "replaces": "synergynet_tpu/render/raster_tiled.py:179",
         "launches": r_launches, "max_abs_err": r_err,
-        "ms": r_ms, "plain_ms": r_plain, "bound_ms": r_bound[0],
-        "bound_by": r_bound[1], "library_ms": None, "timing": mean_timing,
-        "triangles": FACES * ntri, "canvas": list(CANVAS)}, {
+        "ms": r_spread[1], "plain_ms": r_plain, "bound_ms": r_bounds[0][0],
+        "bound_by": r_bounds[0][1], "library_ms": None,
+        "timing": raster_timing, "ms_min": r_spread[0],
+        "ms_max": r_spread[2], "ms_entry": r_entry,
+        "bound_records_ms": r_bounds[1][0], "bbox_pixels": frags8,
+        "drawn_share": drawn8 / (ch * cw), "triangles": FACES * ntri,
+        "canvas": list(CANVAS)}, {
         "name": "raster_ids", "route": "cuda",
         "source": "synergynet_tpu_torch/csrc/raster_tiled.cu",
         "replaces": "synergynet_tpu/render/raster_tiled.py:524",
         "launches": r3_launches, "max_abs_err": r3_err,
-        "ms": r3_ms, "plain_ms": r3_plain, "bound_ms": r3_bound[0],
-        "bound_by": r3_bound[1], "library_ms": None, "timing": mean_timing,
-        "triangles": FACES * ntri, "canvas": list(CANVAS)}, {
+        "ms": r3_spread[1], "plain_ms": r3_plain,
+        "bound_ms": r3_bounds[0][0], "bound_by": r3_bounds[0][1],
+        "library_ms": None, "timing": raster_timing,
+        "ms_min": r3_spread[0], "ms_max": r3_spread[2], "ms_entry": r3_entry,
+        "bound_records_ms": r3_bounds[1][0], "triangles": FACES * ntri,
+        "canvas": list(CANVAS)}, {
         "name": "stem_s2d8", "route": "cuda",
         "source": "synergynet_tpu_torch/csrc/stem_s2d8.cu",
         "replaces": "synergynet_tpu/detect/stem_pallas.py:76",
@@ -845,7 +1025,8 @@ def main():
         "e2e_ms": {str(b): v[0] for b, v in e2e.items()},
         "e2e_fused_stem_ms": {str(b): v[0] for b, v in e2e_p.items()},
         "stages_ms": stages, "overlay_ms": overlay_ms,
-        "overlay_stages_ms": ov_stages, "raster_path_ms": raster_ms}),
+        "overlay_stages_ms": ov_stages, "raster_path_ms": raster_ms,
+        "raster_ab": raster_turns}),
         flush=True)
     print(card, flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -27,7 +27,7 @@ import torch.nn.functional as F
 from synergynet_tpu_torch.detect.net import phase_maxpool_s2d8
 from synergynet_tpu_torch.mm3d.codec import full_fp32
 from synergynet_tpu_torch.ops.cuda_build import (check_tensor,
-                                                 load_kernel_library,
+                                                 kernel_entry,
                                                  require_sm90)
 
 CIN = 192
@@ -76,11 +76,9 @@ def _launch(x: torch.Tensor, weight4: torch.Tensor, bias: torch.Tensor
         if t.data_ptr() % 16:
             raise ValueError(f"{name} is not 16-byte aligned")
     require_sm90(dev, "stem")
-    lib = load_kernel_library("stem_s2d8")
-    fn = lib.synergy_stem_s2d8
-    fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 3 + [
-        ctypes.c_void_p]
-    fn.restype = ctypes.c_int
+    fn = kernel_entry("stem_s2d8", "synergy_stem_s2d8",
+                      [ctypes.c_void_p] * 4 + [ctypes.c_int] * 3
+                      + [ctypes.c_void_p])
     bias32 = bias.float().contiguous()
     out = torch.empty((b, h8, w8, COUT), dtype=torch.bfloat16, device=dev)
     if out.numel() == 0:

@@ -26,6 +26,7 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
 _LOADED: dict = {}
+_ENTRIES: dict = {}
 
 
 def nvcc_path() -> str:
@@ -68,6 +69,20 @@ def load_kernel_library(name: str) -> ctypes.CDLL:
     _LOADED[name] = (lib, {"seconds": seconds, "path": lib_path,
                            "log": log_path})
     return lib
+
+
+def kernel_entry(name: str, symbol: str, argtypes) -> ctypes._CFuncPtr:
+    """The C entry ``symbol`` of ``csrc/<name>.cu`` (built and loaded by
+    :func:`load_kernel_library`) as a ctypes function taking ``argtypes``
+    and returning an int, bound once per process: a launch pays a dict
+    lookup, not the ctypes setup."""
+    fn = _ENTRIES.get((name, symbol))
+    if fn is None:
+        fn = getattr(load_kernel_library(name), symbol)
+        fn.argtypes = list(argtypes)
+        fn.restype = ctypes.c_int
+        _ENTRIES[(name, symbol)] = fn
+    return fn
 
 
 def check_tensor(name: str, t, dtypes, shape, device) -> None:

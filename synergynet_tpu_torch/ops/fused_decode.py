@@ -24,7 +24,7 @@ import torch
 from synergynet_tpu_torch.mm3d.assets import ParamPack, STD_SIZE
 from synergynet_tpu_torch.mm3d.codec import dewhiten, full_fp32
 from synergynet_tpu_torch.ops.cuda_build import (check_tensor,
-                                                 load_kernel_library,
+                                                 kernel_entry,
                                                  require_sm90)
 
 LANE = 128
@@ -118,11 +118,9 @@ def _launch(alpha, p9, off, basis: DecodeBasis) -> torch.Tensor:
         raise ValueError(f"batch {b} x {nver} vertices exceeds the kernel's "
                          "32-bit extents")
     require_sm90(dev, "fused-decode")
-    lib = load_kernel_library("fused_decode")
-    fn = lib.synergy_fused_decode
-    fn.argtypes = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 4 + [
-        ctypes.c_void_p]
-    fn.restype = ctypes.c_int
+    fn = kernel_entry("fused_decode", "synergy_fused_decode",
+                      [ctypes.c_void_p] * 6 + [ctypes.c_int] * 4
+                      + [ctypes.c_void_p])
     out = torch.empty((b, 3, nver), dtype=torch.float32, device=dev)
     if b == 0:
         return out

@@ -123,13 +123,15 @@ class FusedOverlayEngine:
         self.light_cfg = dict(OVERLAY_LIGHT_CFG if light_cfg is None
                               else light_cfg)
         pack = engine.api.pack
-        tris = np.ascontiguousarray(pack.tri.cpu().numpy().T).astype(np.int64)
+        # int32 topology: half the bytes of int64 for the raster kernel and
+        # the normals' gathers to read.
+        tris = np.ascontiguousarray(pack.tri.cpu().numpy().T).astype(np.int32)
         nver = pack.nver
         f = engine.max_faces
         dev = engine.api.device
         self.tris_face = torch.from_numpy(tris).to(dev)
         self.tris_all = torch.from_numpy(
-            (tris[None] + (np.arange(f) * nver)[:, None, None]
+            (tris[None] + (np.arange(f, dtype=np.int32) * nver)[:, None, None]
              ).reshape(-1, 3)).to(dev)
         self.rings = one_ring_table(tris, nver).long().to(dev)
 

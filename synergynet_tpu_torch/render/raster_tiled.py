@@ -1,49 +1,53 @@
-"""Z-buffer rasterizer of plane records: the CUDA kernels and their twins.
+"""Z-buffer rasterizer of triangle meshes: the CUDA kernels and their twins.
 
 Counterpart of ``synergynet_tpu/render/raster_tiled.py``, whose Pallas TPU
 kernels ``_raster_kernel`` (depth + payloads, kernel B2) and
 ``_raster_kernel_compact`` (depth + winning triangle id, kernel B3) this
 replaces with the two entries of ``csrc/raster_tiled.cu``.
 
-1. **Plane records** (:func:`plane_records`, plain torch on the tensor's
-   device, shared by the kernel and its twin): every triangle becomes the
-   affine planes u(p), v(p), depth(p) and up to 5 payload planes over the
-   pixel position p = (x, y), plus its bbox clamped to the canvas, as the
-   JAX package's ``_bary_setup`` / ``_plane_setup`` / ``_clamp_and_bins``
-   build them (v0 = p2 - p0, v1 = p1 - p0; the relative degeneracy rule
+1. **Planes** (the JAX package's ``_bary_setup`` / ``_plane_setup`` /
+   ``_clamp_and_bins``): every triangle becomes the affine planes u(p),
+   v(p), depth(p) and up to 5 payload planes over the pixel position
+   p = (x, y), plus its bbox clamped to the canvas (v0 = p2 - p0,
+   v1 = p1 - p0; the relative degeneracy rule
    ``|den| <= 1e-6 * dot00 * dot11`` -> u = v = 0, so a degenerate
-   triangle paints its whole bbox with vertex 0's attributes).
-2. **Resolve** (:func:`rasterize_records`): a pixel (integer column and
-   row as floats, no +0.5) is covered when ``u >= 0, v >= 0, u + v < 1``
-   inside the bbox; it draws when its depth is strictly greater than the
-   z-buffer's, which starts at ``DEPTH_INIT``; among equal depths the
-   lowest triangle index wins. Every covered fragment with depth above
-   ``DEPTH_INIT`` offers the int64 key (orderable depth bits << 32 |
-   0xFFFFFFFF - triangle), and the pixel keeps the largest: that is the
-   JAX merge's contract, whatever order the fragments arrive in.
-   Undrawn pixels read ``DEPTH_INIT`` and payload 0.
+   triangle paints its whole bbox with vertex 0's attributes). The kernels
+   build them in registers from the mesh; the plain twins stack them into
+   plane records (:func:`plane_records`, :func:`compact_records`), rounding
+   every operation as the kernels do.
+2. **Resolve**: a pixel (integer column and row as floats, no +0.5) is
+   covered when ``u >= 0, v >= 0, u + v < 1`` inside the bbox; it draws
+   when its depth is strictly greater than the z-buffer's, which starts at
+   ``DEPTH_INIT``; among equal depths the lowest triangle index wins.
+   Every covered fragment with depth above ``DEPTH_INIT`` offers the int64
+   key (orderable depth bits << 32 | 0xFFFFFFFF - triangle), and the pixel
+   keeps the largest: that is the JAX merge's contract, whatever order the
+   fragments arrive in. Undrawn pixels read ``DEPTH_INIT`` and payload 0.
 
 The TPU kernel's bin sort, replication grid and chunk maps exist to fit
-its tile-local gather into VMEM; neither the kernel nor the twin here
-needs them.
+its tile-local gather into VMEM; neither the kernels nor the twins here
+need them.
 
 3. **Deferred payloads** (``rasterize_buffers_tiled(..., deferred=True)``):
-   :func:`compact_records` keeps only the u/v/depth planes and the bbox,
-   :func:`rasterize_ids` resolves depth and the winning triangle id, and
-   :func:`eval_deferred_payloads` evaluates the payload planes once per
-   winning pixel, in the same operation order as the payload kernel, so
-   both paths give the same buffers bit for bit.
-4. **Visibility** (:func:`rasterize_triangles_tiled`): the payload kernel
-   with two planes, the triangle id as a constant and w0 = 1 - u - v.
+   :func:`rasterize_mesh_ids` resolves depth and the winning triangle id,
+   and :func:`eval_deferred_payloads` evaluates the payload planes of
+   :func:`payload_planes` once per winning pixel, in the payload kernel's
+   operation order, so both paths give the same buffers bit for bit.
+4. **Visibility** (:func:`rasterize_triangles_tiled`): the ids kernel with
+   w0 = 1 - u - v of the winner, equal bit for bit to the JAX package's
+   route (the payload kernel with the id and w0 as planes,
+   :func:`_visibility_records`).
 
-On a CUDA tensor :func:`rasterize_records` and :func:`rasterize_ids`
-launch their kernel, or raise; on a CPU tensor they run the plain twins.
-The twins (:func:`rasterize_records_reference`,
-:func:`rasterize_ids_reference`) enumerate each triangle's bbox pixels,
-evaluate the same planes in the same operation order and resolve with
-``scatter_reduce_(..., "amax")`` on the same key, so kernels and twins
-agree bit for bit. ``rasterize_buffers_tiled.launches`` counts launches of
-the payload kernel, ``rasterize_ids.launches`` those of the ids kernel.
+On a CUDA tensor :func:`rasterize_mesh` (B2) and :func:`rasterize_mesh_ids`
+(B3) launch their kernel, or raise; no record is built on that path. On a
+CPU tensor they run the plain twins (:func:`rasterize_buffers_reference`,
+:func:`rasterize_mesh_ids_reference`), which build the records and resolve
+them with :func:`rasterize_records_reference` /
+:func:`rasterize_ids_reference`: enumerate each triangle's bbox pixels,
+evaluate the same planes in the same operation order and keep the key's
+max with ``scatter_reduce_(..., "amax")``, so kernels and twins agree bit
+for bit. ``rasterize_mesh.launches`` and ``rasterize_mesh_ids.launches``
+count the kernels' launches.
 """
 
 from __future__ import annotations
@@ -54,8 +58,7 @@ from typing import Tuple
 import torch
 
 from synergynet_tpu_torch.ops.cuda_build import (check_tensor,
-                                                 load_kernel_library,
-                                                 require_sm90)
+                                                 kernel_entry, require_sm90)
 from synergynet_tpu_torch.render.raster import DEPTH_INIT
 
 # Record row layout (f32), width PAYLOAD0 + 3 * n_payload:
@@ -238,99 +241,25 @@ def rasterize_ids_reference(rec: torch.Tensor, *, h: int, w: int
     return zbuf.reshape(h, w), tri_id.to(torch.int32).reshape(h, w)
 
 
-def _launch(rec: torch.Tensor, n_payload: int, *, h: int, w: int
-            ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Check what the kernel takes, allocate outputs and the key scratch,
-    launch on the current stream. Raises on anything else; never falls
-    back."""
-    dev = rec.device
-    if not 1 <= n_payload <= MAX_PAYLOAD:
-        raise ValueError(f"n_payload {n_payload} outside [1, {MAX_PAYLOAD}]")
-    check_tensor("records", rec, (torch.float32,),
-                 (None, PAYLOAD0 + 3 * n_payload), dev)
-    t = rec.shape[0]
-    _check_extents(t, h, w, n_payload)
-    require_sm90(dev, "raster")
-    lib = load_kernel_library("raster_tiled")
-    fn = lib.synergy_raster_tiled
-    fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 4 + [
-        ctypes.c_void_p]
-    fn.restype = ctypes.c_int
-    keys = torch.empty((h * w,), dtype=torch.int64, device=dev)
-    zbuf = torch.empty((h, w), dtype=torch.float32, device=dev)
-    pay = torch.empty((h, w, n_payload), dtype=torch.float32, device=dev)
-    with torch.cuda.device(dev):
-        stream = torch.cuda.current_stream(dev).cuda_stream
-        rc = fn(rec.data_ptr(), keys.data_ptr(), zbuf.data_ptr(),
-                pay.data_ptr(), t, n_payload, h, w, stream)
-    if rc != 0:
-        raise RuntimeError(f"raster kernel launch failed: CUDA error {rc}")
-    rasterize_buffers_tiled.launches += 1
-    return zbuf, pay
+def _attr_planes(attr_plane, triangles: torch.Tensor,
+                 payloads: torch.Tensor) -> torch.Tensor:
+    """(T, P, 3) payload plane coefficients, as :func:`plane_records`
+    computes its payload columns."""
+    planes = [torch.stack(attr_plane(*(payloads[:, k][triangles[:, j]]
+                                       for j in range(3))), dim=1)
+              for k in range(payloads.shape[1])]
+    return (torch.stack(planes, dim=1) if planes
+            else payloads.new_zeros((triangles.shape[0], 0, 3)))
 
 
-def rasterize_records(rec: torch.Tensor, n_payload: int, *, h: int, w: int
-                      ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """(T, PAYLOAD0 + 3P) plane records -> (zbuf (h, w) f32 init
-    DEPTH_INIT, payloads (h, w, P) f32, 0 where undrawn). On a CUDA tensor
-    the kernel ``csrc/raster_tiled.cu`` (or an error); on a CPU tensor the
-    plain twin."""
-    if rec.device.type == "cuda":
-        return _launch(rec, n_payload, h=h, w=w)
-    if rec.device.type == "cpu":
-        return rasterize_records_reference(rec, n_payload, h=h, w=w)
-    raise ValueError(f"no raster kernel for device {rec.device}")
-
-
-def _check_extents(t: int, h: int, w: int, n_out: int) -> None:
-    if not (0 < h and 0 < w and h * w * n_out < 2 ** 31
-            and t < 2 ** 31 - 1):
-        raise ValueError(f"{t} triangles on a {h}x{w} canvas exceed the "
-                         "kernel's 32-bit extents")
-
-
-def _launch_ids(rec: torch.Tensor, *, h: int, w: int
-                ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Check what the ids kernel takes, allocate outputs and the key
-    scratch, launch on the current stream. Raises on anything else; never
-    falls back."""
-    dev = rec.device
-    check_tensor("records", rec, (torch.float32,), (None, PAYLOAD0), dev)
-    _check_extents(rec.shape[0], h, w, 1)
-    require_sm90(dev, "raster")
-    lib = load_kernel_library("raster_tiled")
-    fn = lib.synergy_raster_ids
-    fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 4 + [
-        ctypes.c_void_p]
-    fn.restype = ctypes.c_int
-    keys = torch.empty((h * w,), dtype=torch.int64, device=dev)
-    zbuf = torch.empty((h, w), dtype=torch.float32, device=dev)
-    ids = torch.empty((h, w), dtype=torch.int32, device=dev)
-    with torch.cuda.device(dev):
-        stream = torch.cuda.current_stream(dev).cuda_stream
-        rc = fn(rec.data_ptr(), keys.data_ptr(), zbuf.data_ptr(),
-                ids.data_ptr(), rec.shape[0], PAYLOAD0, h, w, stream)
-    if rc != 0:
-        raise RuntimeError(f"raster ids kernel launch failed: CUDA error {rc}")
-    rasterize_ids.launches += 1
-    return zbuf, ids
-
-
-def rasterize_ids(rec: torch.Tensor, *, h: int, w: int
-                  ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """(T, PAYLOAD0) compact records (:func:`compact_records`) -> (zbuf
-    (h, w) f32 init ``DEPTH_INIT``, tri_id (h, w) int32, -1 where
-    undrawn): the contract of the JAX package's ``_launch_compact``. On a
-    CUDA tensor the ids entry of ``csrc/raster_tiled.cu`` (or an error); on
-    a CPU tensor the plain twin :func:`rasterize_ids_reference`."""
-    if rec.device.type == "cuda":
-        return _launch_ids(rec, h=h, w=w)
-    if rec.device.type == "cpu":
-        return rasterize_ids_reference(rec, h=h, w=w)
-    raise ValueError(f"no raster kernel for device {rec.device}")
-
-
-rasterize_ids.launches = 0
+def payload_planes(vertices: torch.Tensor, triangles: torch.Tensor,
+                   payloads: torch.Tensor) -> torch.Tensor:
+    """(V, 3) verts + (T, 3) tris + (V, P) payloads -> the (T, P, 3) payload
+    plane coefficients that :func:`eval_deferred_payloads` evaluates: the
+    second output of :func:`compact_records`, built without its
+    records."""
+    attr_plane, _, _ = _bary_setup(vertices, triangles)
+    return _attr_planes(attr_plane, triangles, payloads)
 
 
 def compact_records(vertices: torch.Tensor, triangles: torch.Tensor,
@@ -339,17 +268,11 @@ def compact_records(vertices: torch.Tensor, triangles: torch.Tensor,
     """The deferred-payload record build, counterpart of the JAX package's
     ``_plane_setup_compact``: -> ((T, PAYLOAD0) records, which are
     :func:`plane_records` without payloads, and the (T, P, 3) payload
-    plane coefficients, computed as :func:`plane_records` computes its
-    payload columns). The JAX record's triangle-id field is not needed:
-    the kernel's key carries the id."""
+    plane coefficients of :func:`payload_planes`). The JAX record's
+    triangle-id field is not needed: the key carries the id."""
     attr_plane, cols, bbox = _bary_setup(vertices, triangles)
     rec = torch.stack(list(cols) + _clamp_bbox(bbox, h=h, w=w), dim=1)
-    planes = [torch.stack(attr_plane(*(payloads[:, k][triangles[:, j]]
-                                       for j in range(3))), dim=1)
-              for k in range(payloads.shape[1])]
-    planes = (torch.stack(planes, dim=1) if planes
-              else rec.new_zeros((rec.shape[0], 0, 3)))
-    return rec, planes
+    return rec, _attr_planes(attr_plane, triangles, payloads)
 
 
 def eval_deferred_payloads(tri_id: torch.Tensor, drawn: torch.Tensor,
@@ -373,46 +296,167 @@ def eval_deferred_payloads(tri_id: torch.Tensor, drawn: torch.Tensor,
     return torch.where(drawn[..., None], val, torch.zeros_like(val))
 
 
+# The C entries of csrc/raster_tiled.cu: pointers, then ints, then the
+# stream.
+_MESH_ARGS = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 6 + [ctypes.c_void_p]
+_MESH_IDS_ARGS = ([ctypes.c_void_p] * 6 + [ctypes.c_int] * 5
+                  + [ctypes.c_void_p])
+
+
 def _check_mesh(vertices: torch.Tensor, triangles: torch.Tensor,
-                colors=None) -> None:
+                payloads=None, *, h: int, w: int) -> None:
+    """Raise unless the mesh is what the kernels take: contiguous (V, 3)
+    f32 vertices, (T, 3) int32 or int64 triangles and (V, P) f32 payloads
+    with 1 <= P <= MAX_PAYLOAD, all on one device, within 32-bit
+    extents."""
     dev = vertices.device
     check_tensor("vertices", vertices, (torch.float32,), (None, 3), dev)
     check_tensor("triangles", triangles, (torch.int32, torch.int64),
                  (None, 3), dev)
-    if colors is not None:
-        check_tensor("colors", colors, (torch.float32,),
-                     (vertices.shape[0], 3), dev)
+    n_out = 1
+    if payloads is not None:
+        check_tensor("payloads", payloads, (torch.float32,),
+                     (vertices.shape[0], None), dev)
+        n_out = payloads.shape[1]
+        if not 1 <= n_out <= MAX_PAYLOAD:
+            raise ValueError(f"{n_out} payloads outside [1, {MAX_PAYLOAD}]")
+    t, v = triangles.shape[0], vertices.shape[0]
+    if not (0 < h and 0 < w and h * w * n_out < 2 ** 31
+            and t < 2 ** 31 - 1 and v < 2 ** 31):
+        raise ValueError(f"{t} triangles of {v} vertices on a {h}x{w} "
+                         "canvas exceed the kernels' 32-bit extents")
+
+
+def _stream(dev: torch.device) -> int:
+    return torch.cuda.current_stream(dev).cuda_stream
+
+
+def rasterize_mesh(vertices: torch.Tensor, triangles: torch.Tensor,
+                   payloads: torch.Tensor, *, h: int, w: int
+                   ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """(V, 3) f32 image-space vertices, (T, 3) int32 or int64 triangles,
+    (V, P) f32 per-vertex payloads (1 <= P <= 5) -> (zbuf (h, w) f32 init
+    ``DEPTH_INIT``, payloads (h, w, P) f32, 0 where undrawn). On a CUDA
+    tensor the payload entry of ``csrc/raster_tiled.cu`` (kernel B2), which
+    builds each triangle's planes in registers, or an error; on a CPU
+    tensor the plain twin :func:`rasterize_buffers_reference`."""
+    _check_mesh(vertices, triangles, payloads, h=h, w=w)
+    dev = vertices.device
+    if dev.type == "cpu":
+        return rasterize_buffers_reference(vertices, triangles, payloads,
+                                           h=h, w=w)
+    if dev.type != "cuda":
+        raise ValueError(f"no raster kernel for device {dev}")
+    require_sm90(dev, "raster")
+    fn = kernel_entry("raster_tiled", "synergy_raster_mesh", _MESH_ARGS)
+    n_payload = payloads.shape[1]
+    keys = torch.empty((h * w,), dtype=torch.int64, device=dev)
+    zbuf = torch.empty((h, w), dtype=torch.float32, device=dev)
+    out = torch.empty((h, w, n_payload), dtype=torch.float32, device=dev)
+    with torch.cuda.device(dev):
+        rc = fn(vertices.data_ptr(), triangles.data_ptr(),
+                payloads.data_ptr(), keys.data_ptr(), zbuf.data_ptr(),
+                out.data_ptr(), int(triangles.dtype == torch.int64),
+                vertices.shape[0], triangles.shape[0], n_payload, h, w,
+                _stream(dev))
+    if rc != 0:
+        raise RuntimeError(f"raster kernel launch failed: CUDA error {rc}")
+    rasterize_mesh.launches += 1
+    return zbuf, out
+
+
+rasterize_mesh.launches = 0
+
+
+def rasterize_mesh_ids(vertices: torch.Tensor, triangles: torch.Tensor, *,
+                       h: int, w: int, w0: bool = False):
+    """(V, 3) f32 image-space vertices, (T, 3) int32 or int64 triangles ->
+    (zbuf (h, w) f32 init ``DEPTH_INIT``, tri_id (h, w) int32, -1 where
+    undrawn) and, with ``w0``, the winner's barycentric w0 = 1 - u - v
+    (h, w) f32, 0 where undrawn. On a CUDA tensor the ids entry of
+    ``csrc/raster_tiled.cu`` (kernel B3), or an error; on a CPU tensor the
+    plain twin :func:`rasterize_mesh_ids_reference`."""
+    _check_mesh(vertices, triangles, h=h, w=w)
+    dev = vertices.device
+    if dev.type == "cpu":
+        return rasterize_mesh_ids_reference(vertices, triangles, h=h, w=w,
+                                            w0=w0)
+    if dev.type != "cuda":
+        raise ValueError(f"no raster kernel for device {dev}")
+    require_sm90(dev, "raster")
+    fn = kernel_entry("raster_tiled", "synergy_raster_mesh_ids",
+                      _MESH_IDS_ARGS)
+    keys = torch.empty((h * w,), dtype=torch.int64, device=dev)
+    zbuf = torch.empty((h, w), dtype=torch.float32, device=dev)
+    ids = torch.empty((h, w), dtype=torch.int32, device=dev)
+    bary = torch.empty((h, w), dtype=torch.float32, device=dev) if w0 else None
+    with torch.cuda.device(dev):
+        rc = fn(vertices.data_ptr(), triangles.data_ptr(), keys.data_ptr(),
+                zbuf.data_ptr(), ids.data_ptr(),
+                bary.data_ptr() if w0 else None,
+                int(triangles.dtype == torch.int64), vertices.shape[0],
+                triangles.shape[0], h, w, _stream(dev))
+    if rc != 0:
+        raise RuntimeError(f"raster ids kernel launch failed: CUDA error {rc}")
+    rasterize_mesh_ids.launches += 1
+    return (zbuf, ids, bary) if w0 else (zbuf, ids)
+
+
+rasterize_mesh_ids.launches = 0
+
+
+def rasterize_mesh_ids_reference(vertices: torch.Tensor,
+                                 triangles: torch.Tensor, *, h: int, w: int,
+                                 w0: bool = False):
+    """The plain PyTorch twin of :func:`rasterize_mesh_ids`, on any device:
+    :func:`compact_records` without payloads, :func:`rasterize_ids_reference`
+    and, with ``w0``, the winner's plane (-(Au + Av), -(Bu + Bv),
+    1 - (Cu + Cv)) at the pixel, the order of the JAX package's
+    ``_rasterize_visibility``."""
+    rec, _ = compact_records(vertices, triangles,
+                             vertices.new_zeros((vertices.shape[0], 0)),
+                             h=h, w=w)
+    zbuf, tri_id = rasterize_ids_reference(rec, h=h, w=w)
+    if not w0:
+        return zbuf, tri_id
+    drawn = tri_id >= 0
+    r = rec[tri_id.clamp(min=0).long()] if rec.shape[0] else rec.new_zeros(
+        (h, w, PAYLOAD0))
+    x = torch.arange(w, device=rec.device, dtype=torch.float32)[None, :]
+    y = torch.arange(h, device=rec.device, dtype=torch.float32)[:, None]
+    val = _plane(-(r[..., 0] + r[..., 3]), -(r[..., 1] + r[..., 4]),
+                 1.0 - (r[..., 2] + r[..., 5]), x, y)
+    return zbuf, tri_id, torch.where(drawn, val, torch.zeros_like(val))
 
 
 def rasterize_buffers_tiled(vertices: torch.Tensor, triangles: torch.Tensor,
                             colors: torch.Tensor, *, h: int, w: int,
                             deferred: bool = False
                             ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """(V, 3) f32 image-space vertices, (T, 3) int triangles, (V, 3) f32
-    per-vertex colors -> (depth (h, w) f32 init ``DEPTH_INIT``, color
-    (h, w, 3) f32, 0 where undrawn): the contract of the JAX package's
-    ``rasterize_buffers_tiled``. All three tensors are contiguous and on one
-    device; a CUDA device launches the kernels, a CPU device runs the plain
-    twins. ``deferred``: resolve depth and winning id only (kernel B3),
-    then evaluate the colors per winning pixel; the same buffers."""
-    _check_mesh(vertices, triangles, colors)
-    if deferred:
-        rec, planes = compact_records(vertices, triangles, colors, h=h, w=w)
-        zbuf, tri_id = rasterize_ids(rec, h=h, w=w)
-        return zbuf, eval_deferred_payloads(tri_id, zbuf > DEPTH_INIT,
-                                            planes)
-    rec = plane_records(vertices, triangles, colors, h=h, w=w)
-    return rasterize_records(rec, 3, h=h, w=w)
-
-
-rasterize_buffers_tiled.launches = 0
+    """(V, 3) f32 image-space vertices, (T, 3) int32 or int64 triangles,
+    (V, 3) f32 per-vertex colors -> (depth (h, w) f32 init ``DEPTH_INIT``,
+    color (h, w, 3) f32, 0 where undrawn): the contract of the JAX
+    package's ``rasterize_buffers_tiled`` (any 1-5 payload columns in place
+    of the colors). All three tensors are contiguous and on one device; a
+    CUDA device launches the kernels, a CPU device runs the plain twins.
+    ``deferred``: resolve depth and winning id only (kernel B3), then
+    evaluate the colors per winning pixel from :func:`payload_planes`; the
+    same buffers."""
+    _check_mesh(vertices, triangles, colors, h=h, w=w)
+    if not deferred:
+        return rasterize_mesh(vertices, triangles, colors, h=h, w=w)
+    zbuf, tri_id = rasterize_mesh_ids(vertices, triangles, h=h, w=w)
+    return zbuf, eval_deferred_payloads(
+        tri_id, zbuf > DEPTH_INIT, payload_planes(vertices, triangles, colors))
 
 
 def _visibility_records(vertices: torch.Tensor, triangles: torch.Tensor, *,
                        h: int, w: int) -> torch.Tensor:
     """(T, PAYLOAD0 + 6) records whose two payload planes are the triangle
     id as a constant (exact in f32 below 2^24) and w0 = 1 - u - v, as the
-    JAX package's ``_rasterize_visibility`` sets them."""
+    JAX package's ``_rasterize_visibility`` sets them: the record route of
+    the visibility path, which :func:`rasterize_mesh_ids` with ``w0``
+    equals bit for bit."""
     _, cols, bbox = _bary_setup(vertices, triangles)
     au, bu, cu, av, bv, cv = cols[:6]
     t = triangles.shape[0]
@@ -427,25 +471,23 @@ def rasterize_triangles_tiled(vertices: torch.Tensor,
                               triangles: torch.Tensor, *, h: int, w: int
                               ) -> Tuple[torch.Tensor, torch.Tensor,
                                          torch.Tensor]:
-    """Visibility buffers through the payload kernel, the contract of the
-    JAX package's ``rasterize_triangles_tiled``: (tri_id (h, w) int32, -1
-    where undrawn; depth (h, w) f32 init ``DEPTH_INIT``; barycentric w0
-    (h, w) f32, 0 where undrawn)."""
-    _check_mesh(vertices, triangles)
-    rec = _visibility_records(vertices, triangles, h=h, w=w)
-    zbuf, pay = rasterize_records(rec, 2, h=h, w=w)
-    drawn = zbuf > DEPTH_INIT
-    tri_id = torch.where(drawn, pay[..., 0].to(torch.int32),
-                         torch.full_like(zbuf, -1, dtype=torch.int32))
-    w0 = torch.where(drawn, pay[..., 1], torch.zeros_like(zbuf))
+    """Visibility buffers, the contract of the JAX package's
+    ``rasterize_triangles_tiled``: (tri_id (h, w) int32, -1 where undrawn;
+    depth (h, w) f32 init ``DEPTH_INIT``; barycentric w0 (h, w) f32, 0
+    where undrawn). The JAX package runs its payload kernel with the id
+    and w0 as planes; here the ids kernel (B3) resolves the id and
+    evaluates w0 for the winner, with the same result."""
+    zbuf, tri_id, w0 = rasterize_mesh_ids(vertices, triangles, h=h, w=w,
+                                          w0=True)
     return tri_id, zbuf, w0
 
 
 def rasterize_buffers_reference(vertices: torch.Tensor,
                                 triangles: torch.Tensor,
-                                colors: torch.Tensor, *, h: int, w: int
+                                payloads: torch.Tensor, *, h: int, w: int
                                 ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """The plain PyTorch twin of :func:`rasterize_buffers_tiled`, on any
-    device: the same records, the same plane formula, the same resolve."""
-    rec = plane_records(vertices, triangles, colors, h=h, w=w)
-    return rasterize_records_reference(rec, 3, h=h, w=w)
+    """The plain PyTorch twin of :func:`rasterize_mesh` and of
+    :func:`rasterize_buffers_tiled`, on any device: :func:`plane_records`,
+    then :func:`rasterize_records_reference`."""
+    rec = plane_records(vertices, triangles, payloads, h=h, w=w)
+    return rasterize_records_reference(rec, payloads.shape[1], h=h, w=w)

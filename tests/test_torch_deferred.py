@@ -1,6 +1,7 @@
 """The port's deferred-payload raster (the plain twin of kernel B3), its
 ids resolve and the visibility path against the JAX package in interpret
-mode, on the same seeded meshes, and against the port's own payload path.
+mode, on the same seeded meshes, and against the port's own payload path
+and record routes.
 
 Tolerances. The winning triangle id must be equal everywhere. Depth and
 payloads are not bit-equal across the two packages: XLA contracts some of
@@ -11,7 +12,8 @@ of itself where its terms cancel. So depth is held at rtol 1e-3 / atol
 tolerance) and w0 at atol 1e-4 (the plane records' own tolerance in
 ``tests/test_torch_render.py``). Inside the port, the deferred path equals
 the payload path bit for bit, and the visibility path's ids equal the ids
-resolve's.
+resolve's, and the visibility path (ids twin plus w0) equals its record
+route (``_visibility_records`` through the payload twin) bit for bit.
 """
 
 import jax.numpy as jnp
@@ -30,9 +32,10 @@ from synergynet_tpu.render.raster_tiled import \
 from synergynet_tpu.render.raster_tiled import replication_for
 from synergynet_tpu_torch.render import (
     DEPTH_INIT, compact_records, eval_deferred_payloads,
-    rasterize_buffers_tiled, rasterize_ids, rasterize_ids_reference,
-    rasterize_triangles_tiled)
-from synergynet_tpu_torch.render.raster_tiled import PAYLOAD0
+    rasterize_buffers_tiled, rasterize_ids_reference, rasterize_mesh_ids,
+    rasterize_records_reference, rasterize_triangles_tiled)
+from synergynet_tpu_torch.render.raster_tiled import (PAYLOAD0,
+                                                      _visibility_records)
 from tests.test_raster_tiled import random_mesh
 from tests.test_torch_render import CASES
 
@@ -85,14 +88,17 @@ def test_ids_twin_matches_jax_compact_kernel(mesh):
     clamped = np.asarray(clamped)
     ported = np.concatenate([clamped[:, :9], clamped[:, 10:14]], 1)
     assert ported.shape[1] == PAYLOAD0
-    before = rasterize_ids.launches
-    zt, idt = rasterize_ids(*_t(ported), h=h, w=w)
-    assert rasterize_ids.launches == before      # the CPU runs the twin
+    zt, idt = rasterize_ids_reference(*_t(ported), h=h, w=w)
     assert idt.dtype == torch.int32 and idt.shape == (h, w)
     np.testing.assert_array_equal(idt.numpy(), np.asarray(idj))
     np.testing.assert_allclose(zt.numpy(), np.asarray(zj), **DEPTH)
-    zr, idr = rasterize_ids_reference(*_t(ported), h=h, w=w)
-    assert torch.equal(zr, zt) and torch.equal(idr, idt)
+    # The mesh entry of kernel B3 on the CPU: the twin on the port's own
+    # records, with the same winners; it counts no launch.
+    before = rasterize_mesh_ids.launches
+    zm, idm = rasterize_mesh_ids(*_t(v, t), h=h, w=w)
+    assert rasterize_mesh_ids.launches == before
+    np.testing.assert_array_equal(idm.numpy(), np.asarray(idj))
+    np.testing.assert_allclose(zm.numpy(), np.asarray(zj), **DEPTH)
 
 
 @pytest.mark.parametrize("mesh", MESHES, ids=IDS)
@@ -107,13 +113,38 @@ def test_visibility_matches_jax(mesh):
     np.testing.assert_array_equal(tri.numpy(), np.asarray(tj))
     np.testing.assert_allclose(zbuf.numpy(), np.asarray(zj), **DEPTH)
     np.testing.assert_allclose(w0.numpy(), np.asarray(w0j), **PAYLOAD)
-    # The free cross-check of the two kernels: the payload kernel's ids
-    # equal the ids resolve's on the same mesh.
-    rec, _ = compact_records(tv, tt, torch.zeros((len(v), 0)), h=h, w=w)
-    z_ids, ids = rasterize_ids(rec, h=h, w=w)
+    # The ids entry without w0 resolves the same winners.
+    z_ids, ids = rasterize_mesh_ids(tv, tt, h=h, w=w)
     assert torch.equal(ids, tri) and torch.equal(z_ids, zbuf)
     drawn = zbuf > DEPTH_INIT
     assert ((tri >= 0) == drawn).all() and (w0[~drawn] == 0).all()
+
+
+VIS_MESHES = MESHES + [
+    (f"seed{s}", *random_mesh(np.random.default_rng(s), nver=60, ntri=200),
+     24, 40) for s in (31, 32, 33)]
+
+
+@pytest.mark.parametrize("mesh", VIS_MESHES, ids=[m[0] for m in VIS_MESHES])
+@pytest.mark.parametrize("dtype", [torch.int32, torch.int64])
+def test_visibility_ids_route_equals_record_route(mesh, dtype):
+    """The port's visibility path (the ids resolve, then w0 of the winner)
+    equals the JAX package's route, the payload resolve on records whose
+    planes are the triangle id and w0 (``_visibility_records``), bit for
+    bit."""
+    name, v, t, _, h, w = mesh
+    tv, tt = _t(v, t)
+    tt = tt.to(dtype)
+    tri, zbuf, w0 = rasterize_triangles_tiled(tv, tt, h=h, w=w)
+    rec = _visibility_records(tv, tt, h=h, w=w)
+    zr, pay = rasterize_records_reference(rec, 2, h=h, w=w)
+    drawn = zr > DEPTH_INIT
+    assert drawn.any() == (name != "offcanvas")
+    assert torch.equal(zbuf, zr)
+    assert torch.equal(tri, torch.where(drawn, pay[..., 0].to(torch.int32),
+                                        torch.full_like(tri, -1)))
+    assert torch.equal(w0, torch.where(drawn, pay[..., 1],
+                                       torch.zeros_like(w0)))
 
 
 def test_eval_deferred_payloads_edges():

@@ -107,7 +107,8 @@ def test_fused_decode_rejects_what_it_does_not_take(cuda, full):
 # -- kernel B2: the z-buffer rasterizer -------------------------------------
 
 def _raster_cases(rng, h=96, w=160):
-    """Stress meshes: (name, verts (V, 3), tris (T, 3), colors (V, 3))."""
+    """Stress meshes on an (h, w) canvas: (name, verts (V, 3), tris (T, 3)
+    int32, colors (V, 3))."""
     v = rng.uniform([0, 0, -5], [w, h, 5], (300, 3)).astype(np.float32)
     t = rng.integers(0, 300, (400, 3)).astype(np.int32)
     c = rng.uniform(0, 1, (300, 3)).astype(np.float32)
@@ -162,25 +163,61 @@ def _full_width_mesh(cuda, faces=8, seed=0):
     return verts, tris, colors
 
 
-def _assert_raster_twins(verts, tris, colors, h, w):
-    from synergynet_tpu_torch.render import (rasterize_buffers_reference,
-                                             rasterize_buffers_tiled)
-    before = rasterize_buffers_tiled.launches
-    z, c = rasterize_buffers_tiled(verts, tris, colors, h=h, w=w)
+def _record_visibility(verts, tris, h, w):
+    """The visibility path's record route, as the JAX package runs it:
+    records whose payload planes are the triangle id and w0, through the
+    payload kernel's twin. -> (tri_id, zbuf, w0)."""
+    from synergynet_tpu_torch.render import rasterize_records_reference
+    from synergynet_tpu_torch.render.raster_tiled import _visibility_records
+    rec = _visibility_records(verts, tris, h=h, w=w)
+    z, pay = rasterize_records_reference(rec, 2, h=h, w=w)
+    drawn = z > -1e8
+    tri = torch.where(drawn, pay[..., 0].to(torch.int32),
+                      torch.full_like(z, -1, dtype=torch.int32))
+    return tri, z, torch.where(drawn, pay[..., 1], torch.zeros_like(z))
+
+
+def _assert_raster_twins(verts, tris, pay, h, w):
+    """Both mesh kernels against their twins, bit for bit: B2 (zbuf,
+    payloads), B3 (zbuf, ids, w0), the visibility path against its record
+    route, and the deferred path against the payload path (3 payloads)."""
+    from synergynet_tpu_torch.render import (
+        rasterize_buffers_reference, rasterize_buffers_tiled, rasterize_mesh,
+        rasterize_mesh_ids, rasterize_mesh_ids_reference,
+        rasterize_triangles_tiled)
+    before = rasterize_mesh.launches, rasterize_mesh_ids.launches
+    z, p = rasterize_mesh(verts, tris, pay, h=h, w=w)
+    z3, ids, w0 = rasterize_mesh_ids(verts, tris, h=h, w=w, w0=True)
     torch.cuda.synchronize()
-    assert rasterize_buffers_tiled.launches == before + 1
-    zr, cr = rasterize_buffers_reference(verts, tris, colors, h=h, w=w)
-    assert z.shape == (h, w) and c.shape == (h, w, 3)
-    assert torch.equal(z, zr) and torch.equal(c, cr)
+    assert (rasterize_mesh.launches, rasterize_mesh_ids.launches) == (
+        before[0] + 1, before[1] + 1)
+    zr, pr = rasterize_buffers_reference(verts, tris, pay, h=h, w=w)
+    assert z.shape == (h, w) and p.shape == (h, w, pay.shape[1])
+    assert torch.equal(z, zr) and torch.equal(p, pr)
+    want = rasterize_mesh_ids_reference(verts, tris, h=h, w=w, w0=True)
+    assert all(torch.equal(a, b) for a, b in zip((z3, ids, w0), want))
+    assert torch.equal(z3, z) and ((ids >= 0) == (z > -1e8)).all()
+    tri, zv, w0v = rasterize_triangles_tiled(verts, tris, h=h, w=w)
+    assert all(torch.equal(a, b) for a, b in zip(
+        (tri, zv, w0v), _record_visibility(verts, tris, h, w)))
+    assert torch.equal(tri, ids) and torch.equal(w0v, w0)
+    if pay.shape[1] == 3:
+        zd, cd = rasterize_buffers_tiled(verts, tris, pay, h=h, w=w,
+                                         deferred=True)
+        assert torch.equal(zd, z) and torch.equal(cd, p)
     return z
 
 
+INDEX_TYPES = [torch.int32, torch.int64]
+
+
 @pytest.mark.gpu
+@pytest.mark.parametrize("dtype", INDEX_TYPES)
 @pytest.mark.parametrize("case", range(7))
-def test_raster_kernel_matches_plain_twin_on_stress_meshes(cuda, case):
+def test_raster_kernel_matches_plain_twin_on_stress_meshes(cuda, case, dtype):
     name, v, t, c = _raster_cases(np.random.default_rng(case))[case]
-    z = _assert_raster_twins(*(torch.tensor(a, device=cuda)
-                               for a in (v, t, c)), 96, 160)
+    v, t, c = (torch.tensor(a, device=cuda) for a in (v, t, c))
+    z = _assert_raster_twins(v, t.to(dtype), c, 96, 160)
     drawn = (z > -1e8).sum().item()
     if name in ("offcanvas", "empty"):
         assert drawn == 0
@@ -189,18 +226,157 @@ def test_raster_kernel_matches_plain_twin_on_stress_meshes(cuda, case):
 
 
 @pytest.mark.gpu
-def test_raster_kernel_matches_plain_twin_at_full_width(cuda):
+@pytest.mark.parametrize("case", range(7))
+def test_raster_kernels_match_plain_twins_on_full_canvas_stress_meshes(
+        cuda, case):
+    """The stress meshes scaled to the overlay's 720x1088 canvas: the
+    giant triangle spans it, the others are ~7x larger than at 96x160."""
+    name, v, t, c = _raster_cases(np.random.default_rng(case), 720,
+                                  1088)[case]
+    v, t, c = (torch.tensor(a, device=cuda) for a in (v, t, c))
+    z = _assert_raster_twins(v, t, c, 720, 1088)
+    assert ((z > -1e8).sum().item() == 0) == (name in ("offcanvas", "empty"))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", INDEX_TYPES)
+@pytest.mark.parametrize("n_payload", [1, 2, 3, 4, 5])
+def test_raster_kernel_payload_counts(cuda, n_payload, dtype):
+    _, v, t, _ = _raster_cases(np.random.default_rng(9))[2]
+    rng = np.random.default_rng(n_payload)
+    pay = torch.tensor(rng.normal(0, 3, (len(v), n_payload)),
+                       dtype=torch.float32, device=cuda)
+    v, t = (torch.tensor(a, device=cuda) for a in (v, t))
+    _assert_raster_twins(v, t.to(dtype), pay, 96, 160)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", INDEX_TYPES)
+def test_raster_kernel_matches_plain_twin_at_full_width(cuda, dtype):
     verts, tris, colors = _full_width_mesh(cuda)
     assert tris.shape == (8 * 105840, 3)
-    z = _assert_raster_twins(verts, tris, colors, 720, 1088)
+    z = _assert_raster_twins(verts, tris.to(dtype), colors, 720, 1088)
     assert (z > -1e8).float().mean().item() > 0.05
 
 
 @pytest.mark.gpu
+def test_raster_kernels_repeat_bit_identical(cuda):
+    """Launch after launch on the same mesh, the atomics' order changes
+    and the buffers do not."""
+    from synergynet_tpu_torch.render import rasterize_mesh, rasterize_mesh_ids
+    verts, tris, colors = _full_width_mesh(cuda, seed=2)
+    tris = tris.int()
+    first = rasterize_mesh(verts, tris, colors, h=720, w=1088)
+    first_ids = rasterize_mesh_ids(verts, tris, h=720, w=1088, w0=True)
+    for _ in range(3):
+        again = rasterize_mesh(verts, tris, colors, h=720, w=1088)
+        assert all(torch.equal(a, b) for a, b in zip(first, again))
+        again = rasterize_mesh_ids(verts, tris, h=720, w=1088, w0=True)
+        assert all(torch.equal(a, b) for a, b in zip(first_ids, again))
+
+
+_TRAP_SCRIPT = """
+import sys, torch
+from synergynet_tpu_torch.render import rasterize_mesh, rasterize_mesh_ids
+v = torch.rand((10, 3), device="cuda") * 8
+t = torch.tensor([[0, 1, {index}]], dtype=torch.{dtype}, device="cuda")
+try:
+    if "{entry}" == "ids":
+        rasterize_mesh_ids(v, t, h=8, w=8, w0=True)
+    else:
+        rasterize_mesh(v, t, v.clone(), h=8, w=8)
+    torch.cuda.synchronize()
+except RuntimeError as e:
+    print("kernel failed:", e)
+    sys.exit(3)
+print("kernel ran")
+"""
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("entry,dtype,index", [
+    ("payloads", "int32", 2), ("payloads", "int32", 10),
+    ("ids", "int32", -1), ("payloads", "int64", 2 ** 33),
+    ("ids", "int64", 10)])
+def test_raster_kernel_traps_on_out_of_range_index(cuda, entry, dtype,
+                                                   index):
+    """A triangle index outside [0, V) traps the kernel instead of reading
+    outside the vertices; in a child process, since a trap ends the CUDA
+    context. Index 2 is the control, which runs."""
+    import os
+    import subprocess
+    import sys
+    root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    proc = subprocess.run(
+        [sys.executable, "-c", _TRAP_SCRIPT.format(entry=entry, dtype=dtype,
+                                                   index=index)],
+        cwd=root, capture_output=True, text=True, timeout=300)
+    if index == 2:
+        assert proc.returncode == 0 and "kernel ran" in proc.stdout, \
+            proc.stderr
+    else:
+        assert proc.returncode == 3, (proc.stdout, proc.stderr)
+        assert "kernel failed" in proc.stdout
+
+
+@pytest.mark.gpu
+def test_card_paths_build_no_plane_records(cuda, monkeypatch):
+    """The overlay, deferred and visibility paths on the card: the record
+    builders raise if called, and no (T, >= 13) tensor is stacked."""
+    from synergynet_tpu_torch.detect import FaceBoxes
+    from synergynet_tpu_torch.pipeline import (FusedFrameEngine,
+                                               FusedOverlayEngine,
+                                               SynergyNet3DMM)
+    from synergynet_tpu_torch.render import (raster_tiled, rasterize_mesh,
+                                             rasterize_mesh_ids)
+
+    def refuse(*args, **kwargs):
+        raise AssertionError("a plane record was built on the card")
+
+    for name in ("plane_records", "compact_records", "_visibility_records"):
+        monkeypatch.setattr(raster_tiled, name, refuse)
+    stack = torch.stack
+    ntri = []
+
+    def checked_stack(tensors, dim=0, **kwargs):
+        out = stack(tensors, dim, **kwargs)
+        if out.dim() == 2 and out.shape[0] in ntri and out.shape[1] >= 13:
+            raise AssertionError(f"a {tuple(out.shape)} record was stacked")
+        return out
+
+    monkeypatch.setattr(torch, "stack", checked_stack)
+    api = SynergyNet3DMM(variables="trained", dtype=torch.bfloat16,
+                         device=cuda)
+    ov = FusedOverlayEngine(FusedFrameEngine(
+        api, detector=FaceBoxes(dtype=torch.bfloat16, device=cuda, seed=0),
+        max_faces=8))
+    ntri.extend(ov.tris_all.shape[0] // 8 * f for f in (1, 2, 4, 8))
+    assert ov.tris_all.dtype == torch.int32
+    img = np.random.default_rng(2).integers(0, 256, (720, 1088, 3), np.uint8)
+    before = rasterize_mesh.launches
+    pts, _, _, overlay = ov(img)
+    assert len(pts) > 0 and overlay.shape == img.shape
+    assert rasterize_mesh.launches == before + 1
+    verts, tris, colors = _full_width_mesh(cuda, seed=3)
+    tris = tris.int()
+    ntri.append(tris.shape[0])
+    before = rasterize_mesh_ids.launches
+    z, c = raster_tiled.rasterize_buffers_tiled(verts, tris, colors, h=720,
+                                                w=1088, deferred=True)
+    tri, zv, w0 = raster_tiled.rasterize_triangles_tiled(verts, tris, h=720,
+                                                         w=1088)
+    torch.cuda.synchronize()
+    assert rasterize_mesh_ids.launches == before + 2
+    assert torch.equal(z, zv) and ((tri >= 0) == (z > -1e8)).all()
+    with pytest.raises(AssertionError):
+        raster_tiled.rasterize_buffers_reference(verts, tris, colors, h=720,
+                                                 w=1088)
+
+
+@pytest.mark.gpu
 def test_raster_kernel_rejects_what_it_does_not_take(cuda):
-    from synergynet_tpu_torch.render import (plane_records,
-                                             rasterize_buffers_tiled,
-                                             rasterize_records)
+    from synergynet_tpu_torch.render import (rasterize_buffers_tiled,
+                                             rasterize_mesh)
     _, v, t, c = _raster_cases(np.random.default_rng(0))[0]
     v, t, c = (torch.tensor(a, device=cuda) for a in (v, t, c))
     with pytest.raises(TypeError):
@@ -209,11 +385,12 @@ def test_raster_kernel_rejects_what_it_does_not_take(cuda):
         rasterize_buffers_tiled(v, t.cpu(), c, h=32, w=32)
     with pytest.raises(ValueError):
         rasterize_buffers_tiled(v.T.contiguous().T, t, c, h=32, w=32)
-    rec = plane_records(v, t, c, h=32, w=32)
     with pytest.raises(ValueError):
-        rasterize_records(rec[:, ::2], 3, h=32, w=32)
+        rasterize_mesh(v, t, torch.cat([c, c], 1), h=32, w=32)
     with pytest.raises(ValueError):
-        rasterize_records(rec, 6, h=32, w=32)
+        rasterize_mesh(v, t, torch.cat([c, c], 1)[:, ::2], h=32, w=32)
+    with pytest.raises(ValueError):
+        rasterize_mesh(v, t, c.cpu(), h=32, w=32)
 
 
 # -- kernel B3: depth + winning triangle id, the deferred path ---------------
@@ -221,21 +398,14 @@ def test_raster_kernel_rejects_what_it_does_not_take(cuda):
 @pytest.mark.gpu
 @pytest.mark.parametrize("case", range(7))
 def test_raster_ids_kernel_matches_plain_twin_on_stress_meshes(cuda, case):
-    from synergynet_tpu_torch.render import (compact_records, rasterize_ids,
-                                             rasterize_ids_reference,
-                                             rasterize_triangles_tiled)
-    name, v, t, c = _raster_cases(np.random.default_rng(case))[case]
-    v, t, c = (torch.tensor(a, device=cuda) for a in (v, t, c))
-    rec, _ = compact_records(v, t, c, h=96, w=160)
-    before = rasterize_ids.launches
-    z, ids = rasterize_ids(rec, h=96, w=160)
-    torch.cuda.synchronize()
-    assert rasterize_ids.launches == before + 1
-    zr, idr = rasterize_ids_reference(rec, h=96, w=160)
-    assert torch.equal(z, zr) and torch.equal(ids, idr)
+    """The ids entry with and without w0: the same depth and ids."""
+    from synergynet_tpu_torch.render import rasterize_mesh_ids
+    _, v, t, _ = _raster_cases(np.random.default_rng(case))[case]
+    v, t = (torch.tensor(a, device=cuda) for a in (v, t))
+    z, ids = rasterize_mesh_ids(v, t, h=96, w=160)
+    z3, ids3, _ = rasterize_mesh_ids(v, t, h=96, w=160, w0=True)
+    assert torch.equal(z, z3) and torch.equal(ids, ids3)
     assert ((ids >= 0) == (z > -1e8)).all()
-    tri, zv, _ = rasterize_triangles_tiled(v, t, h=96, w=160)
-    assert torch.equal(tri, ids) and torch.equal(zv, z)
 
 
 @pytest.mark.gpu
@@ -250,35 +420,32 @@ def test_deferred_equals_payload_path_on_stress_meshes(cuda, case):
 
 
 @pytest.mark.gpu
-def test_deferred_equals_payload_path_at_full_width(cuda):
-    from synergynet_tpu_torch.render import (compact_records, rasterize_ids,
-                                             rasterize_ids_reference,
-                                             rasterize_buffers_tiled)
+@pytest.mark.parametrize("dtype", INDEX_TYPES)
+def test_deferred_equals_payload_path_at_full_width(cuda, dtype):
+    from synergynet_tpu_torch.render import rasterize_buffers_tiled
     verts, tris, colors = _full_width_mesh(cuda, seed=1)
+    tris = tris.to(dtype)
     zd, cd = rasterize_buffers_tiled(verts, tris, colors, h=720, w=1088,
                                      deferred=True)
     zk, ck = rasterize_buffers_tiled(verts, tris, colors, h=720, w=1088)
     assert torch.equal(zd, zk) and torch.equal(cd, ck)
-    rec, _ = compact_records(verts, tris, colors, h=720, w=1088)
-    got = rasterize_ids(rec, h=720, w=1088)
-    want = rasterize_ids_reference(rec, h=720, w=1088)
-    assert all(torch.equal(a, b) for a, b in zip(got, want))
 
 
 @pytest.mark.gpu
 def test_raster_ids_rejects_what_it_does_not_take(cuda):
-    from synergynet_tpu_torch.render import compact_records, rasterize_ids
-    _, v, t, c = _raster_cases(np.random.default_rng(0))[0]
-    v, t, c = (torch.tensor(a, device=cuda) for a in (v, t, c))
-    rec, _ = compact_records(v, t, c, h=32, w=32)
+    from synergynet_tpu_torch.render import rasterize_mesh_ids
+    _, v, t, _ = _raster_cases(np.random.default_rng(0))[0]
+    v, t = (torch.tensor(a, device=cuda) for a in (v, t))
     with pytest.raises(TypeError):
-        rasterize_ids(rec.double(), h=32, w=32)
+        rasterize_mesh_ids(v.double(), t, h=32, w=32)
+    with pytest.raises(TypeError):
+        rasterize_mesh_ids(v, t.float(), h=32, w=32)
     with pytest.raises(ValueError):
-        rasterize_ids(torch.cat([rec, rec[:, :3]], 1), h=32, w=32)
+        rasterize_mesh_ids(v, t[:, ::2], h=32, w=32)
     with pytest.raises(ValueError):
-        rasterize_ids(rec[:, ::2], h=32, w=32)
+        rasterize_mesh_ids(v, t.cpu(), h=32, w=32)
     with pytest.raises(ValueError):
-        rasterize_ids(rec, h=0, w=32)
+        rasterize_mesh_ids(v, t, h=0, w=32)
 
 
 # -- kernel B4: the fused s2d8 stem -------------------------------------------

@@ -28,8 +28,8 @@ from synergynet_tpu_torch.mm3d import load_param_pack
 from synergynet_tpu_torch.render import (
     DEPTH_INIT, OVERLAY_LIGHT_CFG, blend_uint8, compute_vertex_light,
     get_normal_rings, one_ring_table, plane_records,
-    rasterize_buffers_reference, rasterize_buffers_tiled, rasterize_records,
-    rasterize_records_reference)
+    rasterize_buffers_reference, rasterize_buffers_tiled, rasterize_mesh,
+    rasterize_mesh_ids, rasterize_records_reference)
 from synergynet_tpu_torch.render.raster_tiled import BBOX0, PAYLOAD0
 from tests.oracles import oracle_rasterize
 from tests.test_raster_tiled import random_mesh
@@ -180,9 +180,9 @@ def test_reference_matches_jax_kernel(case):
     assert same.mean() >= 0.995
     np.testing.assert_allclose(ct.numpy()[same], cj[same], atol=1e-4)
     # the CPU entry point is the plain twin, and counts no launch
-    before = rasterize_buffers_tiled.launches
+    before = rasterize_mesh.launches
     z2, c2 = rasterize_buffers_tiled(*_t(verts, tris, colors), h=h, w=w)
-    assert rasterize_buffers_tiled.launches == before
+    assert rasterize_mesh.launches == before
     assert torch.equal(z2, zt) and torch.equal(c2, ct)
 
 
@@ -223,13 +223,22 @@ def test_tie_rules():
         assert (color[drawn] == torch.from_numpy(want)).all(), order
 
 
-def test_records_entry_is_the_plain_twin_on_cpu():
+@pytest.mark.parametrize("dtype", [torch.int32, torch.int64])
+def test_records_entry_is_the_plain_twin_on_cpu(dtype):
+    """The mesh entry of kernel B2 on a CPU tensor is the record route
+    (plane records, then the record resolve), for either index type and
+    1-5 payloads; no triangles draw nothing."""
     verts, tris, colors = random_mesh(np.random.default_rng(4))
-    rec = plane_records(*_t(verts, tris, colors), h=32, w=32)
-    a = rasterize_records(rec, 3, h=32, w=32)
-    b = rasterize_records_reference(rec, 3, h=32, w=32)
-    assert all(torch.equal(x, y) for x, y in zip(a, b))
-    z, c = rasterize_records(rec[:0], 3, h=8, w=16)
+    v, t, c = _t(verts, tris, colors)
+    t = t.to(dtype)
+    pay = torch.cat([c, c[:, :2] * 2.0 - 0.5], 1)
+    for p in range(1, 6):
+        rec = plane_records(v, t, pay[:, :p].contiguous(), h=32, w=32)
+        a = rasterize_mesh(v, t, pay[:, :p].contiguous(), h=32, w=32)
+        b = rasterize_records_reference(rec, p, h=32, w=32)
+        assert a[1].shape == (32, 32, p)
+        assert all(torch.equal(x, y) for x, y in zip(a, b))
+    z, c = rasterize_mesh(v, t[:0], pay[:, :3].contiguous(), h=8, w=16)
     assert (z == DEPTH_INIT).all() and (c == 0).all()
     assert z.shape == (8, 16) and c.shape == (8, 16, 3)
 
@@ -245,6 +254,42 @@ def test_entry_rejects_what_it_does_not_take():
                                 h=8, w=8)
     with pytest.raises(ValueError):
         rasterize_buffers_tiled(verts, tris, colors[:-1], h=8, w=8)
+
+
+@pytest.mark.parametrize("entry", ["payloads", "ids"])
+def test_mesh_entries_reject_what_the_kernels_do_not_take(entry):
+    """Both mesh entries check, on any device, what their kernels take on
+    trust: dtypes, shapes, 1-5 payloads, contiguity, one device and 32-bit
+    extents."""
+    v, t, c = _t(*random_mesh(np.random.default_rng(5)))
+
+    def run(v, t, c=c, h=8, w=8):
+        if entry == "payloads":
+            return rasterize_mesh(v, t, c, h=h, w=w)
+        return rasterize_mesh_ids(v, t, h=h, w=w, w0=True)
+
+    run(v, t)
+    bad = [(TypeError, (v.double(), t)), (TypeError, (v, t.float())),
+           (TypeError, (v, t.to(torch.int16))),
+           (ValueError, (v[:, :2].contiguous(), t)),
+           (ValueError, (v, t[:, :2].contiguous())),
+           (ValueError, (v.T.contiguous().T, t)),
+           (ValueError, (v, t.T.contiguous().T)),
+           (ValueError, (v.to("meta"), t)),
+           (ValueError, (v, t.to("meta")))]
+    if entry == "payloads":
+        bad += [(TypeError, (v, t, c.double())),
+                (ValueError, (v, t, c[:-1])),
+                (ValueError, (v, t, c[:, :0])),
+                (ValueError, (v, t, torch.cat([c, c], 1))),
+                (ValueError, (v, t, torch.cat([c, c], 1)[:, ::2])),
+                (ValueError, (v, t, c.to("meta")))]
+    for err, args in bad:
+        with pytest.raises(err):
+            run(*args)
+    for h, w in ((0, 8), (8, 0), (2 ** 16, 2 ** 15)):
+        with pytest.raises(ValueError):
+            run(v, t, h=h, w=w)
 
 
 def test_blend_uint8_exact():
