@@ -1,4 +1,4 @@
-"""The weight bridge: flax variable trees -> the port's ``state_dict``s.
+"""The weight bridge: flax variable trees <-> the port's ``state_dict``s.
 
 A flax tree is a nested dict of arrays, ``{"params": ..., "batch_stats":
 ...}``. The port's modules carry the flax module names, so a leaf's torch
@@ -11,7 +11,9 @@ key is its flax path joined by dots with the leaf renamed:
   ``bias`` / ``running_mean`` / ``running_var``.
 
 Leaves may be numpy arrays or anything ``np.asarray`` reads (the JAX
-package's trees); this module never imports jax.
+package's trees); this module never imports jax. :func:`flax_from_state_dict`
+goes back, from the port's tensors to a flax-shaped numpy tree (the rank of
+a ``weight`` tells a conv (4), a dense (2) and a BatchNorm scale (1) apart).
 """
 
 from __future__ import annotations
@@ -62,14 +64,48 @@ def state_dict_from_flax(variables: dict) -> Dict[str, torch.Tensor]:
     return out
 
 
+SYNERGY_MODULES = ("backbone", "forward_direction", "reverse_direction")
+
+
 def synergy_state_dict(variables: dict) -> Dict[str, torch.Tensor]:
-    """A SynergyNet flax tree -> the port's ``SynergyNet`` state_dict. Only
-    the backbone is taken: the synergy MLPs serve training, which the port
-    does not run yet."""
-    sub = {col: {"backbone": tree["backbone"]}
+    """A SynergyNet flax tree -> the port's ``SynergyNet`` state_dict: the
+    backbone and the two synergy MLPs (``forward_direction``,
+    ``reverse_direction``)."""
+    sub = {col: {k: tree[k] for k in SYNERGY_MODULES if k in tree}
            for col, tree in variables.items()
-           if col in ("params", "batch_stats") and "backbone" in tree}
+           if col in ("params", "batch_stats")}
     return state_dict_from_flax(sub)
+
+
+def _put(tree: dict, path, leaf) -> None:
+    for p in path[:-1]:
+        tree = tree.setdefault(p, {})
+    tree[path[-1]] = leaf
+
+
+def flax_from_state_dict(state: Dict[str, torch.Tensor]) -> dict:
+    """The port's state_dict -> ``{"params": ..., "batch_stats": ...}``
+    with numpy leaves under their flax paths (float32, float64 kept): the
+    inverse of :func:`state_dict_from_flax`."""
+    out: dict = {"params": {}, "batch_stats": {}}
+    stats = {v: k for k, v in _STATS.items()}
+    for key, t in state.items():
+        *path, leaf = key.split(".")
+        t = t.detach().cpu()
+        arr = (t if t.dtype == torch.float64 else t.float()).numpy()
+        if leaf in stats:
+            _put(out["batch_stats"], path + [stats[leaf]], arr)
+        elif leaf == "weight" and arr.ndim == 4:
+            _put(out["params"], path + ["kernel"], arr.transpose(2, 3, 1, 0))
+        elif leaf == "weight" and arr.ndim == 2:
+            _put(out["params"], path + ["kernel"], arr.T.copy())
+        elif leaf == "weight" and arr.ndim == 1:
+            _put(out["params"], path + ["scale"], arr)
+        elif leaf == "bias":
+            _put(out["params"], path + ["bias"], arr)
+        else:
+            raise ValueError(f"no flax leaf for {key!r} {tuple(arr.shape)}")
+    return out
 
 
 def faceboxes_state_dict(folded_variables: dict) -> Dict[str, torch.Tensor]:

@@ -1,18 +1,28 @@
-"""Loading the shipped inference weights, numpy only.
+"""Checkpoints and the shipped inference weights, numpy only.
 
-Counterpart of ``synergynet_tpu/core/checkpoint.py:82-144``. The trained
-asset is a flat ``.npz`` of flax leaves (``.params/...``,
-``.batch_stats/...``, float16 for size); this rebuilds the nested flax
-tree with float32 leaves. :mod:`synergynet_tpu_torch.convert` turns that
-tree into the port's ``state_dict``. The file is read where the JAX package
-ships it, ``synergynet_tpu/assets/trained/``, by plain file access: the
-port never imports ``synergynet_tpu``.
+Counterpart of ``synergynet_tpu/core/checkpoint.py``. A checkpoint is the
+JAX package's format (``:24-80,147-156``): one ``.npz`` of flat
+``path/to/leaf`` arrays plus a JSON ``__metadata__`` entry, written to a
+temporary file and renamed into place. Trees are nested dicts of numpy
+arrays; a training state saved by the port
+(:meth:`synergynet_tpu_torch.train.TrainState.tree`) has the JAX
+``TrainState``'s leaves (``step``, ``params/...``, ``batch_stats/...``,
+``opt_state/<i>/...``), so the JAX ``restore_checkpoint`` reads it.
+
+The trained asset is a flat ``.npz`` of flax leaves (``.params/...``,
+``.batch_stats/...``, float16 for size); :func:`load_trained_variables`
+rebuilds the nested flax tree with float32 leaves and
+:mod:`synergynet_tpu_torch.convert` turns it into the port's
+``state_dict``. The file is read where the JAX package ships it,
+``synergynet_tpu/assets/trained/``, by plain file access: the port never
+imports ``synergynet_tpu``.
 """
 
 from __future__ import annotations
 
+import json
 import os
-from typing import Any, Dict
+from typing import Any, Dict, Optional
 
 import numpy as np
 
@@ -24,6 +34,65 @@ _TRAINED_ASSETS = {"mobilenet_v2": "synergynet_mbv2_shaded680k_ep80.npz"}
 # the JAX package (and its package data) sits beside this one.
 _PKG_PARENT = os.path.dirname(os.path.dirname(os.path.dirname(
     os.path.abspath(__file__))))
+
+
+def _flatten(tree: dict, prefix=()) -> Dict[str, np.ndarray]:
+    flat = {}
+    for k, v in tree.items():
+        if isinstance(v, dict):
+            flat.update(_flatten(v, prefix + (str(k),)))
+        else:
+            flat[_SEP.join(prefix + (str(k),))] = np.asarray(v)
+    return flat
+
+
+def save_checkpoint(path: str, tree: dict, *, step: Optional[int] = None,
+                    metadata: Optional[dict] = None) -> None:
+    """Atomically write a nested dict of arrays to ``path`` (.npz), with
+    ``metadata`` (and ``step``) as JSON."""
+    meta = dict(metadata or {})
+    if step is not None:
+        meta["step"] = int(step)
+    os.makedirs(os.path.dirname(os.path.abspath(path)), exist_ok=True)
+    tmp = path + f".tmp{os.getpid()}.npz"
+    np.savez(tmp, __metadata__=json.dumps(meta), **_flatten(tree))
+    os.replace(tmp, path)
+
+
+def restore_checkpoint(path: str, template: dict) -> dict:
+    """The checkpoint at ``path`` in the structure of ``template``: every
+    leaf must be present with the template's shape, and takes its dtype."""
+    with np.load(path, allow_pickle=False) as z:
+        # Checkpoints of the JAX package may carry a leading dot on state
+        # fields (``.params/...``).
+        flat = {_SEP.join(c.lstrip(".") for c in k.split(_SEP)): z[k]
+                for k in z.files if k != "__metadata__"}
+
+    def fill(node, prefix):
+        out = {}
+        for k, v in node.items():
+            key = prefix + (str(k),)
+            if isinstance(v, dict):
+                out[k] = fill(v, key)
+                continue
+            name = _SEP.join(key)
+            if name not in flat:
+                raise KeyError(f"checkpoint missing leaf '{name}'")
+            arr = flat[name]
+            if arr.shape != np.shape(v):
+                raise ValueError(f"shape mismatch for '{name}': ckpt "
+                                 f"{arr.shape} vs {np.shape(v)}")
+            out[k] = arr.astype(np.asarray(v).dtype)
+        return out
+
+    return fill(template, ())
+
+
+def checkpoint_metadata(path: str) -> dict:
+    with np.load(path, allow_pickle=False) as z:
+        if "__metadata__" in z.files:
+            return json.loads(str(z["__metadata__"]))
+    return {}
 
 
 def load_trained_variables(path: str) -> Dict[str, Any]:

@@ -8,8 +8,12 @@ canvas, ``_fit_scale``, and the weight handling of ``FaceBoxes.__init__``
 
 Without weights, the detector loads the JAX package's cached conversion of
 the reference checkpoint (``<assets>/faceboxes.npz``) when one exists, and
-otherwise builds a seeded random init — the reference checkpoint is not in
-the repository.
+otherwise the JAX package's default init: flax's init from
+``PRNGKey(0)``, exported once into this package's data
+(``assets/faceboxes_flax_seed0.npz``, by
+``scripts/export_faceboxes_seed0.py``), so both packages' default
+detectors hold the same weights. The reference checkpoint is not in the
+repository.
 """
 
 from __future__ import annotations
@@ -112,12 +116,21 @@ def _load_npz_tree(path: str) -> dict:
     return tree
 
 
+# The JAX package's ``random_init_variables(0)``
+# (``synergynet_tpu/detect/torch_import.py:129-132``) as flat float32 leaves.
+JAX_SEED0_INIT = os.path.join(os.path.dirname(os.path.dirname(
+    os.path.abspath(__file__))), "assets", "faceboxes_flax_seed0.npz")
+
+
 def load_faceboxes_variables(seed: int = 0) -> dict:
     """The JAX package's cached detector weights (``<assets>/faceboxes.npz``)
-    when present, else :func:`random_init_variables`."""
+    when present; else, for ``seed`` 0, the JAX package's default init
+    (:data:`JAX_SEED0_INIT`); else :func:`random_init_variables`."""
     cache = os.path.join(asset_dir(), "faceboxes.npz")
     if os.path.exists(cache):
         return _load_npz_tree(cache)
+    if seed == 0:
+        return _load_npz_tree(JAX_SEED0_INIT)
     return random_init_variables(seed)
 
 

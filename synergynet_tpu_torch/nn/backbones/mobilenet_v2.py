@@ -1,4 +1,4 @@
-"""MobileNetV2 backbone with the 12/40/10 3DMM parameter head, inference.
+"""MobileNetV2 backbone with the 12/40/10 3DMM parameter head.
 
 Counterpart of ``synergynet_tpu/nn/backbones/mobilenet_v2.py``: the
 standard MobileNetV2 trunk, global average pool, and the 62-d head; returns
@@ -8,20 +8,23 @@ standard MobileNetV2 trunk, global average pool, and the 62-d head; returns
 by path.
 
 Numerics follow flax in the compute dtype: convolutions and activations
-run in ``dtype`` (bf16 for serving) while BatchNorm statistics and the head
-stay fp32. Flax evaluates BatchNorm in fp32 (its statistics are fp32) and
-rounds once to the module dtype; ``F.batch_norm`` on a bf16 input with fp32
-statistics does the same.
+run in ``dtype`` (bf16 for serving and training) while the parameters,
+the BatchNorm statistics and the head stay fp32. Flax evaluates BatchNorm
+in fp32 and rounds once to the module dtype; ``F.batch_norm`` on a bf16
+input with fp32 statistics does the same in eval, and
+:class:`~synergynet_tpu_torch.nn.batchnorm.BatchNorm` follows flax's train
+mode. ``module.train()`` selects train mode, as for any torch module.
 """
 
 from __future__ import annotations
 
-from typing import Sequence, Tuple
+from typing import Optional, Sequence, Tuple
 
 import torch
 import torch.nn.functional as F
 from torch import nn
 
+from synergynet_tpu_torch.nn.batchnorm import BatchNorm
 from synergynet_tpu_torch.nn.heads import ParamHead
 
 # (expand_ratio t, out_channels c, repeats n, stride s)
@@ -46,34 +49,47 @@ def make_divisible(v: float, divisor: int = 8, min_value: int | None = None) -> 
     return new_v
 
 
-class BatchNorm(nn.Module):
-    """Inference BatchNorm holding fp32 statistics as buffers (``weight``,
-    ``bias``, ``running_mean``, ``running_var``); output in the input's
-    dtype."""
+class Conv2d(nn.Conv2d):
+    """A bias-free conv that casts its weight to the input's dtype, as flax
+    casts its kernel to the module dtype: the fp32 parameters of training
+    compute in bf16. A serving model stores its weights in the compute
+    dtype already (``cast_convs_``), and the cast is then a no-op."""
 
-    def __init__(self, features: int, eps: float = 1e-5):
-        super().__init__()
-        self.eps = eps
-        self.register_buffer("weight", torch.ones(features))
-        self.register_buffer("bias", torch.zeros(features))
-        self.register_buffer("running_mean", torch.zeros(features))
-        self.register_buffer("running_var", torch.ones(features))
+    def __init__(self, *args, **kwargs):
+        super().__init__(*args, bias=False, **kwargs)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        return F.batch_norm(x, self.running_mean, self.running_var,
-                            self.weight, self.bias, False, 0.0, self.eps)
+        return F.conv2d(x, self.weight.to(x.dtype), None, self.stride,
+                        self.padding, self.dilation, self.groups)
+
+
+def cast_convs_(model: nn.Module, dtype: torch.dtype) -> nn.Module:
+    """Store every conv weight of ``model`` in ``dtype`` (in place), for
+    inference: the weights round to ``dtype`` once, as the per-call cast of
+    a training model rounds them each call."""
+    for m in model.modules():
+        if isinstance(m, nn.Conv2d):
+            m.to(dtype)
+    return model
+
+
+def relu6(x: torch.Tensor) -> torch.Tensor:
+    """``minimum(relu(x), 6)`` as the JAX package writes it: at exactly 6
+    the gradient splits half and half like ``jnp.minimum``'s, where
+    ``F.relu6`` (hardtanh) passes none; 6.0 is common in bf16."""
+    return torch.minimum(F.relu(x), torch.tensor(6.0, dtype=x.dtype))
 
 
 class ConvBNReLU6(nn.Module):
     def __init__(self, cin: int, cout: int, kernel: int = 3, stride: int = 1,
                  groups: int = 1):
         super().__init__()
-        self.Conv_0 = nn.Conv2d(cin, cout, kernel, stride, (kernel - 1) // 2,
-                                groups=groups, bias=False)
+        self.Conv_0 = Conv2d(cin, cout, kernel, stride, (kernel - 1) // 2,
+                             groups=groups)
         self.BatchNorm_0 = BatchNorm(cout)
 
     def forward(self, x):
-        return F.relu6(self.BatchNorm_0(self.Conv_0(x)))
+        return relu6(self.BatchNorm_0(self.Conv_0(x)))
 
 
 class InvertedResidual(nn.Module):
@@ -89,7 +105,7 @@ class InvertedResidual(nn.Module):
         for i, layer in enumerate(layers):      # flax auto-names, in order
             self.add_module(f"ConvBNReLU6_{i}", layer)
         self._n_cbr = len(layers)
-        self.Conv_0 = nn.Conv2d(hidden, cout, 1, bias=False)
+        self.Conv_0 = Conv2d(hidden, cout, 1)
         self.BatchNorm_0 = BatchNorm(cout)
 
     def forward(self, x):
@@ -102,11 +118,12 @@ class InvertedResidual(nn.Module):
 
 class MobileNetV2(nn.Module):
     """NHWC (B, H, W, 3) normalized images -> ``(param62 (B, 62) fp32,
-    pooled feature (B, 1280) fp32)``."""
+    pooled feature (B, 1280) fp32)``. In train mode the head's dropout
+    (rate ``dropout``) draws from the ``generator`` passed to ``forward``."""
 
     def __init__(self, width_mult: float = 1.0,
                  setting: Sequence[Tuple[int, int, int, int]] = _DEFAULT_SETTING,
-                 dtype: torch.dtype = torch.float32):
+                 dropout: float = 0.2, dtype: torch.dtype = torch.float32):
         super().__init__()
         self.dtype = dtype
         input_channel = make_divisible(32 * width_mult)
@@ -124,20 +141,19 @@ class MobileNetV2(nn.Module):
             self.add_module(f"InvertedResidual_{i}", blk)
         self._n_blocks = len(blocks)
         self.ConvBNReLU6_1 = ConvBNReLU6(cin, last_channel, kernel=1)
-        self.ParamHead_0 = ParamHead(last_channel)
-        # Convolutions compute in `dtype`; BatchNorm statistics and the head
-        # stay fp32.
-        for m in self.modules():
-            if isinstance(m, nn.Conv2d):
-                m.to(dtype)
+        self.ParamHead_0 = ParamHead(last_channel, dropout=dropout)
 
-    def forward(self, x: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+    def forward(self, x: torch.Tensor,
+                generator: Optional[torch.Generator] = None
+                ) -> Tuple[torch.Tensor, torch.Tensor]:
         x = x.permute(0, 3, 1, 2).to(self.dtype).contiguous(
             memory_format=torch.channels_last)
         x = self.ConvBNReLU6_0(x)
         for i in range(self._n_blocks):
             x = getattr(self, f"InvertedResidual_{i}")(x)
         x = self.ConvBNReLU6_1(x)
-        # jnp.mean accumulates a bf16 input in fp32, then rounds to bf16.
-        pool = x.mean(dim=(2, 3), dtype=torch.float32).to(self.dtype).float()
-        return self.ParamHead_0(pool), pool
+        # jnp.mean accumulates a bf16 input in fp32 (float64 in float64),
+        # then rounds to the input's dtype; the head takes it in fp32.
+        acc = torch.promote_types(x.dtype, torch.float32)
+        pool = x.mean(dim=(2, 3), dtype=acc).to(self.dtype).float()
+        return self.ParamHead_0(pool, generator), pool

@@ -1,25 +1,50 @@
-"""Shared 3DMM parameter head: three linear branches, concatenated to 62.
+"""Shared 3DMM parameter head: three dropout + linear branches, concatenated
+to 62.
 
-Counterpart of ``synergynet_tpu/nn/heads.py`` for inference: the branches'
-Dropout(0.2) is the identity in eval, so only the linear layers remain.
-Module names (``fc_pose``, ``fc_shape``, ``fc_exp``) are the flax names.
+Counterpart of ``synergynet_tpu/nn/heads.py``. Module names (``fc_pose``,
+``fc_shape``, ``fc_exp``) are the flax names. Each branch has its own
+Dropout(0.2) in train mode, as flax draws one mask per ``drop_*`` module;
+in eval the dropout is the identity.
 """
 
 from __future__ import annotations
+
+from typing import Optional
 
 import torch
 from torch import nn
 
 
+def dropout(x: torch.Tensor, rate: float,
+            generator: Optional[torch.Generator]) -> torch.Tensor:
+    """flax ``nn.Dropout``: keep each element with probability
+    ``1 - rate`` and scale it by ``1 / (1 - rate)``; the mask comes from
+    ``generator`` (on ``x``'s device)."""
+    if rate == 0.0:
+        return x
+    if generator is None:
+        raise ValueError("train-mode dropout needs a torch.Generator")
+    keep_prob = 1.0 - rate
+    keep = torch.rand(x.shape, generator=generator, device=x.device) \
+        < keep_prob
+    return torch.where(keep, x / keep_prob, torch.zeros_like(x))
+
+
 class ParamHead(nn.Module):
     def __init__(self, in_features: int, num_pose: int = 12,
-                 num_shape: int = 40, num_exp: int = 10):
+                 num_shape: int = 40, num_exp: int = 10,
+                 dropout: float = 0.2):
         super().__init__()
+        self.dropout = dropout
         self.fc_pose = nn.Linear(in_features, num_pose)
         self.fc_shape = nn.Linear(in_features, num_shape)
         self.fc_exp = nn.Linear(in_features, num_exp)
 
-    def forward(self, feat: torch.Tensor) -> torch.Tensor:
-        feat = feat.float()
-        return torch.cat([self.fc_pose(feat), self.fc_shape(feat),
-                          self.fc_exp(feat)], dim=1)
+    def forward(self, feat: torch.Tensor,
+                generator: Optional[torch.Generator] = None) -> torch.Tensor:
+        # fp32 as in flax; flax's Dense then computes in its kernel's dtype.
+        feat = feat.float().to(self.fc_pose.weight.dtype)
+        rate = self.dropout if self.training else 0.0
+        return torch.cat([fc(dropout(feat, rate, generator))
+                          for fc in (self.fc_pose, self.fc_shape,
+                                     self.fc_exp)], dim=1)

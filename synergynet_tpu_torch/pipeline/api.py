@@ -22,7 +22,6 @@ from typing import List, Optional, Tuple
 
 import numpy as np
 import torch
-import torch.nn.functional as F
 
 from synergynet_tpu_torch.convert import synergy_state_dict
 from synergynet_tpu_torch.core.checkpoint import (load_trained_variables,
@@ -38,6 +37,7 @@ from synergynet_tpu_torch.mm3d.assets import ParamPack, load_param_pack
 from synergynet_tpu_torch.mm3d.codec import decode_landmarks, rescale_to_roi
 from synergynet_tpu_torch.mm3d.pose import (pose_from_param,
                                             rescale_pose_to_roi)
+from synergynet_tpu_torch.nn.backbones.mobilenet_v2 import cast_convs_
 from synergynet_tpu_torch.nn.synergy import SynergyNet
 from synergynet_tpu_torch.ops.fused_decode import (build_decode_basis,
                                                    decode_dense_fused)
@@ -70,6 +70,7 @@ class SynergyNet3DMM:
         self.pack = pack if pack is not None else load_param_pack()
         model = SynergyNet(arch=arch, dtype=dtype)
         model.load_state_dict(synergy_state_dict(variables))
+        cast_convs_(model, dtype)
         self.variables = variables
         self.model = model.to(self.device).eval()
         self.basis = build_decode_basis(self.pack).to(self.device)
@@ -191,15 +192,42 @@ class FusedFrameEngine:
         return unpack_face_outputs(int(n), lmk, dense, angles, t3d, scale)
 
 
+def _linear_taps(n_src: int, n_dst: int, clamp_edges: bool):
+    """cv2 INTER_LINEAR's taps along one axis: (first index, second index,
+    weight of the first, weight of the second), weights in 11-bit fixed
+    point. The sample point is ``(d + 0.5) * scale - 0.5`` in double,
+    rounded to f32; columns (``clamp_edges``) put a sample outside the
+    source on the edge pixel with weight 1, rows keep the fraction and
+    clamp the row index, as cv2's ``resize`` does."""
+    scale = 1.0 / (n_dst / n_src)
+    f = ((np.arange(n_dst) + 0.5) * scale - 0.5).astype(np.float32)
+    s = np.floor(f).astype(np.int64)
+    f = f - s.astype(np.float32)
+    if clamp_edges:
+        edge = (s < 0) | (s >= n_src - 1)
+        f[edge] = 0.0
+        s = np.where(s < 0, 0, np.where(s >= n_src - 1, n_src - 1, s))
+    w0 = np.rint((np.float32(1.0) - f) * np.float32(2048)).astype(np.int32)
+    w1 = np.rint(f * np.float32(2048)).astype(np.int32)
+    return (np.clip(s, 0, n_src - 1), np.clip(s + 1, 0, n_src - 1), w0, w1)
+
+
 def _resize_linear(img: torch.Tensor, h: int, w: int) -> torch.Tensor:
-    """(H, W, C) uint8 -> (h, w, C) float of uint8 values: bilinear with
-    cv2 INTER_LINEAR's sample rule ((dst + 0.5) * scale - 0.5, edge clamp,
-    no antialias), rounded to the nearest integer. cv2 rounds its
-    fixed-point sums, so values may differ from cv2's by 1."""
-    x = img.permute(2, 0, 1)[None].float()
-    y = F.interpolate(x, size=(h, w), mode="bilinear", align_corners=False,
-                      antialias=False)
-    return y[0].permute(1, 2, 0).round().clamp(0.0, 255.0)
+    """(H, W, C) uint8 -> (h, w, C) float of uint8 values, equal bit for
+    bit to ``cv2.resize(img, (w, h))`` (INTER_LINEAR on 8-bit images): a
+    horizontal pass of int32 sums of 11-bit weights, then cv2's vertical
+    vector pass, ``((S0 >> 4) * b0 >> 16) + ((S1 >> 4) * b1 >> 16)``
+    rounded by ``(+ 2) >> 2`` and saturated to [0, 255]."""
+    dev = img.device
+    x0, x1, a0, a1 = (torch.from_numpy(t).to(dev)
+                      for t in _linear_taps(img.shape[1], w, True))
+    y0, y1, b0, b1 = (torch.from_numpy(t).to(dev)
+                      for t in _linear_taps(img.shape[0], h, False))
+    src = img.int()
+    rows = src[:, x0] * a0[None, :, None] + src[:, x1] * a1[None, :, None]
+    top = ((rows[y0] >> 4) * b0[:, None, None]) >> 16
+    bottom = ((rows[y1] >> 4) * b1[:, None, None]) >> 16
+    return ((top + bottom + 2) >> 2).clamp(0, 255).float()
 
 
 def prepare_frame(img_bgr: np.ndarray, stem_r: int, device="cuda"):

@@ -149,9 +149,8 @@ class FusedOverlayEngine:
         """One BGR uint8 frame -> (pts_res, vertices_lst, poses,
         overlay_bgr): the first three exactly as ``FusedFrameEngine``'s, the
         overlay uint8 at the input's resolution. Oversized inputs render on
-        the <=720x1088 canvas and scale back with the port's bilinear
-        ``_resize_linear``, where the JAX package uses ``cv2.resize``: the
-        two may differ by one step."""
+        the <=720x1088 canvas and scale back with ``_resize_linear``,
+        which equals the JAX package's ``cv2.resize`` bit for bit."""
         eng = self.engine
         h, w = img_bgr.shape[:2]
         canvas, packed, true_hw, scale = prepare_frame(

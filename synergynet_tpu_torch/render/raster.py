@@ -14,11 +14,17 @@ DEPTH_INIT = -1e8    # reference Sim3DR/Sim3DR.py:25
 
 
 def blend_uint8(bg_u8: torch.Tensor, zbuf: torch.Tensor, color: torch.Tensor,
-                alpha: float) -> torch.Tensor:
+                alpha: float, reverse: bool = False) -> torch.Tensor:
     """uint8 truncation blend of resolved color into the background
-    (reference rasterize_kernel.cpp:268-282): ``(1-a)*bg + a*255*color``,
-    truncated to uint8, where ``zbuf > DEPTH_INIT``; ``bg`` elsewhere. The
-    JAX package's ``reverse`` flip waits for a caller that needs it."""
+    (reference rasterize_kernel.cpp:268-282): ``(1-a)*bg + a*255*color``
+    where ``zbuf > DEPTH_INIT``, ``bg`` elsewhere; ``reverse`` flips the
+    rows. As in the JAX package's jitted blend, ``alpha`` is an f32 scalar,
+    the sum is f32, and the cast to uint8 saturates with NaN -> 0 (XLA's
+    convert): torch's own float -> uint8 cast wraps, so the sum is cleaned
+    and clamped to [0, 255] before it truncates."""
     mask = (zbuf > DEPTH_INIT)[..., None]
-    blended = ((1.0 - alpha) * bg_u8.float() + alpha * 255.0 * color)
-    return torch.where(mask, blended.to(torch.uint8), bg_u8)
+    a = torch.tensor(alpha, dtype=torch.float32, device=bg_u8.device)
+    blended = (1.0 - a) * bg_u8.float() + (a * 255.0) * color.float()
+    blended = torch.nan_to_num(blended, nan=0.0).clamp(0.0, 255.0)
+    out = torch.where(mask, blended.to(torch.uint8), bg_u8)
+    return out.flip(0) if reverse else out

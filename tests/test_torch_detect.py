@@ -158,3 +158,40 @@ def test_seeded_random_init_and_asset_cache(tmp_path, monkeypatch,
     want = faceboxes_state_dict(jax.device_get(jax_det.variables))
     for k in want:
         assert torch.equal(got[k], want[k]), k
+
+
+def test_default_detectors_agree(tmp_path, monkeypatch):
+    """No weights on either side: the port's default FaceBoxes holds the
+    JAX package's default init (flax's init from PRNGKey(0)) leaf for leaf,
+    and on a seeded frame gives the JAX detector's score and box for every
+    anchor (f32 convolutions on both sides, the net's atol 1e-4 above;
+    boxes are in canvas pixels, so their atol is 1e-4 relative to the
+    largest coordinate). The kept faces are not compared: this init's
+    softmax saturates, so near-ties at 1.0 order by rounding."""
+    from synergynet_tpu.detect.anchors import decode_boxes as jax_decode
+    from synergynet_tpu_torch.detect.detector import CANVAS
+    monkeypatch.setattr(tdetector, "asset_dir", lambda: str(tmp_path))
+    jdet = JaxFaceBoxes()
+    det = FaceBoxes(device="cpu")
+    want = faceboxes_state_dict(jax.device_get(jdet.variables))
+    got = faceboxes_state_dict(det.variables)
+    assert sorted(got) == sorted(want)
+    for k in want:
+        assert torch.equal(got[k], want[k]), k
+
+    frame = np.random.default_rng(7).integers(0, 256, (*CANVAS, 3),
+                                              np.uint8)
+    x = np.asarray(jax_s2d(frame.astype(np.float32), 8))
+    x = x - np.tile(tdetector.BGR_MEAN, 64).astype(np.float32)
+    jloc, jconf = jdet.net.apply(jdet.variables, jnp.asarray(x)[None],
+                                 train=False)
+    scale = np.asarray([CANVAS[1], CANVAS[0]] * 2, np.float32)
+    jscores = np.asarray(jax.nn.softmax(jconf[0], axis=-1)[:, 1])
+    jboxes = np.asarray(jax_decode(jloc[0], jdet.anchors)) * scale
+    with torch.no_grad():
+        loc, conf = det.net(torch.from_numpy(x)[None])
+    scores = torch.softmax(conf[0], dim=-1)[:, 1].numpy()
+    boxes = tanchors.decode_boxes(loc[0], det.anchors).numpy() * scale
+    np.testing.assert_allclose(scores, jscores, rtol=0, atol=1e-4)
+    np.testing.assert_allclose(boxes, jboxes, rtol=0,
+                               atol=1e-4 * np.abs(jboxes).max())

@@ -33,6 +33,25 @@ MODULES = [
     "synergynet_tpu_torch.pipeline",
     "synergynet_tpu_torch.pipeline.overlay_engine",
     "synergynet_tpu_torch.render",
+    "synergynet_tpu_torch.losses",
+    "synergynet_tpu_torch.nn.batchnorm",
+    "synergynet_tpu_torch.nn.pointnet",
+    "synergynet_tpu_torch.core.config",
+    "synergynet_tpu_torch.train",
+    "synergynet_tpu_torch.train.step",
+    "synergynet_tpu_torch.train.schedule",
+    "synergynet_tpu_torch.train.meters",
+    "synergynet_tpu_torch.train.trainer",
+    "synergynet_tpu_torch.data",
+    "synergynet_tpu_torch.data.transforms",
+    "synergynet_tpu_torch.data.datasets",
+    "synergynet_tpu_torch.data.loader",
+    "synergynet_tpu_torch.data.synthetic",
+    "synergynet_tpu_torch.evals",
+    "synergynet_tpu_torch.evals.nme",
+    "synergynet_tpu_torch.evals.foe",
+    "synergynet_tpu_torch.evals.benchmark",
+    "synergynet_tpu_torch.cli.train",
 ]
 
 
@@ -41,6 +60,7 @@ def test_imports_without_jax():
             "sys.modules['jax'] = None\n"
             "sys.modules['flax'] = None\n"
             "sys.modules['synergynet_tpu'] = None\n"
+            "sys.modules['optax'] = None\n"
             "import importlib\n"
             f"for m in {MODULES!r}:\n"
             "    importlib.import_module(m)\n"
@@ -59,8 +79,8 @@ def test_no_jax_import_in_sources(root):
     files = ([path] if path.endswith(".py") else
              [os.path.join(d, f) for d, _, fs in os.walk(path)
               for f in fs if f.endswith(".py")])
-    pat = re.compile(r"^\s*(import|from)\s+(jax|flax|synergynet_tpu)\b",
-                     re.M)
+    pat = re.compile(
+        r"^\s*(import|from)\s+(jax|flax|optax|synergynet_tpu)\b", re.M)
     for f in files:
         with open(f) as fh:
             assert not pat.search(fh.read()), f
@@ -105,3 +125,29 @@ def test_full_fp32_turns_tf32_off_and_restores(flags):
     finally:
         (torch.backends.cuda.matmul.allow_tf32,
          torch.backends.cudnn.allow_tf32) = saved
+
+
+def test_training_entry_points_default_to_the_card(monkeypatch, tmp_path):
+    from synergynet_tpu_torch.cli import train as cli
+    from synergynet_tpu_torch.core.config import Config
+    from synergynet_tpu_torch.mm3d import load_param_pack
+    from synergynet_tpu_torch.train import (Trainer, make_optimizer,
+                                            make_train_step)
+    for fn in (Trainer, make_train_step):
+        assert inspect.signature(fn).parameters["device"].default == "cuda"
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="no CUDA card"):
+        make_train_step(load_param_pack(), make_optimizer(lambda c: 0.1))
+    cfg = Config()
+    cfg.data.synthetic_size = 16
+    with pytest.raises(RuntimeError, match="no CUDA card"):
+        Trainer(cfg)
+    import logging
+    try:
+        with pytest.raises(RuntimeError, match="no CUDA card"):
+            cli.main(["--no-eval", "--synthetic-size", "16",
+                      "--log-file", str(tmp_path / "log")])
+    finally:
+        for h in list(logging.getLogger().handlers):
+            logging.getLogger().removeHandler(h)
+            h.close()

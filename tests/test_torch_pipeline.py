@@ -234,3 +234,33 @@ def test_process_batch_b2(engines):
     np.testing.assert_allclose(got[3].numpy(), want[3], rtol=0, atol=1e-4)
     for i in (4, 5, 6, 7):
         np.testing.assert_allclose(got[i].numpy(), want[i], **CHAIN)
+
+
+def _oversized(hw, kind):
+    if kind == "noise":
+        return np.random.default_rng(hw[0]).integers(0, 256, (*hw, 3),
+                                                      np.uint8)
+    yy, xx = np.mgrid[:hw[0], :hw[1]]
+    return np.stack([127 + 120 * np.sin(xx / 37.0 + c) * np.cos(yy / 23.0)
+                     for c in range(3)], -1).astype(np.uint8)
+
+
+@pytest.mark.parametrize("kind", ["noise", "smooth"])
+@pytest.mark.parametrize("hw", [(1080, 1920), (1440, 2560), (800, 1000),
+                                (721, 1081)])
+def test_prepare_frame_matches_cv2_on_oversized_frames(hw, kind):
+    """Frames that scale down: the canvas equals the JAX package's
+    (``cv2.resize``, INTER_LINEAR's fixed point) bit for bit, and the
+    overlay's scale back to the frame's size equals ``cv2.resize``'s."""
+    import cv2
+    from synergynet_tpu_torch.pipeline.api import _resize_linear
+    img = _oversized(hw, kind)
+    jc, jp, jhw, js = jax_prepare_frame(img, 8)
+    tc, tp, thw, ts = prepare_frame(img, 8, device="cpu")
+    assert ts == js < 1.0 and np.array_equal(thw.numpy(), np.asarray(jhw))
+    assert np.array_equal(tc.numpy(), jc)
+    hs, ws = thw.tolist()
+    small = tc.numpy()[:hs, :ws].astype(np.uint8)
+    back = _resize_linear(torch.from_numpy(small), *hw)
+    assert np.array_equal(back.numpy().astype(np.uint8),
+                          cv2.resize(small, (hw[1], hw[0])))

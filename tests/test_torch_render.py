@@ -303,3 +303,22 @@ def test_blend_uint8_exact():
                                     jnp.asarray(color), alpha))
         got = blend_uint8(*_t(bg, zbuf, color), alpha)
         np.testing.assert_array_equal(got.numpy(), want)
+
+
+@pytest.mark.parametrize("reverse", [False, True])
+@pytest.mark.parametrize("alpha", [0.3, 0.6, 1.0])
+def test_blend_uint8_saturates_as_jax(alpha, reverse):
+    """Colours outside [0, 1] and NaN: the f32 sum and XLA's saturating
+    cast (NaN -> 0), bit for bit, with and without the row flip."""
+    colours = np.array([-0.5, 0.0, 0.5, 1.0, 1.2, 2.0, np.nan], np.float32)
+    rng = np.random.default_rng(5)
+    bg = rng.integers(0, 256, (4, 7, 3), np.uint8)
+    bg[0] = 100
+    color = np.broadcast_to(colours[None, :, None], (4, 7, 3)).copy()
+    zbuf = np.zeros((4, 7), np.float32)
+    zbuf[3, ::2] = DEPTH_INIT
+    want = np.asarray(jax_blend(jnp.asarray(bg), jnp.asarray(zbuf),
+                                jnp.asarray(color), alpha, reverse=reverse))
+    got = blend_uint8(*_t(bg, zbuf, color), alpha, reverse=reverse)
+    assert got.dtype == torch.uint8
+    np.testing.assert_array_equal(got.numpy(), want)
