@@ -76,8 +76,25 @@ each fatal on failure:
    ``loss_total`` (below the first step's, and the 30 steps' mean too);
    ``Trainer(cfg).fit(1)`` on 8 steps' worth of synthetic crops with the
    loader, the eval hook (n = 256) and a save, its crops/s and the
-   loader's alone, then ``resume`` from the checkpoint. With ``--profile`` also the step's idle
-   share and device ops.
+   loader's alone, then ``resume`` from the checkpoint. With ``--profile``
+   also the step's idle share and device ops;
+9. the training data path (no kernel of B1-B4 on it either): 1,024 shaded
+   crops rendered on the card and on the CPU from the same keys (the keyed
+   draws bit for bit, uint8 within 1 on at most 1e-3 of the values, the
+   dots exact) and the card's render time; the device augmentation's core
+   on the card against the CPU on the same draws (atol 1e-3, all 6 op
+   orders), the step with ``augment=`` against the step without it, each
+   once under ``set_sync_debug_mode("error")``; ``Trainer.fit(1)`` on
+   streamed dots crops through the loader's ``fetch_batch`` fast path with
+   ``device_augment``, beside phase 8's loader-bound figure;
+   ``Trainer.fit(1)`` on streamed shaded crops rendered on the card by the
+   loader, and the loader's rate rendering on the host CPU with one render
+   at a time, one intra-op thread a slab thread, or neither;
+   ``fit_resident`` on 16,384
+   dots crops and ``fit_resident_generative`` on 16,384 shaded parameters,
+   2 epochs each, the second under ``set_sync_debug_mode("error")`` up to
+   its one metrics read, with epoch ms, crops/s and peak memory; and
+   ``python -m synergynet_tpu_torch.cli.train --resident`` for one epoch.
 
 Prints the kernels as one JSON line (each with its launches on its path,
 error against its twin, kernel, plain and library ms, and the least time
@@ -89,6 +106,7 @@ says how its times were taken), the card's name and power limit, and last
 """
 
 import argparse
+import contextlib
 import json
 import os
 import subprocess
@@ -415,7 +433,7 @@ def training_phase(torch, dev, card, profile_dir):
                                      TRAIN_STEPS),
                          momentum=t.momentum, nesterov=t.nesterov,
                          weight_decay=t.weight_decay)
-    syn = make_crops_with_params(TRAIN_BATCH, seed=5)
+    syn = make_crops_with_params(TRAIN_BATCH, seed=5, device=dev)
     cpu = torch.device("cpu")
 
     # -- 8a. one fp32 step on the card and on the CPU, same state and data --
@@ -558,7 +576,7 @@ def training_phase(torch, dev, card, profile_dir):
     cfg.data.synthetic_size = TRAIN_STEPS * TRAIN_BATCH
     cfg.train.snapshot_dir = snap
     cfg.train.print_freq = 4
-    hook = make_synthetic_eval_hook(n=256)
+    hook = make_synthetic_eval_hook(n=256, device=dev)
     spent = {"eval": 0.0, "save": 0.0}
 
     def timed(fn, key):
@@ -610,6 +628,347 @@ def training_phase(torch, dev, card, profile_dir):
         fail("Trainer.resume did not restore the saved state")
     log("Trainer resume from the epoch-1 checkpoint: start epoch 2, state "
         "bit-identical")
+    return out
+
+
+RENDER_CROPS = 1024
+RESIDENT_STEPS = 16         # resident epochs: 16 steps of 1024 crops
+RESIDENT_EPOCHS = 2
+# The card against the CPU on the same keys: the draws bit for bit, the
+# rendered uint8 within one level on at most this share of the values
+# (fp32 products and exponentials round differently), the dots exact.
+RENDER_SHARE = 1e-3
+AUGMENT_ATOL = 1e-3
+
+
+def resident_run(torch, fit, trainer, args, card, label):
+    """Two resident epochs; the second under ``set_sync_debug_mode("error")``
+    up to its one metrics read. Returns the numbers."""
+    from synergynet_tpu_torch.train import resident
+    real = resident.epoch_metrics
+    reads = []
+
+    def read(sums, steps):
+        torch.cuda.set_sync_debug_mode(0)
+        m = real(sums, steps)
+        reads.append(time.perf_counter())
+        return m
+
+    def arm(epoch, metrics):
+        if epoch == 1:
+            torch.cuda.synchronize()
+            reads.append(time.perf_counter())
+            torch.cuda.set_sync_debug_mode("error")
+    resident.epoch_metrics = read
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    try:
+        history = fit(trainer, *args, epochs=RESIDENT_EPOCHS, log_fn=arm)
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+        resident.epoch_metrics = real
+    n = RESIDENT_STEPS * TRAIN_BATCH
+    first_s, second_s = reads[0] - t0, reads[2] - reads[1]
+    out = dict(epoch1_ms=first_s * 1e3, epoch2_ms=second_s * 1e3,
+               crops_per_s=n / second_s,
+               peak_gib=torch.cuda.max_memory_allocated() / 2 ** 30,
+               history={str(k): v for k, v in history.items()})
+    log(f"{label}: {RESIDENT_EPOCHS} epochs of {RESIDENT_STEPS} steps of "
+        f"{TRAIN_BATCH} crops; epoch 1 {out['epoch1_ms']:.1f} ms (its set-up"
+        f" inside), epoch 2 {out['epoch2_ms']:.1f} ms under "
+        f"set_sync_debug_mode('error') up to its one metrics read: "
+        f"{out['crops_per_s']:.1f} crops/s on the host clock; peak "
+        f"{out['peak_gib']:.2f} GiB; loss_total " + ", ".join(
+            f"{h['loss_total']:.4f}" for h in history.values()) + f" | {card}")
+    if int(trainer.state.step) != RESIDENT_EPOCHS * RESIDENT_STEPS or \
+            not all(np.isfinite(v) for h in history.values()
+                    for v in h.values()) or \
+            any(h["skipped"] != 0.0 for h in history.values()):
+        fail(f"{label}: {history}")
+    return out
+
+
+def data_phase(torch, dev, card, training):
+    """The training data path on the card (phase 9): the shaded render,
+    the device augmentation, the streaming Trainer, resident and
+    generative epochs and the resident CLI; returns the numbers."""
+    from synergynet_tpu_torch.cli import train as cli
+    from synergynet_tpu_torch.core.config import Config
+    from synergynet_tpu_torch.data import (GeneratedCropDataset,
+                                           PrefetchLoader, keyed,
+                                           make_crops_with_params,
+                                           sample_params)
+    from synergynet_tpu_torch.data.device_augment import (
+        _PERMS, augment_from, device_augment)
+    from synergynet_tpu_torch.data.shaded import (DOT_BGR, _dot_mask,
+                                                  light_from,
+                                                  render_shaded_crops,
+                                                  shaded_draws)
+    from synergynet_tpu_torch.mm3d import decode_landmarks, load_param_pack
+    from synergynet_tpu_torch.nn import SynergyNet
+    from synergynet_tpu_torch.train import (Trainer, create_train_state,
+                                            fit_resident,
+                                            fit_resident_generative,
+                                            lr_per_step, make_optimizer,
+                                            make_train_step)
+    out = {}
+    cpu = torch.device("cpu")
+    pack = load_param_pack()
+    pack_dev = pack.to(dev)
+
+    # -- 9a. the shaded render: card vs CPU on the same keys, its time -------
+    params = torch.from_numpy(sample_params(np.random.default_rng(7),
+                                            RENDER_CROPS))
+    idx = torch.arange(RENDER_CROPS)
+    key = keyed.make_key(7)
+    card_draws = [d.cpu() for d in shaded_draws(key, idx.to(dev))]
+    differ = [name for name, a, b in zip(
+        ("light x, y", "base", "noise"), card_draws,
+        shaded_draws(key, idx)) if not torch.equal(a, b)]
+    if differ:
+        fail(f"keyed draws: the card's {', '.join(differ)} differ from the "
+             "CPU's")
+    light_card = light_from(card_draws[0].to(dev)).cpu()
+    light_cpu = light_from(card_draws[0])
+    light_rows = int((light_card != light_cpu).any(1).sum())
+    out["light_rows_differ"] = light_rows
+    t0 = time.perf_counter()
+    on_cpu = render_shaded_crops(params, pack, key, idx)
+    cpu_s = time.perf_counter() - t0
+    on_card = render_shaded_crops(params.to(dev), pack_dev, key,
+                                  idx.to(dev)).cpu()
+    diff = (on_card.int() - on_cpu.int()).abs()
+    share = float((diff > 0).float().mean())
+    dots = _dot_mask(decode_landmarks(params, pack), 120)
+    dot = torch.tensor(DOT_BGR, dtype=torch.uint8)
+    dots_ok = torch.equal(on_card[dots], on_cpu[dots]) and bool(
+        (on_cpu[dots] == dot).all())
+    p_dev, i_dev = params.to(dev), idx.to(dev)
+    r_min, r_ms, r_max = time_spread(
+        lambda: render_shaded_crops(p_dev, pack_dev, key, i_dev), 10, torch,
+        flush=lambda: None, spin=0)
+    out["render"] = dict(crops=RENDER_CROPS, ms=r_ms, ms_min=r_min,
+                         ms_max=r_max, cpu_s=cpu_s,
+                         max_level_diff=int(diff.max()), diff_share=share,
+                         light_rows_differ=out.pop("light_rows_differ"))
+    log(f"shaded render of {RENDER_CROPS} crops (decode + render): keyed "
+        f"draws bit-identical card vs CPU (the unit light from them differs "
+        f"in the last bits on {light_rows} of {RENDER_CROPS} rows); uint8 "
+        f"max difference "
+        f"{int(diff.max())} on a share of {share:.2e} (limit 1 on "
+        f"{RENDER_SHARE:.0e}); dots {'exact' if dots_ok else 'DIFFER'}; "
+        f"card median {r_ms:.3f} ms (min {r_min:.3f}, max {r_max:.3f}, "
+        f"CUDA events, 10 runs), CPU {cpu_s:.2f} s (host clock, one run) "
+        f"| {card}")
+    if int(diff.max()) > 1 or share > RENDER_SHARE or not dots_ok:
+        fail("shaded render: the card disagrees with the CPU")
+
+    # -- 9b. device augmentation: card vs CPU, the step with and without it --
+    syn = make_crops_with_params(TRAIN_BATCH, seed=5, device=dev)
+    imgs = torch.from_numpy(syn["images"])
+    tgts = torch.from_numpy(syn["params"])
+    rng = np.random.default_rng(3)
+    f = torch.from_numpy(rng.uniform(0.6, 1.4, (TRAIN_BATCH, 3)).astype(
+        np.float32))
+    occ = torch.from_numpy(rng.random(TRAIN_BATCH) < 0.3)
+    kind = torch.from_numpy(rng.integers(0, 7, TRAIN_BATCH))
+    worst = 0.0
+    for perm in _PERMS:
+        a = augment_from(imgs.to(dev), f.to(dev), perm, occ.to(dev),
+                         kind.to(dev)).cpu()
+        worst = max(worst, float((a - augment_from(imgs, f, perm, occ,
+                                                   kind)).abs().max()))
+    imgs_dev, tgts_dev = imgs.to(dev), tgts.to(dev)
+    _, a_ms, _ = time_spread(lambda: device_augment(imgs_dev, 11), 10,
+                             torch, flush=lambda: None, spin=0)
+    log(f"device augmentation of {TRAIN_BATCH} crops, card vs CPU on the "
+        f"same draws, all 6 op orders: max |difference| {worst:.2e} "
+        f"(atol {AUGMENT_ATOL}); device_augment alone: median "
+        f"{a_ms:.3f} ms (CUDA events, 10 runs) | {card}")
+    if worst > AUGMENT_ATOL:
+        fail("device augmentation: the card disagrees with the CPU")
+    cfg = Config()
+    t = cfg.train
+    opt = make_optimizer(lr_per_step(t.base_lr, t.milestones, t.warmup,
+                                     TRAIN_STEPS),
+                         momentum=t.momentum, nesterov=t.nesterov,
+                         weight_decay=t.weight_decay)
+    gen = torch.Generator(device=dev).manual_seed(0)
+    st = create_train_state(SynergyNet(dtype=getattr(
+        torch, cfg.model.compute_dtype)).to(dev), gen, opt)
+    plain = make_train_step(pack, opt, device=dev)
+    aug = make_train_step(pack, opt, device=dev, augment=device_augment)
+    seeds = iter(range(10 ** 6))
+    turns = {"plain": [], "augment": []}
+    calls = {"plain": lambda: plain(st, imgs_dev, tgts_dev, gen),
+             "augment": lambda: aug(st, imgs_dev, tgts_dev, gen,
+                                    next(seeds))}
+    for fn in calls.values():
+        for _ in range(2):
+            fn()
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        for fn in calls.values():
+            fn()
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    for name in ("plain", "augment", "augment", "plain"):
+        turns[name].append(time_spread(calls[name], 5, torch,
+                                       flush=lambda: None, spin=0)[1])
+    step_ms = {k: float(np.mean(v)) for k, v in turns.items()}
+    out["augment"] = dict(max_abs_err=worst, ms=a_ms,
+                          step_ms=step_ms["augment"],
+                          plain_step_ms=step_ms["plain"])
+    log(f"train step B={TRAIN_BATCH} bf16 with augment=device_augment: "
+        f"{step_ms['augment']:.3f} ms against {step_ms['plain']:.3f} ms "
+        f"without (CUDA events; the mean of two turns' medians of 5 steps, "
+        f"in turns plain, augment, augment, plain); one step of each under "
+        f"set_sync_debug_mode('error'): no host sync | {card}")
+    if not torch.isfinite(st.params).all():
+        fail("train step with augment: non-finite parameters")
+    del st, plain, aug, calls, imgs_dev, tgts_dev
+    torch.cuda.empty_cache()
+
+    # -- 9c. Trainer.fit(1) on streamed crops with device augmentation -------
+    snap = os.path.join(os.path.dirname(os.path.abspath(__file__)), "build",
+                        "chip_smoke_data")
+    cfg = Config()
+    cfg.data.synthetic_size = TRAIN_STEPS * TRAIN_BATCH
+    cfg.data.streaming = True
+    cfg.data.device_augment = True
+    cfg.train.batch_size = TRAIN_BATCH
+    cfg.train.snapshot_dir = snap
+    cfg.train.print_freq = 4
+    tr = Trainer(cfg, device=dev)
+    if tr.dataset.transform is not None:
+        fail("streaming with device_augment kept a host transform")
+    t0 = time.perf_counter()
+    h = tr.fit(1)[1]
+    torch.cuda.synchronize()
+    fit_s = time.perf_counter() - t0
+    tr.loader.set_epoch(2)
+    t0 = time.perf_counter()
+    n = sum(len(b[0]) for b in tr.loader)
+    loader_rate = n / (time.perf_counter() - t0)
+    out["streaming"] = dict(
+        fit_crops_per_s=cfg.data.synthetic_size / fit_s,
+        loader_crops_per_s=loader_rate,
+        phase8_fit_crops_per_s=training["fit_crops_per_s"],
+        phase8_loader_crops_per_s=training["loader_crops_per_s"],
+        history=h)
+    log(f"Trainer(cfg).fit(1) on streamed dots crops (fetch_batch fast path,"
+        f" {cfg.train.num_workers} threads) with device_augment: "
+        f"{TRAIN_STEPS} steps of {TRAIN_BATCH} in {fit_s:.2f} s, "
+        f"{out['streaming']['fit_crops_per_s']:.1f} crops/s on the host "
+        f"clock (phase 8, TrainTransform loader: "
+        f"{training['fit_crops_per_s']:.1f}); the fast-path loader alone "
+        f"{loader_rate:.1f} crops/s (phase 8's loader "
+        f"{training['loader_crops_per_s']:.1f}); loss_total "
+        f"{h['loss_total']:.4f} | {card}")
+    if not all(np.isfinite(v) for v in h.values()) or h["skipped"] != 0.0:
+        fail(f"Trainer.fit on a stream: {h}")
+    del tr
+    torch.cuda.empty_cache()
+
+    # Streamed shaded crops render on the Trainer's device, in the loader's
+    # slab threads.
+    cfg.data.appearance = "shaded"
+    cfg.data.synthetic_size = 2 * TRAIN_BATCH
+    tr = Trainer(cfg, device=dev)
+    if tr.dataset.device != tr.device:
+        fail(f"the Trainer on {tr.device} streams shaded crops rendered on "
+             f"{tr.dataset.device}")
+    tr.dataset.lmk                   # decoded before the clock starts
+    t0 = time.perf_counter()
+    h = tr.fit(1)[1]
+    torch.cuda.synchronize()
+    fit_s = time.perf_counter() - t0
+    tr.loader.set_epoch(2)
+    t0 = time.perf_counter()
+    n = sum(len(b[0]) for b in tr.loader)
+    shaded_rate = n / (time.perf_counter() - t0)
+    if not all(np.isfinite(v) for v in h.values()) or h["skipped"] != 0.0:
+        fail(f"Trainer.fit on a shaded stream: {h}")
+    del tr
+    torch.cuda.empty_cache()
+    # The same loader rendering on the host CPU, three ways in turns: one
+    # render at a time over all intra-op threads (the dataset's lock), each
+    # slab thread's render on one intra-op thread, and neither bound.
+    host = GeneratedCropDataset(TRAIN_BATCH, seed=0, appearance="shaded",
+                                device="cpu")
+    host.lmk
+    lock, threads = host._render_lock, torch.get_num_threads()
+    host_rates = {"lock": [], "one_thread": [], "neither": []}
+    try:
+        for mode in ("lock", "one_thread", "neither", "neither",
+                     "one_thread", "lock"):
+            host._render_lock = (lock if mode == "lock"
+                                 else contextlib.nullcontext())
+            torch.set_num_threads(1 if mode == "one_thread" else threads)
+            t0 = time.perf_counter()
+            n = sum(len(b[0]) for b in PrefetchLoader(
+                host, TRAIN_BATCH, num_workers=cfg.train.num_workers))
+            host_rates[mode].append(n / (time.perf_counter() - t0))
+    finally:
+        torch.set_num_threads(threads)
+        host._render_lock = lock
+    out["shaded_stream"] = dict(
+        fit_crops_per_s=cfg.data.synthetic_size / fit_s,
+        card_loader_crops_per_s=shaded_rate,
+        host_loader_crops_per_s=host_rates, intra_op_threads=threads,
+        history=h)
+    log(f"Trainer(cfg).fit(1) on streamed shaded crops rendered on "
+        f"{dev} by the loader's {cfg.train.num_workers} slab threads, "
+        f"device_augment: 2 steps of {TRAIN_BATCH} in {fit_s:.2f} s, "
+        f"{out['shaded_stream']['fit_crops_per_s']:.1f} crops/s; that loader"
+        f" alone {shaded_rate:.1f} crops/s; the loader rendering on the host "
+        f"CPU ({threads} intra-op threads), crops/s in turns ABCCBA: one "
+        f"render at a time " + ", ".join(
+            f"{r:.1f}" for r in host_rates["lock"]) + "; one intra-op "
+        "thread a slab " + ", ".join(
+            f"{r:.1f}" for r in host_rates["one_thread"]) + "; neither " +
+        ", ".join(f"{r:.1f}" for r in host_rates["neither"]) +
+        f" (host clock, {TRAIN_BATCH} crops each) | {card}")
+
+    # -- 9d. resident and generative epochs ------------------------------------
+    cfg = Config()
+    cfg.data.synthetic_size = RESIDENT_STEPS * TRAIN_BATCH
+    cfg.data.device_augment = True
+    cfg.train.batch_size = TRAIN_BATCH
+    cfg.train.snapshot_dir = snap
+    cfg.train.save_val_freq = 100
+    tr = Trainer(cfg, device=dev)
+    out["resident"] = resident_run(
+        torch, fit_resident, tr, (tr.dataset.images, tr.dataset.params),
+        card, f"fit_resident on {cfg.data.synthetic_size} dots crops "
+        f"({tr.dataset.images.nbytes / 1e9:.2f} GB on the card), "
+        "device_augment")
+    del tr
+    torch.cuda.empty_cache()
+    cfg.data.streaming = True
+    cfg.data.appearance = "shaded"
+    tr = Trainer(cfg, device=dev)
+    out["generative"] = resident_run(
+        torch, fit_resident_generative, tr, (tr.dataset.params,), card,
+        f"fit_resident_generative on {cfg.data.synthetic_size} shaded "
+        "params (crops rendered on the card every step), device_augment")
+    del tr
+    torch.cuda.empty_cache()
+
+    # -- 9e. the CLI's --resident ----------------------------------------------
+    history = cli.main(["--resident", "--no-eval", "--synthetic-size",
+                        str(2 * TRAIN_BATCH), "--batch-size",
+                        str(TRAIN_BATCH), "--epochs", "1",
+                        "--snapshot-dir", snap, "--log-file",
+                        os.path.join(snap, "train_cli.log")])
+    log(f"cli.train --resident: one epoch of 2 steps of {TRAIN_BATCH} on "
+        f"the card, loss_total {history[1]['loss_total']:.4f}, skipped "
+        f"{history[1]['skipped']}")
+    if not np.isfinite(history[1]["loss_total"]) or \
+            history[1]["skipped"] != 0.0:
+        fail(f"cli.train --resident: {history}")
+    out["cli_resident"] = history[1]
     return out
 
 
@@ -1219,6 +1578,22 @@ def main():
     # -- 8. the training path ---------------------------------------------------
     training = training_phase(torch, dev, card, args.profile)
 
+    # -- 9. the training data path ----------------------------------------------
+    data_path = data_phase(torch, dev, card, training)
+    log("phase 9 (training data path, no kernel of B1-B4): " + json.dumps({
+        "render_ms_1024": data_path["render"]["ms"],
+        "step_ms_augment": data_path["augment"]["step_ms"],
+        "step_ms_plain": data_path["augment"]["plain_step_ms"],
+        "streaming_fit_crops_per_s":
+            data_path["streaming"]["fit_crops_per_s"],
+        "shaded_streaming_fit_crops_per_s":
+            data_path["shaded_stream"]["fit_crops_per_s"],
+        "resident_crops_per_s": data_path["resident"]["crops_per_s"],
+        "generative_crops_per_s": data_path["generative"]["crops_per_s"],
+        "resident_peak_gib": data_path["resident"]["peak_gib"],
+        "generative_peak_gib": data_path["generative"]["peak_gib"]})
+        + f" | {card}")
+
     ms8, plain8, lib8, bound8, _, spread8, entry8 = kernel_stats[FACES]
     ms1k, plain1k, lib1k, bound1k, by1k, spread1k, entry1k = kernel_stats[
         FACES * BATCH]
@@ -1289,7 +1664,8 @@ def main():
         "e2e_fused_stem_ms": {str(b): v[0] for b, v in e2e_p.items()},
         "stages_ms": stages, "overlay_ms": overlay_ms,
         "overlay_stages_ms": ov_stages, "raster_path_ms": raster_ms,
-        "raster_ab": raster_turns, "training": training}),
+        "raster_ab": raster_turns, "training": training,
+        "data_path": data_path}),
         flush=True)
     print(card, flush=True)
     print(json.dumps({"ok": True, "device": {

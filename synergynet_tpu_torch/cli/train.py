@@ -3,10 +3,12 @@
 Counterpart of ``synergynet_tpu/cli/train.py`` with the same flags (the
 reference's ``main_train.py`` / ``train_script.sh``: mobilenet_v2, batch
 1024, lr 0.08, 80 epochs, milestones 48,64, warmup 5, 8 workers). It runs
-on the card unless ``--platform cpu`` asks for the CPU. The multi-process
-and device-resident flags of the JAX CLI (``--coordinator``,
-``--num-processes``, ``--process-id``, ``--n-model`` > 1, ``--resident``)
-are accepted and raise ``NotImplementedError``, naming their ROADMAP item.
+on the card unless ``--platform cpu`` asks for the CPU. ``--resident``
+uploads the whole dataset to the device once and trains device-resident
+epochs (:func:`synergynet_tpu_torch.train.fit_resident`). The
+multi-process flags of the JAX CLI (``--coordinator``,
+``--num-processes``, ``--process-id``, ``--n-model`` > 1) are accepted
+and raise ``NotImplementedError``, naming their ROADMAP item.
 """
 
 from __future__ import annotations
@@ -16,11 +18,6 @@ import logging
 import sys
 
 PLATFORMS = {"cuda": "cuda", "gpu": "cuda", "cpu": "cpu"}
-
-
-def _not_ported(flag: str, item: str) -> NotImplementedError:
-    return NotImplementedError(f"{flag} is not ported yet (ROADMAP.md, "
-                               f"queue A: {item})")
 
 
 def main(argv=None):
@@ -50,23 +47,21 @@ def main(argv=None):
     p.add_argument("--num-processes", type=int, default=None)
     p.add_argument("--process-id", type=int, default=None)
     p.add_argument("--n-model", type=int, default=1)
-    p.add_argument("--resident", action="store_true")
+    p.add_argument("--resident", action="store_true",
+                   help="device-resident epochs: upload the whole dataset "
+                        "to the device once, one metrics read per epoch")
     p.add_argument("--platform", default=None, choices=sorted(PLATFORMS),
                    help="device to train on (default: the CUDA card)")
     args = p.parse_args(argv)
 
-    for flag, set_, item in (
-            ("--coordinator", args.coordinator is not None,
-             "bn_groups and multi-process training"),
-            ("--num-processes", args.num_processes is not None,
-             "bn_groups and multi-process training"),
-            ("--process-id", args.process_id is not None,
-             "bn_groups and multi-process training"),
-            ("--n-model > 1", args.n_model > 1,
-             "bn_groups and multi-process training"),
-            ("--resident", args.resident, "resident")):
+    for flag, set_ in (("--coordinator", args.coordinator is not None),
+                       ("--num-processes", args.num_processes is not None),
+                       ("--process-id", args.process_id is not None),
+                       ("--n-model > 1", args.n_model > 1)):
         if set_:
-            raise _not_ported(flag, item)
+            raise NotImplementedError(
+                f"{flag} is not ported yet (ROADMAP.md, queue A, item A6: "
+                "bn_groups and multi-process training)")
 
     logging.basicConfig(
         format="[%(asctime)s] [p%(process)d] %(message)s",
@@ -102,10 +97,26 @@ def main(argv=None):
     logging.info("config:\n%s", cfg.to_json())
     device = PLATFORMS[args.platform or "cuda"]
     from synergynet_tpu_torch.train import Trainer, make_synthetic_eval_hook
-    hook = None if args.no_eval else make_synthetic_eval_hook()
+    hook = None if args.no_eval else make_synthetic_eval_hook(device=device)
     trainer = Trainer(cfg, eval_hook=hook, device=device)
     logging.info("training on %s", trainer.device)
-    return trainer.fit()
+    if not args.resident:
+        return trainer.fit()
+    import numpy as np
+    from synergynet_tpu_torch.train import fit_resident
+    ds = trainer.dataset
+    if hasattr(ds, "generate_images"):           # streaming generator
+        imgs, params = ds.generate_images(np.arange(len(ds))), ds.params
+    elif hasattr(ds, "images"):                  # materialized arrays
+        imgs, params = np.asarray(ds.images), np.asarray(ds.params)
+    else:                                        # file-backed: decode all
+        pairs = [ds[i] for i in range(len(ds))]
+        imgs = np.stack([p[0] for p in pairs])
+        params = np.stack([p[1] for p in pairs])
+    return fit_resident(trainer, imgs, params,
+                        log_fn=lambda e, m: logging.info(
+                            "[resident epoch %d] loss %.4f skipped %.3f",
+                            e, m["loss_total"], m["skipped"]))
 
 
 if __name__ == "__main__":

@@ -5,9 +5,8 @@ imports nothing of the JAX package): one nested dataclass tree covers
 model / train / data / eval / detect / render, every CLI builds from it,
 and it serializes to and from JSON, so a config written by either package
 loads in the other. ``model.compute_dtype`` names a torch dtype here
-(``getattr(torch, name)``); ``data.appearance="shaded"``,
-``data.streaming``, ``data.device_augment`` and ``train.per_replica_bn``
-are not ported yet and raise where they would take effect.
+(``getattr(torch, name)``); ``train.per_replica_bn`` is not ported yet
+and raises where it would take effect.
 """
 
 from __future__ import annotations
@@ -65,7 +64,7 @@ class DataConfig:
     # the distributional analogue of real 300W-LP crops).
     appearance: str = "dots"
     # Force the streaming GeneratedCropDataset even below the ~100K-crop
-    # materialization threshold (not ported yet).
+    # materialization threshold.
     streaming: bool = False
     jitter: Tuple[float, float, float] = (0.4, 0.4, 0.4)
     border: int = 5

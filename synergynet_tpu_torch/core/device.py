@@ -8,9 +8,13 @@ import torch
 
 def resolve_device(device) -> torch.device:
     """``device`` as a ``torch.device``; raises when it names CUDA and no
-    card is available, rather than carrying on on the CPU."""
+    card is available, rather than carrying on on the CPU. A bare "cuda"
+    becomes the current card's index ("cuda:0"), the device that tensors
+    moved there report, so devices compare equal."""
     dev = torch.device(device)
     if dev.type == "cuda" and not torch.cuda.is_available():
         raise RuntimeError(f"device {dev} requested but no CUDA card is "
                            "available; pass device='cpu' to run on the CPU")
+    if dev.type == "cuda" and dev.index is None:
+        dev = torch.device("cuda", torch.cuda.current_device())
     return dev

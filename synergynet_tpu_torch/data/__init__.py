@@ -8,5 +8,7 @@ from synergynet_tpu_torch.data.transforms import (  # noqa: F401
 )
 from synergynet_tpu_torch.data.loader import PrefetchLoader  # noqa: F401
 from synergynet_tpu_torch.data.synthetic import (  # noqa: F401
-    make_crops_with_params, make_synthetic_aflw2000, sample_params,
+    GeneratedCropDataset, make_crops_with_params, make_synthetic_aflw2000,
+    sample_params,
 )
+from synergynet_tpu_torch.data.device_augment import device_augment  # noqa: F401

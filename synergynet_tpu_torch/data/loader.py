@@ -6,6 +6,9 @@ main_train.py:207-209):
 
 - a thread pool fetches and augments samples (the numpy colour math
   releases the GIL in its C loops) and stacks fixed-shape uint8 batches;
+- a dataset with ``fetch_batch(indices)`` and no host transform (the
+  streaming ``GeneratedCropDataset``) is fetched whole slabs at a time,
+  one slab per thread, as in the JAX loader;
 - a small queue keeps ``prefetch`` batches in flight, so host work
   overlaps the card's step;
 - batches stay uint8 until the train step normalizes them on the card;
@@ -62,6 +65,20 @@ class PrefetchLoader:
         out_q: "queue.Queue" = queue.Queue(maxsize=self.prefetch)
         stop = threading.Event()
         failure = []
+        batched = (getattr(self.dataset, "fetch_batch", None)
+                   if getattr(self.dataset, "transform", None) is None
+                   else None)
+
+        def make_batch(pool, idx):
+            if batched is None:
+                samples = list(pool.map(self._fetch, idx))
+                return tuple(np.stack([s[i] for s in samples])
+                             for i in range(len(samples[0])))
+            slabs = np.array_split(
+                idx, max(1, min(self.num_workers, len(idx) // 128)))
+            parts = list(pool.map(batched, slabs))
+            return tuple(np.concatenate([p[i] for p in parts])
+                         for i in range(len(parts[0])))
 
         def producer():
             try:
@@ -69,11 +86,8 @@ class PrefetchLoader:
                     for b in range(nb):
                         if stop.is_set():
                             return
-                        idx = order[b * self.batch_size:
-                                    (b + 1) * self.batch_size]
-                        samples = list(pool.map(self._fetch, idx))
-                        parts = tuple(np.stack([s[i] for s in samples])
-                                      for i in range(len(samples[0])))
+                        parts = make_batch(pool, order[
+                            b * self.batch_size:(b + 1) * self.batch_size])
                         out_q.put(parts if len(parts) > 1 else parts[0])
             except Exception as e:          # re-raised in the consumer
                 failure.append(e)

@@ -9,5 +9,8 @@ from synergynet_tpu_torch.train.schedule import (  # noqa: F401
 )
 from synergynet_tpu_torch.train.meters import AverageMeter, MeterBank  # noqa: F401
 from synergynet_tpu_torch.train.trainer import (  # noqa: F401
-    Trainer, build_dataset, make_synthetic_eval_hook,
+    Trainer, build_augment, build_dataset, make_synthetic_eval_hook,
+)
+from synergynet_tpu_torch.train.resident import (  # noqa: F401
+    fit_resident, fit_resident_generative,
 )

@@ -148,22 +148,29 @@ def create_train_state(model: nn.Module, generator: torch.Generator,
 
 
 def make_train_step(pack: ParamPack, optimizer: SGD, bn_groups: int = 1,
-                    accum_steps: int = 1, device="cuda") -> Callable:
-    """Returns ``step(state, images, target62, generator=None) ->
-    (state, metrics)`` on ``device`` (the card unless the caller asks for
-    the CPU; raises without a card). The state is updated in place.
+                    accum_steps: int = 1, device="cuda",
+                    augment: Optional[Callable] = None) -> Callable:
+    """Returns ``step(state, images, target62, generator=None,
+    augment_seed=None) -> (state, metrics)`` on ``device`` (the card unless
+    the caller asks for the CPU; raises without a card). The state is
+    updated in place.
 
     ``images``: (B, 120, 120, 3) uint8, normalized here as
     ``(x - 127.5) / 128``, or float, taken as normalized. ``generator``
-    draws the head's dropout masks. ``metrics``: the five weighted terms,
-    ``loss_total`` and ``skipped`` (1.0 when the step was undone), all
-    device tensors. ``accum_steps`` > 1 runs the batch as that many
+    draws the head's dropout masks. ``augment``: the device-side
+    augmentation ``(images_u8, seed) -> float in [0, 255]``
+    (:func:`synergynet_tpu_torch.data.device_augment.device_augment`),
+    applied to the uint8 batch before the normalization with the step's
+    ``augment_seed``, which the caller draws apart from the dropout seed
+    (the JAX step folds 7 into the step's key). ``metrics``: the five
+    weighted terms, ``loss_total`` and ``skipped`` (1.0 when the step was
+    undone), all device tensors. ``accum_steps`` > 1 runs the batch as that many
     microbatches in sequence, BatchNorm statistics chaining through them,
     and steps on the mean of their gradients."""
     if bn_groups > 1:
         raise NotImplementedError(
             "per-replica BatchNorm groups are not ported yet (ROADMAP.md, "
-            "queue A: bn_groups and multi-process training)")
+            "queue A, item A6: bn_groups and multi-process training)")
     dev = resolve_device(device)
     # The criterion decodes landmarks only: leave the dense basis behind.
     pack_dev = pack._replace(u=pack.u[:0], w_shp=pack.w_shp[:0],
@@ -178,13 +185,19 @@ def make_train_step(pack: ParamPack, optimizer: SGD, bn_groups: int = 1,
 
     def train_step(state: TrainState, images: torch.Tensor,
                    target62: torch.Tensor,
-                   generator: Optional[torch.Generator] = None):
+                   generator: Optional[torch.Generator] = None,
+                   augment_seed: Optional[int] = None):
         if state.device != dev:
             raise ValueError(f"state on {state.device}, step on {dev}")
         state.model.train()
         images = images.to(dev, non_blocking=True)
         target62 = target62.to(dev, non_blocking=True)
-        if images.dtype == torch.uint8:
+        if augment is not None:
+            if augment_seed is None:
+                raise ValueError("a step built with augment= needs its "
+                                 "augment_seed")
+            images = (augment(images, augment_seed) - 127.5) / 128.0
+        elif images.dtype == torch.uint8:
             images = (images.float() - 127.5) / 128.0
         stats_before = state.stats.clone()
         state.grads.zero_()

@@ -14,14 +14,20 @@ the CPU:
   package's format, with resume and an emergency save on failure;
 - an optional validation hook (:func:`make_synthetic_eval_hook`).
 
-Without a 300W-LP filelist the Trainer trains on the dot-painted synthetic
-dataset. The head's dropout draws from a generator seeded from
-``(seed, epoch, step)``, as the JAX step folds its key
-(``trainer.py:181``, ``step.py:108``).
+Without a 300W-LP filelist the Trainer trains on the synthetic dataset
+(``data.appearance``: dots or shaded), streamed per index above 100,000
+crops or with ``data.streaming``. With ``data.device_augment`` the host
+ships uint8 crops untouched and the step augments them on the device
+(:func:`build_augment`). The head's dropout draws from a generator seeded
+from ``(seed, epoch, step)``, as the JAX step folds its key
+(``trainer.py:181``, ``step.py:108``), and the augmentation from
+``(seed, epoch, step, 7)``. :mod:`synergynet_tpu_torch.train.resident`
+drives the same state through device-resident epochs.
 """
 
 from __future__ import annotations
 
+import functools
 import logging
 import os
 import time
@@ -36,8 +42,9 @@ from synergynet_tpu_torch.core.checkpoint import (checkpoint_metadata,
 from synergynet_tpu_torch.core.config import Config
 from synergynet_tpu_torch.core.device import resolve_device
 from synergynet_tpu_torch.data import (ArrayDataset, FileListDataset,
-                                       PrefetchLoader, TrainTransform,
-                                       make_crops_with_params)
+                                       GeneratedCropDataset, PrefetchLoader,
+                                       TrainTransform, make_crops_with_params)
+from synergynet_tpu_torch.data.device_augment import device_augment
 from synergynet_tpu_torch.mm3d import load_param_pack
 from synergynet_tpu_torch.nn import SynergyNet
 from synergynet_tpu_torch.train.meters import AverageMeter, MeterBank
@@ -48,28 +55,37 @@ from synergynet_tpu_torch.train.step import (create_train_state,
 log = logging.getLogger("synergynet_tpu_torch.train")
 
 
-def _not_ported(what: str, item: str) -> NotImplementedError:
-    return NotImplementedError(f"{what} is not ported yet (ROADMAP.md, "
-                               f"queue A: {item})")
-
-
-def build_dataset(cfg: Config):
+def build_dataset(cfg: Config, device="cuda"):
+    """The training dataset of ``cfg``; synthetic crops are decoded and
+    rendered on ``device`` (the Trainer's), materialized or streamed."""
     d = cfg.data
-    if d.device_augment:
-        raise _not_ported("device-side augmentation (data.device_augment)",
-                          "device_augment")
-    transform = TrainTransform(d.jitter, d.border, d.occlusion_prob)
+    transform = (None if d.device_augment
+                 else TrainTransform(d.jitter, d.border, d.occlusion_prob))
     if d.filelists_train and os.path.exists(d.filelists_train):
         return FileListDataset(d.root, d.filelists_train, d.param_fp_train,
                                transform=transform)
-    if d.synthetic_size > 100_000 or d.streaming:
-        raise _not_ported("the streaming synthetic dataset (data.streaming,"
-                          " or more than 100,000 crops)", "streaming")
     log.info("no 300W-LP filelist configured; using synthetic dataset "
              "(%d crops)", d.synthetic_size)
+    if d.synthetic_size > 100_000 or d.streaming:
+        # The 300W-LP scale cannot be held (~29 GB at 680K crops): stream
+        # crops made per index instead.
+        return GeneratedCropDataset(d.synthetic_size, seed=cfg.train.seed,
+                                    transform=transform,
+                                    appearance=d.appearance, device=device)
     syn = make_crops_with_params(d.synthetic_size, seed=cfg.train.seed,
-                                 appearance=d.appearance)
+                                 appearance=d.appearance, device=device)
     return ArrayDataset(syn["images"], syn["params"], transform=transform)
+
+
+def build_augment(cfg: Config) -> Optional[Callable]:
+    """The device-side augmentation for a config, or None: one
+    construction point for the host-loop and resident training paths."""
+    if not cfg.data.device_augment:
+        return None
+    d = cfg.data
+    return functools.partial(device_augment, jitter=tuple(d.jitter),
+                             border=d.border,
+                             occlusion_prob=d.occlusion_prob)
 
 
 def dropout_seed(seed: int, epoch: int, step: int) -> int:
@@ -79,6 +95,13 @@ def dropout_seed(seed: int, epoch: int, step: int) -> int:
         1)[0])
 
 
+def augment_seed(seed: int, epoch: int, step: int) -> int:
+    """The augmentation's seed for global step ``step`` of ``epoch``: a
+    stream apart from the dropout's, as the JAX step folds 7 in."""
+    return int(np.random.SeedSequence([seed, epoch, step, 7]
+                                      ).generate_state(1)[0])
+
+
 class Trainer:
     def __init__(self, cfg: Optional[Config] = None,
                  eval_hook: Optional[Callable] = None, device="cuda"):
@@ -86,28 +109,32 @@ class Trainer:
         t = self.cfg.train
         self.device = resolve_device(device)
         if t.per_replica_bn:
-            raise _not_ported("per-replica BatchNorm (train.per_replica_bn)",
-                              "bn_groups and multi-process training")
+            raise NotImplementedError(
+                "per-replica BatchNorm (train.per_replica_bn) is not ported "
+                "yet (ROADMAP.md, queue A, item A6: bn_groups and "
+                "multi-process training)")
         self.pack = load_param_pack()
         self.model = SynergyNet(
             arch=self.cfg.model.arch,
             dtype=getattr(torch, self.cfg.model.compute_dtype)
         ).to(self.device)
-        self.dataset = build_dataset(self.cfg)
+        self.dataset = build_dataset(self.cfg, self.device)
         self.loader = PrefetchLoader(
             self.dataset, t.batch_size, shuffle=True, drop_last=True,
             num_workers=t.num_workers, seed=t.seed)
-        steps_per_epoch = max(len(self.loader), 1)
+        self.steps_per_epoch = max(len(self.loader), 1)
         self.lr_fn = lr_per_step(t.base_lr, t.milestones, t.warmup,
-                                 steps_per_epoch)
+                                 self.steps_per_epoch)
         self.optimizer = make_optimizer(
             self.lr_fn, momentum=t.momentum, nesterov=t.nesterov,
             weight_decay=t.weight_decay)
         init = torch.Generator(device=self.device).manual_seed(t.seed)
         self.state = create_train_state(self.model, init, self.optimizer)
+        self.augment = build_augment(self.cfg)
         self.step_fn = make_train_step(self.pack, self.optimizer,
                                        accum_steps=t.accum_steps,
-                                       device=self.device)
+                                       device=self.device,
+                                       augment=self.augment)
         self.dropout = torch.Generator(device=self.device)
         self.eval_hook = eval_hook
         self.start_epoch = 1
@@ -147,6 +174,13 @@ class Trainer:
         log.info("Resumed from %s (epoch %d)", path, self.start_epoch - 1)
 
     # -- loops ------------------------------------------------------------
+    def augment_seed(self, epoch: int, step: int) -> Optional[int]:
+        """The device augmentation's seed for global step ``step``, or None
+        without ``data.device_augment``."""
+        if self.augment is None:
+            return None
+        return augment_seed(self.cfg.train.seed, epoch, step)
+
     def _to_device(self, array: np.ndarray) -> torch.Tensor:
         x = torch.from_numpy(array)
         if self.device.type == "cuda":
@@ -179,7 +213,8 @@ class Trainer:
                                                   start_step + i))
             self.state, metrics = self.step_fn(
                 self.state, self._to_device(images),
-                self._to_device(params.astype(np.float32)), self.dropout)
+                self._to_device(params.astype(np.float32)), self.dropout,
+                self.augment_seed(epoch, start_step + i))
             pending.append((metrics, images.shape[0], start_step + i + 1))
             batch_time.update(time.time() - end)
             end = time.time()
@@ -218,9 +253,10 @@ class Trainer:
 
 def make_synthetic_eval_hook(n: int = 256, seed: int = 11,
                              std: float = 130.0,
-                             appearance: str = "dots") -> Callable:
+                             appearance: str = "dots",
+                             device="cuda") -> Callable:
     """In-train validation on the synthetic AFLW2000 pack (std=130 as the
-    reference's in-training normalization, quirk Q6).
+    reference's in-training normalization, quirk Q6), made on ``device``.
 
     The pack is checked when the hook is made: scoring its ground-truth
     parameters through the protocol must give ~0 NME and pose MAE, or every
@@ -229,7 +265,8 @@ def make_synthetic_eval_hook(n: int = 256, seed: int = 11,
                                            make_synthetic_aflw2000)
     from synergynet_tpu_torch.evals import (benchmark_params,
                                             benchmark_pipeline)
-    ep = make_synthetic_aflw2000(n, seed=seed, appearance=appearance)
+    ep = make_synthetic_aflw2000(n, seed=seed, appearance=appearance,
+                                 device=device)
     gt = benchmark_params(ep["params"], ep)
     if not (gt["nme_mean"] < 0.5 and gt["foe"]["mae_mean"] < 0.5):
         raise RuntimeError(

@@ -54,7 +54,7 @@ def test_nme_and_foe_math_match():
 
 @pytest.fixture(scope="module")
 def eval_pack():
-    return make_synthetic_aflw2000(64, seed=11)
+    return make_synthetic_aflw2000(64, seed=11, device="cpu")
 
 
 @pytest.mark.parametrize("which", ["gt", "noisy"])

@@ -750,3 +750,150 @@ def test_checkpoint_saved_on_the_card_resumes_on_the_cpu(cuda, tmp_path):
     for k in ("params", "stats", "trace", "count", "step"):
         assert torch.equal(getattr(cpu.state, k), getattr(card.state,
                                                            k).cpu()), k
+
+
+# -- the training data path: keyed draws, shaded render, device augment,
+# -- resident epochs (no kernel of B1-B4 on it) --------------------------
+
+def _shaded_inputs(n=64, seed=3):
+    from synergynet_tpu_torch.data import sample_params
+    return torch.from_numpy(sample_params(np.random.default_rng(seed), n))
+
+
+@pytest.mark.gpu
+def test_keyed_draws_card_equals_cpu_bit_for_bit(cuda):
+    from synergynet_tpu_torch.data import keyed
+    from synergynet_tpu_torch.data.shaded import shaded_draws
+    idx = torch.cat([torch.tensor([680000, 2 ** 31 + 7]),
+                     torch.arange(1024)])
+    for key in (keyed.make_key(0), keyed.make_key(7, 3, 1)):
+        assert torch.equal(keyed.bits(key, idx.to(cuda), 1000).cpu(),
+                           keyed.bits(key, idx, 1000))
+        for a, b in zip(shaded_draws(key, idx.to(cuda)),
+                        shaded_draws(key, idx)):
+            assert torch.equal(a.cpu(), b)
+
+
+@pytest.mark.gpu
+def test_shaded_render_card_within_one_level_of_cpu(cuda):
+    """The same params and keys rendered on the card and on the CPU: uint8
+    within 1 (fp32 products and exponentials round differently), the
+    dots exact."""
+    from synergynet_tpu_torch.data.shaded import (_dot_mask,
+                                                  render_shaded_crops)
+    from synergynet_tpu_torch.mm3d import decode_landmarks
+    params = _shaded_inputs()
+    pack = load_param_pack()
+    idx = torch.arange(100, 164)
+    cpu = render_shaded_crops(params, pack, 11, idx)
+    card = render_shaded_crops(params.to(cuda), pack.to(cuda), 11,
+                               idx.to(cuda)).cpu()
+    diff = (card.int() - cpu.int()).abs()
+    assert int(diff.max()) <= 1 and float((diff > 0).float().mean()) < 1e-3
+    dots = _dot_mask(decode_landmarks(params, pack), 120)
+    assert torch.equal(card[dots], cpu[dots])
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("perm", range(6))
+def test_augment_core_card_matches_cpu(cuda, perm):
+    from synergynet_tpu_torch.data.device_augment import (_PERMS,
+                                                          augment_from)
+    rng = np.random.default_rng(perm)
+    imgs = torch.from_numpy(rng.integers(0, 256, (16, 120, 120, 3),
+                                         np.uint8))
+    f = torch.from_numpy(rng.uniform(0.6, 1.4, (16, 3)).astype(np.float32))
+    occ = torch.from_numpy(rng.random(16) < 0.5)
+    kind = torch.from_numpy(rng.integers(0, 7, 16))
+    cpu = augment_from(imgs, f, _PERMS[perm], occ, kind)
+    card = augment_from(imgs.to(cuda), f.to(cuda), _PERMS[perm],
+                        occ.to(cuda), kind.to(cuda))
+    torch.testing.assert_close(card.cpu(), cpu, rtol=0, atol=1e-3)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("generative", [False, True])
+def test_resident_epoch_syncs_only_for_its_metrics(cuda, tmp_path,
+                                                   monkeypatch, generative):
+    """A second resident epoch under ``set_sync_debug_mode("error")``: no
+    host sync but the epoch's one metrics read (device augmentation on)."""
+    from synergynet_tpu_torch.core.config import Config
+    from synergynet_tpu_torch.data import make_crops_with_params
+    from synergynet_tpu_torch.train import (Trainer, fit_resident,
+                                            fit_resident_generative,
+                                            resident)
+    cfg = Config()
+    cfg.data.synthetic_size = 128
+    cfg.data.device_augment = True
+    cfg.data.streaming = generative
+    cfg.data.appearance = "shaded" if generative else "dots"
+    cfg.train.batch_size = 32
+    cfg.train.save_val_freq = 100
+    cfg.train.snapshot_dir = str(tmp_path)
+    tr = Trainer(cfg, device=cuda)
+    reads = []
+
+    def read(sums, steps):
+        torch.cuda.set_sync_debug_mode(0)
+        reads.append(steps)
+        return real(sums, steps)
+    real = resident.epoch_metrics
+    monkeypatch.setattr(resident, "epoch_metrics", read)
+
+    def arm(epoch, metrics):
+        if epoch == 1:
+            torch.cuda.synchronize()
+            torch.cuda.set_sync_debug_mode("error")
+    try:
+        if generative:
+            history = fit_resident_generative(tr, tr.dataset.params,
+                                              epochs=2, log_fn=arm)
+        else:
+            data = make_crops_with_params(128, seed=0)
+            history = fit_resident(tr, data["images"], data["params"],
+                                   epochs=2, log_fn=arm)
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    assert reads == [4, 4] and int(tr.state.step) == 8
+    assert all(np.isfinite(v) for h in history.values() for v in h.values())
+    assert history[2]["skipped"] == 0.0
+
+
+@pytest.mark.gpu
+def test_bare_cuda_resolves_to_the_indexed_card(cuda, tmp_path):
+    """``device="cuda"`` (the entry points' default) names the card the
+    state lands on, so the Trainer's step takes that state."""
+    from synergynet_tpu_torch.core.config import Config
+    from synergynet_tpu_torch.core.device import resolve_device
+    from synergynet_tpu_torch.train import Trainer
+    assert resolve_device("cuda") == torch.zeros(1, device="cuda").device
+    cfg = Config()
+    cfg.data.synthetic_size = 32
+    cfg.train.batch_size = 16
+    cfg.train.num_workers = 2
+    cfg.train.snapshot_dir = str(tmp_path)
+    tr = Trainer(cfg, device="cuda")
+    assert tr.device == tr.state.device
+    assert np.isfinite(tr.fit(1)[1]["loss_total"])
+
+
+@pytest.mark.gpu
+def test_data_paths_render_on_the_card(cuda):
+    """``make_shaded_crops`` and the streaming dataset on the card: the two
+    agree pixel for pixel (padded 256-crop chunks on both), and with the
+    CPU's within one level."""
+    from synergynet_tpu_torch.data import GeneratedCropDataset
+    from synergynet_tpu_torch.data.shaded import make_shaded_crops
+    pack = load_param_pack()
+    card = make_shaded_crops(300, pack, seed=6, device=cuda)
+    ds = GeneratedCropDataset(300, pack, seed=6, appearance="shaded",
+                              device=cuda)
+    order = np.random.default_rng(0).permutation(300)
+    for part in np.array_split(order, 3):
+        np.testing.assert_array_equal(ds.generate_images(part),
+                                      card["images"][part])
+    cpu = make_shaded_crops(300, pack, seed=6, device="cpu")
+    np.testing.assert_allclose(card["landmarks"], cpu["landmarks"], rtol=0,
+                               atol=1e-3)
+    diff = np.abs(card["images"].astype(np.int32) - cpu["images"])
+    assert diff.max() <= 1 and (diff > 0).mean() < 1e-3

@@ -47,6 +47,10 @@ MODULES = [
     "synergynet_tpu_torch.data.datasets",
     "synergynet_tpu_torch.data.loader",
     "synergynet_tpu_torch.data.synthetic",
+    "synergynet_tpu_torch.data.keyed",
+    "synergynet_tpu_torch.data.shaded",
+    "synergynet_tpu_torch.data.device_augment",
+    "synergynet_tpu_torch.train.resident",
     "synergynet_tpu_torch.evals",
     "synergynet_tpu_torch.evals.nme",
     "synergynet_tpu_torch.evals.foe",
@@ -131,13 +135,27 @@ def test_training_entry_points_default_to_the_card(monkeypatch, tmp_path):
     from synergynet_tpu_torch.cli import train as cli
     from synergynet_tpu_torch.core.config import Config
     from synergynet_tpu_torch.mm3d import load_param_pack
+    from synergynet_tpu_torch.data import (GeneratedCropDataset,
+                                           make_crops_with_params,
+                                           make_synthetic_aflw2000)
+    from synergynet_tpu_torch.data.shaded import make_shaded_crops
     from synergynet_tpu_torch.train import (Trainer, make_optimizer,
+                                            make_synthetic_eval_hook,
                                             make_train_step)
-    for fn in (Trainer, make_train_step):
+    from synergynet_tpu_torch.train.trainer import build_dataset
+    data = (make_crops_with_params, make_synthetic_aflw2000,
+            make_shaded_crops, GeneratedCropDataset)
+    for fn in (Trainer, make_train_step, make_synthetic_eval_hook,
+               build_dataset) + data:
         assert inspect.signature(fn).parameters["device"].default == "cuda"
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="no CUDA card"):
         make_train_step(load_param_pack(), make_optimizer(lambda c: 0.1))
+    for fn in data:
+        with pytest.raises(RuntimeError, match="no CUDA card"):
+            fn(4)
+    with pytest.raises(RuntimeError, match="no CUDA card"):
+        make_synthetic_eval_hook(n=4)
     cfg = Config()
     cfg.data.synthetic_size = 16
     with pytest.raises(RuntimeError, match="no CUDA card"):
@@ -151,3 +169,43 @@ def test_training_entry_points_default_to_the_card(monkeypatch, tmp_path):
         for h in list(logging.getLogger().handlers):
             logging.getLogger().removeHandler(h)
             h.close()
+
+
+@pytest.mark.parametrize("streaming", [False, True])
+def test_trainer_makes_its_data_on_its_device(monkeypatch, streaming):
+    """The Trainer's shaded crops, materialized or streamed, are rendered
+    on the Trainer's device, never on a default of their own."""
+    import numpy as np
+    from synergynet_tpu_torch.core.config import Config
+    from synergynet_tpu_torch.data import shaded
+    from synergynet_tpu_torch.train import Trainer
+    seen = []
+    real = shaded.render_chunked
+
+    def spy(lmk, idx, key, device):
+        seen.append(torch.device(device))
+        return real(lmk, idx, key, device)
+    monkeypatch.setattr(shaded, "render_chunked", spy)
+    cfg = Config()
+    cfg.data.synthetic_size = 8
+    cfg.data.appearance = "shaded"
+    cfg.data.streaming = streaming
+    cfg.train.batch_size = 4
+    tr = Trainer(cfg, device="cpu")
+    if streaming:
+        assert tr.dataset.device == tr.device
+        images, _ = tr.dataset.fetch_batch(np.arange(4))
+        assert images.shape == (4, 120, 120, 3)
+    assert seen and all(d == tr.device for d in seen)
+
+
+def test_bare_cuda_resolves_to_the_current_card(monkeypatch):
+    """A bare "cuda" names the current card's index, the device a tensor
+    moved there reports, so the Trainer's state and step devices agree."""
+    from synergynet_tpu_torch.core.device import resolve_device
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: True)
+    monkeypatch.setattr(torch.cuda, "current_device", lambda: 3)
+    assert resolve_device("cuda") == torch.device("cuda", 3)
+    assert resolve_device("cuda:1") == torch.device("cuda", 1)
+    assert resolve_device(torch.device("cuda")) == torch.device("cuda", 3)
+    assert resolve_device("cpu") == torch.device("cpu")

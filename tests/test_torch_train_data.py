@@ -127,7 +127,7 @@ def test_file_list_dataset_matches(tmp_path, monkeypatch):
 @pytest.mark.parametrize("n,seed", [(64, 0), (300, 4)])
 def test_synthetic_crops_match(n, seed):
     a = jdata.make_crops_with_params(n, seed=seed)
-    b = tdata.make_crops_with_params(n, seed=seed)
+    b = tdata.make_crops_with_params(n, seed=seed, device="cpu")
     np.testing.assert_array_equal(b["params"], a["params"])
     np.testing.assert_allclose(b["landmarks"], a["landmarks"], rtol=0,
                                atol=1e-4)
@@ -136,7 +136,7 @@ def test_synthetic_crops_match(n, seed):
 
 def test_synthetic_aflw2000_matches():
     a = jdata.make_synthetic_aflw2000(128, seed=11)
-    b = tdata.make_synthetic_aflw2000(128, seed=11)
+    b = tdata.make_synthetic_aflw2000(128, seed=11, device="cpu")
     assert sorted(a) == sorted(b)
     for k in ("images", "params", "roi_boxes", "skip_indices"):
         np.testing.assert_array_equal(b[k], np.asarray(a[k]), err_msg=k)
@@ -146,8 +146,20 @@ def test_synthetic_aflw2000_matches():
         np.testing.assert_allclose(b[k], a[k], rtol=0, atol=1e-3, err_msg=k)
 
 
-def test_shaded_is_not_ported_yet():
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        tdata.make_crops_with_params(4, appearance="shaded")
-    with pytest.raises(ValueError):
-        tdata.make_crops_with_params(4, appearance="other")
+def test_shaded_contract_and_unknown_appearance():
+    """"shaded" keeps the dots' dict contract (and its parameters); an
+    unknown appearance raises, as in the JAX package."""
+    dots = tdata.make_crops_with_params(4, seed=3, device="cpu")
+    shaded = tdata.make_crops_with_params(4, seed=3, appearance="shaded",
+                                          device="cpu")
+    assert sorted(shaded) == sorted(dots)
+    for k in dots:
+        assert shaded[k].shape == dots[k].shape, k
+        assert shaded[k].dtype == dots[k].dtype, k
+    np.testing.assert_array_equal(shaded["params"], dots["params"])
+    np.testing.assert_array_equal(shaded["landmarks"], dots["landmarks"])
+    for appearance in ("other", "Shaded"):
+        with pytest.raises(ValueError, match="unknown appearance"):
+            tdata.make_crops_with_params(4, appearance=appearance)
+        with pytest.raises(ValueError, match="unknown appearance"):
+            tdata.GeneratedCropDataset(4, appearance=appearance)

@@ -50,7 +50,8 @@ def _leaves(tree, prefix=()):
 @pytest.fixture(scope="module")
 def fitted(tmp_path_factory):
     tmp = tmp_path_factory.mktemp("fit")
-    tr = Trainer(_cfg(tmp), eval_hook=make_synthetic_eval_hook(n=32),
+    tr = Trainer(_cfg(tmp),
+                 eval_hook=make_synthetic_eval_hook(n=32, device="cpu"),
                  device="cpu")
     history = tr.fit()
     return tr, history, tmp
@@ -142,14 +143,6 @@ def test_config_json_round_trips_with_jax(tmp_path):
 
 
 def test_not_ported_options_raise(tmp_path):
-    cfg = _cfg(tmp_path)
-    cfg.data.device_augment = True
-    with pytest.raises(NotImplementedError, match="device_augment"):
-        Trainer(cfg, device="cpu")
-    cfg = _cfg(tmp_path)
-    cfg.data.streaming = True
-    with pytest.raises(NotImplementedError, match="streaming"):
-        Trainer(cfg, device="cpu")
     cfg = _cfg(tmp_path, per_replica_bn=True)
     with pytest.raises(NotImplementedError, match="bn_groups"):
         Trainer(cfg, device="cpu")
@@ -175,7 +168,27 @@ def test_cli_trains_with_no_eval(tmp_path):
 @pytest.mark.parametrize("flags", [["--coordinator", "localhost:1234"],
                                    ["--num-processes", "2"],
                                    ["--process-id", "1"],
-                                   ["--n-model", "2"], ["--resident"]])
+                                   ["--n-model", "2"]])
 def test_cli_refuses_what_is_not_ported(flags):
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
+    with pytest.raises(NotImplementedError, match="ROADMAP.*A6"):
         cli.main(flags + ["--platform", "cpu"])
+
+
+def test_cli_resident_trains(tmp_path):
+    """``--resident`` uploads the synthetic crops once and trains a
+    resident epoch, with the Trainer's checkpoint."""
+    args = ["--platform", "cpu", "--no-eval", "--resident",
+            "--synthetic-size", "32", "--batch-size", "16", "--epochs", "1",
+            "--workers", "2", "--snapshot-dir", str(tmp_path / "ck"),
+            "--log-file", str(tmp_path / "train.log")]
+    try:
+        history = cli.main(args)
+    finally:
+        for h in list(logging.getLogger().handlers):
+            logging.getLogger().removeHandler(h)
+            h.close()
+    assert list(history) == [1]
+    assert np.isfinite(history[1]["loss_total"])
+    assert history[1]["skipped"] == 0.0
+    assert (tmp_path / "ck" / "synergynet_epoch_1.npz").exists()
+    assert "[resident epoch 1]" in (tmp_path / "train.log").read_text()
