@@ -972,6 +972,309 @@ def data_phase(torch, dev, card, training):
     return out
 
 
+# The packaged API's 8 faces on the 720x1088 frame: rects inside it and
+# over its left, top and right edges (x1, y1, x2, y2, score).
+API_RECTS = [[60.0 + 125 * i, 90.0 + 70 * (i % 4), 190.0 + 125 * i,
+              250.0 + 70 * (i % 4), 0.9] for i in range(8)]
+API_RECTS[0][:2] = [-30.0, -20.0]
+API_RECTS[7][2] = 1120.0
+CHAIN_TOL = dict(rtol=1e-4, atol=1e-2)   # param62's 1e-4 through the decode
+BOX_TOL = dict(rtol=1e-4, atol=0.05)     # f32 logits' 1e-4 through exp(0.2 x)
+# The phase's frame: seed 5 keeps every candidate score of the default f32
+# detector more than 1e-3 from the 0.5 visibility threshold, so the card's
+# and the CPU's detections can be held face for face (checked in the run).
+API_FRAME_SEED = 5
+
+
+def api_phase(torch, dev, card):
+    """The packaged two-stage API and the host renders on the card (phase
+    10): launches of B1-B4 over the phase's own calls, each path held
+    against the CPU or the plain twin, and times. Returns the numbers for
+    the JSON line."""
+    from synergynet_tpu_torch.detect import FaceBoxes
+    from synergynet_tpu_torch.detect.detector import (VIS_THRESHOLD,
+                                                      prepare_frame,
+                                                      random_init_variables)
+    from synergynet_tpu_torch.detect.stem_fused import (
+        fused_stem1_s2d8, fused_stem1_s2d8_reference)
+    from synergynet_tpu_torch.mm3d import rescale_to_roi, square_box
+    from synergynet_tpu_torch.mm3d.codec import full_fp32
+    from synergynet_tpu_torch.ops.fused_decode import (
+        decode_dense_fused, decode_dense_fused_reference)
+    from synergynet_tpu_torch.pipeline import (SynergyNet3DMM,
+                                               UVTextureMapper,
+                                               preprocess_crops)
+    from synergynet_tpu_torch.pipeline.api import _crops_on
+    from synergynet_tpu_torch.render import (
+        OVERLAY_LIGHT_CFG, RenderPipeline, add_weighted_u8, rasterize,
+        rasterize_mesh, rasterize_mesh_ids, rasterize_tiled,
+        rasterize_triangles, render_overlay, render_texture)
+
+    t_phase = time.perf_counter()
+    ch, cw = CANVAS
+    img = np.random.default_rng(API_FRAME_SEED).integers(0, 256, (ch, cw, 3),
+                                                         np.uint8)
+    det_x = FaceBoxes(random_init_variables(0), dtype=torch.bfloat16,
+                      device=dev)
+    det_p = FaceBoxes(random_init_variables(0), dtype=torch.bfloat16,
+                      device=dev, stem_mode="pallas")
+    det_f = FaceBoxes(device=dev)        # the API's default: f32, XLA stem
+    api = SynergyNet3DMM("trained", device=dev, detector=det_p)
+    pipe = RenderPipeline(device=dev, **OVERLAY_LIGHT_CFG)
+    tri = api.pack.tri.numpy()
+    nver = api.pack.nver
+    mapper = UVTextureMapper.synthetic(nver)
+    uv = (np.stack([mapper.coord_v, mapper.coord_u], 1) / 255.0).astype(
+        np.float32)
+    texture = np.random.default_rng(11).integers(0, 256, (256, 256, 3),
+                                                 np.uint8)
+    colors = np.random.default_rng(12).uniform(0, 1, (FACES * nver, 3)
+                                               ).astype(np.float32)
+    tris_all = np.concatenate([tri.T + i * nver for i in range(FACES)]
+                              ).astype(np.int32)
+    torch.cuda.synchronize()
+
+    # -- the phase's own calls: launches over these only -----------------------
+    counters = {"B1 fused_decode": decode_dense_fused,
+                "B2 raster_tiled": rasterize_mesh,
+                "B3 raster_ids": rasterize_mesh_ids,
+                "B4 stem_s2d8": fused_stem1_s2d8}
+    for fn in counters.values():
+        fn.launches = 0
+    t0 = time.perf_counter()
+    outs = {interp: api.get_all_outputs(img, rects=API_RECTS,
+                                        interpolation=interp)
+            for interp in ("lanczos4", "linear")}
+    faces = {"xla": det_x(img), "pallas": det_p(img), "f32": det_f(img)}
+    found = api.get_all_outputs(img)
+    meshes = outs["lanczos4"][1]
+    overlay, solid = render_overlay(img, meshes, tri, pipeline=pipe)
+    textured = render_texture(meshes[0].T, tri.T, uv, texture, img,
+                              device=dev)
+    v_all = np.concatenate([m.T for m in meshes]).astype(np.float32)
+    raster_out = {
+        "rasterize_tiled": rasterize_tiled(v_all, tris_all, colors, bg=img,
+                                           alpha=0.7, device=dev),
+        "rasterize": rasterize(v_all, tris_all, colors, bg=img, alpha=0.7,
+                               device=dev),
+        "rasterize_triangles": rasterize_triangles(v_all, tris_all, h=ch,
+                                                   w=cw, device=dev)}
+    torch.cuda.synchronize()
+    launches = {k: fn.launches for k, fn in counters.items()}
+    calls_s = time.perf_counter() - t0
+    log(f"packaged API + host renders: launches over the phase's calls "
+        f"{launches} (get_all_outputs x3, FaceBoxes.__call__ x3, "
+        f"render_overlay of {FACES} faces, render_texture, rasterize_tiled, "
+        f"rasterize, rasterize_triangles), {calls_s:.1f} s")
+    for k, n in launches.items():
+        if n <= 0:
+            fail(f"phase 10 never launched kernel {k}")
+
+    # -- checks ------------------------------------------------------------------
+    rois = np.stack([square_box(r) for r in API_RECTS])
+    cpu = SynergyNet3DMM("trained", device="cpu")
+    crops_card = {}
+    for interp, (pts, verts, poses) in outs.items():
+        if len(pts) != FACES:
+            fail(f"get_all_outputs {interp}: {len(pts)} faces")
+        for lm, v, (ang, t) in zip(pts, verts, poses):
+            if lm.shape != (3, 68) or v.shape != (3, nver) or \
+                    ang.shape != (3,) or t.shape != (3,):
+                fail(f"get_all_outputs {interp}: shapes {lm.shape} "
+                     f"{v.shape}")
+            if not all(np.isfinite(a).all() for a in (lm, v, ang, t)):
+                fail(f"get_all_outputs {interp}: non-finite output")
+        crops_card[interp] = preprocess_crops(img, rois, interp, device=dev)
+        if not np.array_equal(crops_card[interp], preprocess_crops(
+                img, rois, interp, device="cpu")):
+            fail(f"preprocess_crops {interp}: the card differs from the CPU")
+    # The dense meshes against kernel B1's plain twin on the path's param62.
+    with full_fp32(), torch.inference_mode():
+        p62 = api.process_crops(crops_card["lanczos4"], rois)[0]
+        r_t = torch.tensor(rois.astype(np.float32), device=dev)
+        ref = rescale_to_roi(decode_dense_fused_reference(
+            torch.tensor(p62, device=dev), api.basis, api.pack_dev), r_t)
+    got = torch.tensor(np.stack(meshes), device=dev)
+    dense_err = (got - ref).abs().max().item()
+    torch.testing.assert_close(got, ref, rtol=RTOL, atol=ATOL)
+    # get_all_outputs on the card (its default: f32, TF32 off) against the
+    # CPU.
+    api_err = 0.0
+    for interp in ("lanczos4", "linear"):
+        want = cpu.get_all_outputs(img, rects=API_RECTS,
+                                   interpolation=interp)
+        for g, w_ in zip(outs[interp][0] + outs[interp][1],
+                         want[0] + want[1]):
+            np.testing.assert_allclose(g, w_, **CHAIN_TOL)
+            api_err = max(api_err, float(np.abs(g - w_).max()))
+    log(f"get_all_outputs, {FACES} rects on {ch}x{cw}, lanczos4 and linear: "
+        f"shapes and finite; preprocess_crops card == CPU bit for bit; dense "
+        f"vs B1's plain twin max_abs_err {dense_err:.3e} (rtol {RTOL}, atol "
+        f"{ATOL}); card (f32, TF32 off) vs CPU max |difference| {api_err:.3e} "
+        f"(rtol {CHAIN_TOL['rtol']}, atol {CHAIN_TOL['atol']})")
+    # The default detector's host calls (f32, TF32 off) against the CPU,
+    # face for face, on a frame that keeps every candidate score clear of
+    # the visibility threshold.
+    det_cpu = FaceBoxes(device="cpu")
+    _, packed_c, hw_c, _ = prepare_frame(img, det_cpu.stem_r, "cpu")
+    with torch.inference_mode():
+        s_cpu, _ = det_cpu.candidates(packed_c[None], hw_c[None])
+    margin = (s_cpu[s_cpu > 0] - VIS_THRESHOLD).abs().min().item()
+    if margin <= 1e-3:
+        fail(f"the frame's candidate scores come {margin:.2e} from the "
+             "visibility threshold: pick a frame that keeps 1e-3 clear")
+    raw_g, n_g = det_f.detect_raw(img)
+    raw_c, n_c = det_cpu.detect_raw(img)
+    if not n_g == n_c == len(faces["f32"]) > 0:
+        fail(f"FaceBoxes default: {n_g} faces on the card (__call__ "
+             f"{len(faces['f32'])}), {n_c} on the CPU")
+    np.testing.assert_allclose(raw_g[:n_g, :4], raw_c[:n_c, :4], **BOX_TOL)
+    np.testing.assert_allclose(raw_g[:n_g, 4], raw_c[:n_c, 4], rtol=0,
+                               atol=1e-4)
+    if faces["f32"] != [list(map(float, raw_g[i])) for i in range(n_g)]:
+        fail("FaceBoxes default: __call__ differs from detect_raw")
+    det_err = float(np.abs(raw_g[:n_g, :4] - raw_c[:n_c, :4]).max())
+    # The fused stem (B4) inside the bf16 host call, on this frame's stem
+    # input, against its twin on the CPU. The bf16 detector as a whole is
+    # not held against the CPU: bf16 rounding through the random-init net
+    # moves scores by up to 0.09 and boxes by tens of pixels between bf16
+    # and f32 on one device, so its faces are compared between the stems.
+    stem = det_p.net.conv1_s2d8
+    _, packed_g, _, _ = prepare_frame(img, det_p.stem_r, dev)
+    x_g = (packed_g[None] - det_p.mean).to(torch.bfloat16)
+    with torch.inference_mode():
+        got_s = fused_stem1_s2d8(x_g, stem.tap_weights(), stem.bias.detach())
+        want_s = fused_stem1_s2d8_reference(
+            x_g.cpu(), stem.tap_weights().cpu(), stem.bias.detach().cpu())
+    torch.testing.assert_close(got_s.cpu().float(), want_s.float(),
+                               **STEM_TOL)
+    stem_err = (got_s.cpu().float() - want_s.float()).abs().max().item()
+    # The two bf16 stems' detections: counts, and each fused-stem box
+    # against the nearest XLA-stem box (the stems round to bf16 at
+    # different points, and near-equal scores may order the boxes
+    # differently). Printed only.
+    n_x, n_p = len(faces["xla"]), len(faces["pallas"])
+    if n_p <= 0 or len(found[0]) != n_p:
+        fail(f"get_all_outputs without rects: {len(found[0])} faces, the "
+             f"detector {n_p}")
+    if not all(np.isfinite(v).all() for v in found[1]):
+        fail("get_all_outputs without rects: non-finite meshes")
+    bx = np.asarray(faces["xla"])[:, :4]
+    bp = np.asarray(faces["pallas"])[:, :4]
+    near = np.abs(bp[:, None] - bx[None]).max(-1).min(-1)
+    rel = near / np.maximum(np.abs(bp).max(-1), 1.0)
+    log(f"FaceBoxes() default (f32, TF32 off) on {ch}x{cw}: {n_g} faces on "
+        f"the card and on the CPU, boxes within {det_err:.3e} px (rtol "
+        f"{BOX_TOL['rtol']}, atol {BOX_TOL['atol']}), scores 1e-4, the "
+        f"frame's candidate scores {margin:.2e} clear of {VIS_THRESHOLD}; "
+        f"B4 inside the bf16 host call vs its twin on the CPU: max_abs_err "
+        f"{stem_err:.3e} (rtol {STEM_TOL['rtol']}, atol {STEM_TOL['atol']})")
+    log(f"FaceBoxes(random_init_variables(0)) bf16 on {ch}x{cw}: {n_x} faces "
+        f"with the XLA stem, {n_p} with the fused stem (B4); each fused-stem "
+        f"box against the nearest XLA-stem box: largest difference "
+        f"{near.max():.3f} px ({rel.max():.2e} of the box's largest "
+        f"coordinate), {(near <= 1.0).mean():.3f} within 1 px; "
+        f"get_all_outputs without rects: {len(found[0])} faces, finite")
+    # The host renders against the same calls on the CPU.
+    pipe_cpu = RenderPipeline(device="cpu", **OVERLAY_LIGHT_CFG)
+    ov_c, solid_c = render_overlay(img, meshes, tri, pipeline=pipe_cpu)
+    drawn = (solid != img).any(-1)
+    if not np.array_equal(drawn, (solid_c != img).any(-1)):
+        fail("render_overlay: the card draws other pixels than the CPU")
+    solid_diff = np.abs(solid.astype(int) - solid_c)
+    ov_diff = int(np.abs(overlay.astype(int) - ov_c).max())
+    if max(ov_diff, solid_diff.max()) > 1:
+        fail(f"render_overlay: card vs CPU differ by "
+             f"{max(ov_diff, solid_diff.max())} levels")
+    tex_c = render_texture(meshes[0].T, tri.T, uv, texture, img,
+                           device="cpu")
+    if not np.array_equal(textured, tex_c):
+        fail("render_texture: the card differs from the CPU")
+    for name, got_r in raster_out.items():
+        if name == "rasterize_triangles":
+            want_r = rasterize_triangles(v_all, tris_all, h=ch, w=cw,
+                                         device="cpu")
+            same = all(torch.equal(g.cpu(), w_) for g, w_ in zip(got_r,
+                                                                 want_r))
+        else:
+            fn = rasterize_tiled if name == "rasterize_tiled" else rasterize
+            same = np.array_equal(got_r, fn(v_all, tris_all, colors, bg=img,
+                                            alpha=0.7, device="cpu"))
+        if not same:
+            fail(f"{name}: the card differs from its CPU twin")
+    log(f"render_overlay of {FACES} faces on {ch}x{cw}: {drawn.mean():.3f} of "
+        f"the frame drawn, the same pixels as on the CPU, solid within "
+        f"{solid_diff.max()} level of it on {(solid_diff > 0).any(-1).mean():.2e}"
+        f" of pixels (the light's last bit), overlay within {ov_diff}; "
+        "render_texture (synthetic UVTextureMapper, seeded 256x256 texture) "
+        "== CPU; rasterize_tiled, rasterize, rasterize_triangles == their "
+        "CPU twins bit for bit")
+
+    # -- times: CUDA events around each whole call, after warm-up --------------
+    frame = torch.from_numpy(img).to(dev)
+    crops_t = _crops_on(frame, rois, "lanczos4")
+    rois_t = torch.tensor(rois.astype(np.float32), device=dev)
+    outs_t = api._process(crops_t, rois_t)
+    tris_t = torch.from_numpy(np.ascontiguousarray(tri.T)).to(dev)
+    rings_t = pipe.rings(np.ascontiguousarray(tri.T), nver)
+    verts_t = torch.from_numpy(np.ascontiguousarray(meshes[0].T)).to(dev)
+    solid_t = pipe.render(verts_t, tris_t, frame, rings_t)
+    calls = (
+        ("get_all_outputs, 8 rects, lanczos4 (f32, TF32 off)", lambda:
+            api.get_all_outputs(img, rects=API_RECTS), 10),
+        ("get_all_outputs, 8 rects, linear (f32, TF32 off)", lambda:
+            api.get_all_outputs(img, rects=API_RECTS,
+                                interpolation="linear"), 10),
+        ("FaceBoxes.__call__, fused stem (bf16)", lambda: det_p(img), 10),
+        ("FaceBoxes.__call__, default (f32, TF32 off)", lambda: det_f(img),
+         10),
+        ("render_overlay, 1 face", lambda: render_overlay(
+            img, meshes[:1], tri, pipeline=pipe), 10),
+        (f"render_overlay, {FACES} faces", lambda: render_overlay(
+            img, meshes, tri, pipeline=pipe), 5),
+        ("render_texture", lambda: render_texture(
+            meshes[0].T, tri.T, uv, texture, img, device=dev), 10))
+    # Stages of get_all_outputs (the preprocess stage first) and of
+    # render_overlay, each timed alone on the same inputs.
+    stages = (
+        ("get_all_outputs: preprocess (frame upload + lanczos4 crops)",
+         lambda: _crops_on(torch.from_numpy(img).to(dev), rois,
+                           "lanczos4"), 10),
+        ("get_all_outputs: lanczos4 crops alone, frame on the card",
+         lambda: _crops_on(frame, rois, "lanczos4"), 10),
+        ("get_all_outputs: regress + decode (B1) on the card", lambda:
+            api._process(crops_t, rois_t), 10),
+        ("get_all_outputs: outputs to the host", lambda: [
+            x.cpu().numpy() for x in outs_t], 10),
+        ("render_overlay: frame + topology upload", lambda: (
+            torch.from_numpy(img).to(dev),
+            torch.from_numpy(np.ascontiguousarray(tri.T)).to(dev)), 10),
+        ("render_overlay: ring table lookup (host hash)", lambda:
+            pipe.rings(np.ascontiguousarray(tri.T), nver), 10),
+        ("render_overlay: one face on the card (normals, light, B2, blend)",
+         lambda: pipe.render(verts_t, tris_t, frame, rings_t), 10),
+        ("render_overlay: solid to the host", lambda: solid_t.cpu().numpy(),
+         10),
+        ("render_overlay: add_weighted_u8 (host, float64)", lambda:
+            add_weighted_u8(img, 0.4, solid, 0.6), 10))
+    times = {name: time_ms(fn, n, torch) for name, fn, n in calls}
+    stage_ms = {name: time_ms(fn, n, torch) for name, fn, n in stages}
+    log("phase 10 times, ms per call (CUDA events, mean after 2 warm-ups): "
+        + ", ".join(f"{k} {v:.3f}" for k, v in times.items())
+        + f" | {card}")
+    log("phase 10 stages, ms (the same timing): " + ", ".join(
+        f"{k} {v:.3f}" for k, v in stage_ms.items()) + f" | {card}")
+    secs = time.perf_counter() - t_phase
+    log(f"phase 10 (packaged API + host renders): {secs:.1f} s")
+    return {"launches": launches, "times_ms": times, "stages_ms": stage_ms,
+            "dense_err": dense_err,
+            "card_vs_cpu_err": api_err, "faces_xla": n_x, "faces_fused": n_p,
+            "faces_f32": n_g, "det_box_err_px": det_err,
+            "det_score_margin": margin, "stem_err": stem_err,
+            "stem_box_diff_px": float(near.max()),
+            "drawn_share": float(drawn.mean()), "seconds": secs}
+
+
 def main():
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--profile", metavar="DIR",
@@ -985,6 +1288,7 @@ def main():
     if args.raster_worker:
         raster_worker(args.raster_worker)
         return
+    t_start = time.perf_counter()
 
     import torch
     import torch.nn.functional as F
@@ -1005,7 +1309,7 @@ def main():
                                                FusedOverlayEngine,
                                                SynergyNet3DMM, prepare_frame,
                                                unpack_face_outputs)
-    from synergynet_tpu_torch.pipeline.api import _resize_linear
+    from synergynet_tpu_torch.ops.resize import _resize_linear
     from synergynet_tpu_torch.pipeline.overlay_engine import (
         _face_buckets, composite, light_faces)
     from synergynet_tpu_torch.render import (
@@ -1594,6 +1898,12 @@ def main():
         "generative_peak_gib": data_path["generative"]["peak_gib"]})
         + f" | {card}")
 
+    # -- 10. the packaged API and the host renders ------------------------------
+    api_path = api_phase(torch, dev, card)
+    api_launches = api_path["launches"]
+
+    log(f"chip_smoke: all phases in {time.perf_counter() - t_start:.1f} s")
+
     ms8, plain8, lib8, bound8, _, spread8, entry8 = kernel_stats[FACES]
     ms1k, plain1k, lib1k, bound1k, by1k, spread1k, entry1k = kernel_stats[
         FACES * BATCH]
@@ -1613,8 +1923,9 @@ def main():
         "name": "fused_decode", "route": "cuda",
         "source": "synergynet_tpu_torch/csrc/fused_decode.cu",
         "replaces": "synergynet_tpu/ops/fused_decode.py:66",
-        "launches": launches, "max_abs_err": max_err,
-        "ms": ms1k, "plain_ms": plain1k, "bound_ms": bound1k,
+        "launches": launches,
+        "launches_api": api_launches["B1 fused_decode"],
+        "max_abs_err": max_err, "ms": ms1k, "plain_ms": plain1k, "bound_ms": bound1k,
         "bound_by": by1k, "library_ms": lib1k,
         "library": "torch.matmul (B,50)x(50,3*Npad) f32, no rotation",
         "timing": spread_timing + "; ms times the launch wrapper "
@@ -1627,7 +1938,9 @@ def main():
         "name": "raster_tiled", "route": "cuda",
         "source": "synergynet_tpu_torch/csrc/raster_tiled.cu",
         "replaces": "synergynet_tpu/render/raster_tiled.py:179",
-        "launches": r_launches, "max_abs_err": r_err,
+        "launches": r_launches,
+        "launches_api": api_launches["B2 raster_tiled"],
+        "max_abs_err": r_err,
         "ms": r_spread[1], "plain_ms": r_plain, "bound_ms": r_bounds[0][0],
         "bound_by": r_bounds[0][1], "library_ms": None,
         "timing": raster_timing, "ms_min": r_spread[0],
@@ -1638,7 +1951,9 @@ def main():
         "name": "raster_ids", "route": "cuda",
         "source": "synergynet_tpu_torch/csrc/raster_tiled.cu",
         "replaces": "synergynet_tpu/render/raster_tiled.py:524",
-        "launches": r3_launches, "max_abs_err": r3_err,
+        "launches": r3_launches,
+        "launches_api": api_launches["B3 raster_ids"],
+        "max_abs_err": r3_err,
         "ms": r3_spread[1], "plain_ms": r3_plain,
         "bound_ms": r3_bounds[0][0], "bound_by": r3_bounds[0][1],
         "library_ms": None, "timing": raster_timing,
@@ -1648,7 +1963,9 @@ def main():
         "name": "stem_s2d8", "route": "cuda",
         "source": "synergynet_tpu_torch/csrc/stem_s2d8.cu",
         "replaces": "synergynet_tpu/detect/stem_pallas.py:76",
-        "launches": s_launches, "max_abs_err": s_err,
+        "launches": s_launches,
+        "launches_api": api_launches["B4 stem_s2d8"],
+        "max_abs_err": s_err,
         "ms": s_ms, "plain_ms": s_plain, "bound_ms": s_bound,
         "bound_by": s_by, "library_ms": s_lib,
         "library": "F.conv2d bf16 + bias (cuDNN), conv only, no pool",
@@ -1665,7 +1982,7 @@ def main():
         "stages_ms": stages, "overlay_ms": overlay_ms,
         "overlay_stages_ms": ov_stages, "raster_path_ms": raster_ms,
         "raster_ab": raster_turns, "training": training,
-        "data_path": data_path}),
+        "data_path": data_path, "api_host_render": api_path}),
         flush=True)
     print(card, flush=True)
     print(json.dumps({"ok": True, "device": {

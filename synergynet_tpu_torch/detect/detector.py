@@ -1,10 +1,16 @@
-"""The FaceBoxes detector as the serving path holds it: the folded s2d8
-net, its anchors on the fixed canvas, and the folded weight tree.
+"""The FaceBoxes detector: the folded s2d8 net, its anchors on the fixed
+canvas, the folded weight tree, candidate selection and the host calls.
 
 Counterpart of ``synergynet_tpu/detect/detector.py``: its thresholds, its
-canvas, ``_fit_scale``, and the weight handling of ``FaceBoxes.__init__``
-(``:111-154``) for the stem_r=8 topology. The candidate selection itself
-(top-k, NMS, keep) lives in the serving engine, as in the JAX package.
+canvas, ``_fit_scale``, the weight handling of ``FaceBoxes.__init__``
+(``:111-154``) for the stem_r=8 topology, ``select_detections``
+(``:54-74``: top-k 2048, greedy NMS at 0.3, visibility > 0.5, compacted to
+``KEEP_TOP_K``) and the host calls ``FaceBoxes.detect_raw`` and
+``FaceBoxes.__call__`` (``:187-213``), which fit the frame onto the canvas
+with :func:`prepare_frame` (OpenCV's INTER_LINEAR downscale, bit for bit)
+and run the net, the anchor decode and the selection on the detector's
+device. The serving engine's ``select_faces`` shares the selection
+(:func:`rank_and_keep`).
 
 Without weights, the detector loads the JAX package's cached conversion of
 the reference checkpoint (``<assets>/faceboxes.npz``) when one exists, and
@@ -20,7 +26,7 @@ from __future__ import annotations
 
 import math
 import os
-from typing import Optional
+from typing import List, Optional, Tuple
 
 import numpy as np
 import torch
@@ -28,9 +34,12 @@ import torch
 from synergynet_tpu_torch.convert import faceboxes_state_dict
 from synergynet_tpu_torch.core.device import resolve_device
 from synergynet_tpu_torch.core.paths import asset_dir
-from synergynet_tpu_torch.detect.anchors import generate_anchors
+from synergynet_tpu_torch.detect.anchors import decode_boxes, generate_anchors
 from synergynet_tpu_torch.detect.net import (FaceBoxesNet, fold_bn_variables,
-                                             fold_to_s2d8)
+                                             fold_to_s2d8, space_to_depth)
+from synergynet_tpu_torch.detect.nms import greedy_nms_mask
+from synergynet_tpu_torch.mm3d.codec import full_fp32
+from synergynet_tpu_torch.ops.resize import _resize_linear
 
 CONFIDENCE_THRESHOLD = 0.05
 NMS_THRESHOLD = 0.3
@@ -70,6 +79,71 @@ def _fit_scale(h: int, w: int) -> float:
     if w * scale > MAX_WIDTH:
         scale *= MAX_WIDTH / (w * scale)
     return scale
+
+
+def prepare_frame(img_bgr: np.ndarray, stem_r: int, device="cuda"):
+    """Fit a BGR uint8 frame onto the fixed detector canvas on ``device``
+    (the card unless the caller asks for the CPU).
+
+    Returns (canvas f32 (CH, CW, 3), s2d-packed canvas, true_hw int32 (2,),
+    scale): frames larger than 720x1080 scale down by the reference rule
+    (``cv2.resize``'s INTER_LINEAR, bit for bit) and sit at the canvas
+    origin on a zero border."""
+    device = resolve_device(device)
+    h, w = img_bgr.shape[:2]
+    scale = _fit_scale(h, w)
+    img = torch.from_numpy(np.ascontiguousarray(img_bgr)).to(device)
+    if scale != 1.0:
+        img = _resize_linear(img, int(scale * h), int(scale * w))
+    hs, ws = img.shape[:2]
+    ch, cw = CANVAS
+    canvas = torch.zeros((ch, cw, 3), dtype=torch.float32, device=device)
+    canvas[:min(hs, ch), :min(ws, cw)] = img[:ch, :cw]
+    packed = space_to_depth(canvas, stem_r).contiguous()
+    true_hw = torch.tensor([hs, ws], dtype=torch.int32, device=device)
+    return canvas, packed, true_hw, scale
+
+
+def rank_and_keep(scores: torch.Tensor, boxes: torch.Tensor, n_out: int,
+                  top_k: int = NMS_TOP_K
+                  ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor,
+                             torch.Tensor]:
+    """Candidate selection after scoring, batched over frames: scores
+    (B, A) with -1 at ruled-out anchors, boxes (B, A, 4) -> the first
+    ``n_out`` of the ``top_k`` best candidates with kept ones first (their
+    scores (B, n), boxes (B, n, 4) and keep flags (B, n)) and the kept
+    count (B,).
+
+    Top-k, greedy NMS at ``NMS_THRESHOLD`` over the positive scores, keep
+    those above ``VIS_THRESHOLD``, then a stable partition of kept before
+    dropped. Stable sorts give ``lax.top_k``'s and
+    ``argsort(stable=True)``'s lower-index-first order on ties."""
+    k = min(top_k, scores.shape[-1])
+    top_scores, idx = torch.sort(scores, dim=-1, descending=True,
+                                 stable=True)
+    top_scores, idx = top_scores[:, :k], idx[:, :k]
+    top_boxes = torch.gather(boxes, 1, idx[..., None].expand(-1, -1, 4))
+    keep = greedy_nms_mask(top_boxes, top_scores > 0.0, NMS_THRESHOLD)
+    keep &= top_scores > VIS_THRESHOLD
+    order = torch.argsort((~keep).to(torch.uint8), dim=-1,
+                          stable=True)[:, :n_out]
+    return (torch.gather(top_scores, 1, order),
+            torch.gather(top_boxes, 1, order[..., None].expand(-1, -1, 4)),
+            torch.gather(keep, 1, order), keep.sum(-1))
+
+
+def select_detections(boxes: torch.Tensor, scores: torch.Tensor,
+                      top_k: int = NMS_TOP_K
+                      ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """One frame's selection, the JAX package's ``select_detections``:
+    boxes (A, 4) and scores (A,) with -1 at ruled-out anchors -> (dets
+    (KEEP_TOP_K, 5) [x1, y1, x2, y2, score], kept rows first; count =
+    min(kept, KEEP_TOP_K)) on the inputs' device; fewer rows when fewer
+    than ``KEEP_TOP_K`` candidates enter NMS."""
+    ts, tb, _, n = rank_and_keep(scores[None], boxes[None], KEEP_TOP_K,
+                                 top_k)
+    dets = torch.cat([tb[0], ts[0, :, None]], dim=1)
+    return dets, torch.clamp(n[0], max=KEEP_TOP_K)
 
 
 def random_init_variables(seed: int = 0) -> dict:
@@ -152,11 +226,13 @@ def to_folded_s2d8(variables: dict) -> dict:
 
 
 class FaceBoxes:
-    """The serving detector: ``net`` (folded s2d8 :class:`FaceBoxesNet` on
+    """The detector: ``net`` (folded s2d8 :class:`FaceBoxesNet` on
     ``device``, the card unless the caller asks for the CPU), ``anchors``
     (A, 4) on ``device`` for the fixed canvas, and ``variables`` (the folded
     flax-layout tree the net was loaded from). ``stem_mode="pallas"`` runs
-    the stem through the fused kernel (``csrc/stem_s2d8.cu``)."""
+    the stem through the fused kernel (``csrc/stem_s2d8.cu``). Called on a
+    BGR uint8 frame, it returns the reference's ``[[x1, y1, x2, y2,
+    score], ...]``; construct once and reuse."""
 
     stem_s2d = True
     stem_r = STEM_R
@@ -174,3 +250,44 @@ class FaceBoxes:
         h, w = CANVAS
         self.anchors = torch.tensor(generate_anchors(h, w),
                                     device=self.device)
+        self.mean = torch.tensor(np.tile(BGR_MEAN, self.stem_r ** 2),
+                                 dtype=torch.float32, device=self.device)
+
+    def candidates(self, frames_s2d: torch.Tensor, true_hws: torch.Tensor
+                   ) -> Tuple[torch.Tensor, torch.Tensor]:
+        """(B, CH/8, CW/8, 192) s2d frames + (B, 2) true extents ->
+        (scores (B, A) with -1 at ruled-out anchors: below
+        ``CONFIDENCE_THRESHOLD`` or centred in the canvas padding; boxes
+        (B, A, 4) in canvas pixels, unclipped)."""
+        ch, cw = CANVAS
+        loc, conf = self.net(frames_s2d - self.mean)
+        scores = torch.softmax(conf, dim=-1)[..., 1]
+        boxes = decode_boxes(loc, self.anchors) * torch.tensor(
+            [cw, ch, cw, ch], dtype=torch.float32, device=loc.device)
+        th = true_hws[:, 0:1].float()
+        tw = true_hws[:, 1:2].float()
+        cx = (boxes[..., 0] + boxes[..., 2]) / 2
+        cy = (boxes[..., 1] + boxes[..., 3]) / 2
+        ok = (cx < tw) & (cy < th) & (scores > CONFIDENCE_THRESHOLD)
+        return torch.where(ok, scores, torch.full_like(scores, -1.0)), boxes
+
+    @torch.inference_mode()
+    def detect_raw(self, img_bgr: np.ndarray) -> Tuple[np.ndarray, int]:
+        """One BGR uint8 frame -> (dets (KEEP_TOP_K, 5) float32 numpy, boxes
+        in original pixels, kept rows first; count). An f32 net runs in
+        full f32, TF32 off, as the JAX package's detector computes by
+        default."""
+        _, packed, true_hw, scale = prepare_frame(img_bgr, self.stem_r,
+                                                  self.device)
+        with full_fp32():
+            scores, boxes = self.candidates(packed[None], true_hw[None])
+        dets, count = select_detections(boxes[0], scores[0])
+        dets = dets.cpu().numpy()
+        dets[:, :4] /= scale
+        return dets, int(count)
+
+    def __call__(self, img_bgr: np.ndarray) -> List[List[float]]:
+        """One BGR uint8 frame -> [[x1, y1, x2, y2, score], ...] for every
+        kept face, in original pixels (the reference's ``FaceBoxes``)."""
+        dets, count = self.detect_raw(img_bgr)
+        return [list(map(float, dets[i])) for i in range(count)]

@@ -1,7 +1,10 @@
-"""Greedy NMS keep-masks, batched, bit-identical to the sequential loop.
+"""Greedy NMS keep-masks, batched, bit-identical to the sequential loop;
+the reference-compatible NMS utilities.
 
-Counterpart of ``synergynet_tpu/detect/nms.py:31-71``. With boxes sorted by
-score, box i is kept iff it is valid and no kept valid box j < i has
+Counterpart of ``synergynet_tpu/detect/nms.py``: ``greedy_nms_mask``
+(``:31-71``), and ``nms_indices``, ``soft_nms_device`` and ``soft_nms``
+(``:74-190``; here ``soft_nms`` runs ``soft_nms_device``). With boxes
+sorted by score, box i is kept iff it is valid and no kept valid box j < i has
 IoU >= threshold. The JAX package reaches that mask as the fixpoint of
 ``keep <- valid & ~(A @ keep > 0)``, ``A[i, j] = (iou >= t) & (j < i) &
 valid[j]``, one matrix-vector product per step; the fixpoint is unique and
@@ -18,7 +21,10 @@ the fixpoint change nothing.
 
 from __future__ import annotations
 
+import numpy as np
 import torch
+
+from synergynet_tpu_torch.core.device import resolve_device
 
 _WORD = 32
 # Frames per block of the (frames, K, K) IoU temporaries in greedy_nms_mask.
@@ -81,3 +87,89 @@ def greedy_nms_mask(boxes: torch.Tensor, valid: torch.Tensor,
         if done:
             break
     return keep.reshape(*lead, k)
+
+
+def nms_indices(dets, iou_threshold: float = 0.3, device="cuda"):
+    """Reference-compatible host API: (N, 5) [x1 y1 x2 y2 score] -> kept
+    indices in descending-score order (reference nms_wrapper.py:13-19),
+    the greedy mask computed on ``device`` (the card unless the caller asks
+    for the CPU). Ties in score keep their input order."""
+    dets = np.asarray(dets, np.float32).reshape(-1, 5)
+    if not len(dets):
+        return []
+    order = np.argsort(-dets[:, 4], kind="stable")
+    boxes = torch.from_numpy(dets[order, :4]).to(resolve_device(device))
+    valid = torch.ones((dets.shape[0],), dtype=torch.bool,
+                       device=boxes.device)
+    keep = greedy_nms_mask(boxes, valid, iou_threshold).cpu().numpy()
+    return [int(i) for i in order[keep]]
+
+
+def soft_nms_device(boxes: torch.Tensor, scores: torch.Tensor,
+                    valid: torch.Tensor, sigma: float = 0.5,
+                    iou_threshold: float = 0.3,
+                    score_threshold: float = 0.001,
+                    method: str = "gaussian"):
+    """Soft-NMS over a fixed candidate budget on the inputs' device: boxes
+    (K, 4), scores (K,), valid (K,) bool -> (pick_idx (K,) int32, pick_score
+    (K,) f32, n_picked) with the first ``n_picked`` entries the kept
+    candidates in pick order and their decayed scores; -1 and -inf past
+    them.
+
+    The reference's ``cpu_soft_nms`` (FaceBoxes/utils/nms/cpu_nms.pyx:
+    70-163) as the JAX package's ``soft_nms_device`` runs it: the (K, K)
+    IoU once, then K rounds of argmax pick (the first maximum), decay of
+    the rest by the pick's IoU row (linear: 1 - IoU above the threshold;
+    gaussian: exp(-IoU^2 / sigma); hard: 0 above the threshold), and the
+    threshold discard of boxes that overlap the pick. Padding (``valid``
+    false) is never picked. No round reads the host."""
+    k = scores.shape[0]
+    dev = scores.device
+    neg = torch.tensor(float("-inf"), device=dev)
+    iou = pairwise_iou(boxes.float())
+    live = torch.where(valid, scores.float(), neg)
+    idx = torch.full((k,), -1, dtype=torch.int32, device=dev)
+    out = torch.full((k,), float("-inf"), device=dev)
+    for i in range(k):
+        j = torch.argmax(live)
+        s = live[j]
+        row = iou[j]
+        if method == "linear":
+            decay = torch.where(row > iou_threshold, 1.0 - row,
+                                torch.ones_like(row))
+        elif method == "gaussian":
+            decay = torch.exp(-(row * row) / sigma)
+        else:                                   # hard: ov > Nt -> 0
+            decay = torch.where(row > iou_threshold, torch.zeros_like(row),
+                                torch.ones_like(row))
+        # -inf * 0 would be NaN: dead entries stay dead.
+        new = torch.where(live > neg, live * decay, neg)
+        # The reference discards below the threshold only inside its
+        # positive-overlap branch (cpu_nms.pyx:128-158).
+        new = torch.where((row > 0.0) & (new < score_threshold), neg, new)
+        new[j] = neg
+        picked = s > neg
+        live = torch.where(picked, new, live)
+        idx[i] = torch.where(picked, j.to(torch.int32),
+                             torch.tensor(-1, dtype=torch.int32, device=dev))
+        out[i] = s
+    return idx, out, (out > neg).sum()
+
+
+def soft_nms(dets, sigma: float = 0.5, iou_threshold: float = 0.3,
+             score_threshold: float = 0.001, method: str = "gaussian",
+             device="cuda") -> np.ndarray:
+    """Soft-NMS (Bodla et al. 2017), the reference's host API
+    (``cpu_soft_nms``, FaceBoxes/utils/nms/cpu_nms.pyx:70-163): (N, 5)
+    [x1 y1 x2 y2 score] -> the kept detections (M, 5) in pick order with
+    their decayed scores, numpy. Runs :func:`soft_nms_device` over all N
+    boxes on ``device`` (the card unless the caller asks for the CPU)."""
+    dets = np.asarray(dets, np.float32).reshape(-1, 5)
+    t = torch.from_numpy(dets).to(resolve_device(device))
+    valid = torch.ones((dets.shape[0],), dtype=torch.bool, device=t.device)
+    idx, score, n = soft_nms_device(t[:, :4], t[:, 4], valid, sigma,
+                                    iou_threshold, score_threshold, method)
+    n = int(n)
+    out = dets[idx[:n].cpu().numpy()]
+    out[:, 4] = score[:n].cpu().numpy()
+    return out

@@ -44,6 +44,12 @@ def dewhiten(param: torch.Tensor, pack: ParamPack) -> torch.Tensor:
     return param * pack.param_std[:62] + pack.param_mean[:62]
 
 
+def whiten(param_raw: torch.Tensor, pack: ParamPack) -> torch.Tensor:
+    """Raw (B, 62) parameters -> whitened units, the inverse of
+    :func:`dewhiten`."""
+    return (param_raw - pack.param_mean[:62]) / pack.param_std[:62]
+
+
 def parse_param62(param_raw: torch.Tensor) -> Tuple[torch.Tensor, ...]:
     """Split raw (B, 62) into (p (B,3,3), offset (B,3,1), alpha_shp (B,40,1),
     alpha_exp (B,10,1))."""

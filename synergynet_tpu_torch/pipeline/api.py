@@ -1,65 +1,106 @@
 """Serving API: frames -> faces -> (landmarks, dense meshes, poses).
 
-Counterpart of ``synergynet_tpu/pipeline/api.py``'s serving path:
+Counterpart of ``synergynet_tpu/pipeline/api.py``:
 
 - :class:`SynergyNet3DMM` holds the regressor, the 3DMM pack and the
-  coordinate-split dense basis on one device;
+  coordinate-split dense basis on one device, and is the packaged
+  two-stage API of the reference (``synergy3DMM.SynergyNet.get_all_outputs``,
+  reference synergy3DMM.py:167-207): ``get_all_outputs`` squares each rect
+  on the host, crops and resizes every face on the device with
+  :func:`preprocess_crops`' ``cv2.resize`` emulation (LANCZOS4 by default,
+  bit for bit), and ``process_crops`` runs MobileNetV2 -> 62 parameters ->
+  68 landmarks + dense mesh (the ``csrc/fused_decode.cu`` kernel on a card)
+  + pose, in chunks of ``MAX_FACES_PER_BATCH`` faces. The JAX package pads
+  the chunks to power-of-two buckets to bound its compiles; the port runs
+  each chunk at its own size, and no output depends on the chunking;
 - :class:`FusedFrameEngine` runs detect (folded s2d8 FaceBoxes, anchor
   decode, top-k, greedy NMS) -> square rois -> bilinear crop -> MobileNetV2
-  -> 68 landmarks + dense mesh (the ``csrc/fused_decode.cu`` kernel on a
-  card) + pose, for a fixed ``max_faces`` per frame. ``process_batch`` runs
-  the head batched over B frames and the decode tail once on the flat
-  B x max_faces rows; ``__call__`` is the one-frame form.
+  -> 68 landmarks + dense mesh + pose, for a fixed ``max_faces`` per frame.
+  ``process_batch`` runs the head batched over B frames and the decode tail
+  once on the flat B x max_faces rows; ``__call__`` is the one-frame form.
 
-The JAX package compiles all of this into one program per batch size;
-here it runs eagerly on the device, and only the NMS fixpoint test and the
-face count of ``__call__`` synchronise with the host.
+The JAX package compiles each of these into one program; here they run
+eagerly on the device, and only the NMS fixpoint test and the face counts
+synchronise with the host.
 """
 
 from __future__ import annotations
 
-from typing import List, Optional, Tuple
+from typing import List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
 
-from synergynet_tpu_torch.convert import synergy_state_dict
+from synergynet_tpu_torch.convert import (flax_from_state_dict,
+                                          synergy_state_dict)
 from synergynet_tpu_torch.core.checkpoint import (load_trained_variables,
                                                   shipped_trained_path)
 from synergynet_tpu_torch.core.device import resolve_device
-from synergynet_tpu_torch.detect.anchors import decode_boxes
-from synergynet_tpu_torch.detect.detector import (
-    BGR_MEAN, CANVAS, CONFIDENCE_THRESHOLD, NMS_THRESHOLD, NMS_TOP_K,
-    VIS_THRESHOLD, FaceBoxes, _fit_scale)
-from synergynet_tpu_torch.detect.net import space_to_depth
-from synergynet_tpu_torch.detect.nms import greedy_nms_mask
-from synergynet_tpu_torch.mm3d.assets import ParamPack, load_param_pack
-from synergynet_tpu_torch.mm3d.codec import decode_landmarks, rescale_to_roi
+from synergynet_tpu_torch.detect.detector import (FaceBoxes, prepare_frame,
+                                                  rank_and_keep)
+from synergynet_tpu_torch.mm3d.assets import N_LMK, ParamPack, load_param_pack
+from synergynet_tpu_torch.mm3d.codec import (decode_landmarks, full_fp32,
+                                             rescale_to_roi)
+from synergynet_tpu_torch.mm3d.crop import crop_rect, square_box
 from synergynet_tpu_torch.mm3d.pose import (pose_from_param,
                                             rescale_pose_to_roi)
 from synergynet_tpu_torch.nn.backbones.mobilenet_v2 import cast_convs_
-from synergynet_tpu_torch.nn.synergy import SynergyNet
+from synergynet_tpu_torch.nn.synergy import SynergyNet, init_synergy_
 from synergynet_tpu_torch.ops.fused_decode import (build_decode_basis,
                                                    decode_dense_fused)
+from synergynet_tpu_torch.ops.resize import crop_resize_cv2
 from synergynet_tpu_torch.pipeline.device_crop import (crop_resize_matmul,
                                                        square_rois)
 
 CROP = 120
+MAX_FACES_PER_BATCH = 16
+
+
+def _crops_on(frame: torch.Tensor, roi_boxes: Sequence,
+              interpolation: str) -> torch.Tensor:
+    """(H, W, 3) uint8 frame on its device + N roi boxes -> (N, 120, 120, 3)
+    uint8 on that device."""
+    return crop_resize_cv2(frame, [crop_rect(rb) for rb in roi_boxes], CROP,
+                           interpolation)
+
+
+def preprocess_crops(img_bgr: np.ndarray, roi_boxes: Sequence[np.ndarray],
+                     interpolation: str = "lanczos4", device="cuda"
+                     ) -> np.ndarray:
+    """Crop + resize every roi to a (N, 120, 120, 3) uint8 stack, equal bit
+    for bit to the JAX package's ``cv2.resize(crop_img(img, roi), (120,
+    120), interpolation=...)``: ``'lanczos4'`` (packaged API,
+    synergy3DMM.py:188) or ``'linear'`` (demo script, singleImage.py:77 --
+    quirk Q7). The frame is uploaded once and every face resampled in one
+    batched gather on ``device`` (the card unless the caller asks for the
+    CPU)."""
+    frame = torch.from_numpy(np.ascontiguousarray(img_bgr, np.uint8)).to(
+        resolve_device(device))
+    return _crops_on(frame, roi_boxes, interpolation).cpu().numpy()
 
 
 class SynergyNet3DMM:
     """The regressor and 3DMM constants on ``device`` (the card unless
-    the caller asks for the CPU; raises when there is no card).
+    the caller asks for the CPU; raises when there is no card). Construct
+    once; call :meth:`get_all_outputs` per image.
 
     ``variables``: the string ``"trained"`` (the shipped full-recipe
-    weights) or a flax SynergyNet tree (converted by
-    :mod:`synergynet_tpu_torch.convert`). ``dtype`` is the backbone's
-    compute dtype (bf16 for serving).
+    weights), a flax SynergyNet tree (converted by
+    :mod:`synergynet_tpu_torch.convert`), or ``None``: flax's init drawn
+    from ``torch.Generator().manual_seed(seed)``, so the pipeline runs
+    without a checkpoint. ``dtype`` is the backbone's compute dtype (bf16
+    for serving). :meth:`process_crops` and :meth:`get_all_outputs` run
+    their f32 products and convolutions in full f32, TF32 off, as the JAX
+    package's API computes by default. ``detector``: the
+    :class:`FaceBoxes` that :meth:`get_all_outputs` calls when given no
+    rects; built on first use on the same device when not given.
     """
 
-    def __init__(self, variables: dict | str, arch: str = "mobilenet_v2",
+    def __init__(self, variables: dict | str | None = None,
+                 arch: str = "mobilenet_v2",
                  pack: Optional[ParamPack] = None,
-                 dtype: torch.dtype = torch.float32, device="cuda"):
+                 dtype: torch.dtype = torch.float32, device="cuda",
+                 detector: Optional[FaceBoxes] = None, seed: int = 0):
         self.device = resolve_device(device)
         if isinstance(variables, str):
             if variables != "trained":
@@ -69,7 +110,11 @@ class SynergyNet3DMM:
         self.dtype = dtype
         self.pack = pack if pack is not None else load_param_pack()
         model = SynergyNet(arch=arch, dtype=dtype)
-        model.load_state_dict(synergy_state_dict(variables))
+        if variables is None:
+            init_synergy_(model, torch.Generator().manual_seed(seed))
+            variables = flax_from_state_dict(model.state_dict())
+        else:
+            model.load_state_dict(synergy_state_dict(variables))
         cast_convs_(model, dtype)
         self.variables = variables
         self.model = model.to(self.device).eval()
@@ -80,6 +125,81 @@ class SynergyNet3DMM:
             u=self.pack.u[:0], w_shp=self.pack.w_shp[:0],
             w_exp=self.pack.w_exp[:0])
         self.pack_dev = slim.to(self.device)
+        self._detector = detector
+
+    @property
+    def detector(self) -> FaceBoxes:
+        if self._detector is None:
+            self._detector = FaceBoxes(device=self.device)
+        return self._detector
+
+    def decode(self, param62: torch.Tensor, rois: torch.Tensor):
+        """(N, 62) params + (N, 4+) rois -> (lmk (N, 3, 68), dense
+        (N, 3, nver), angles (N, 3), t3d (N, 3)) in the rois' image
+        coordinates; row-independent."""
+        pack = self.pack_dev
+        lmk = rescale_to_roi(decode_landmarks(param62, pack), rois)
+        dense = rescale_to_roi(decode_dense_fused(param62, self.basis, pack),
+                               rois)
+        angles, t3d = pose_from_param(param62, pack)
+        return lmk, dense, angles, rescale_pose_to_roi(t3d, rois)
+
+    @torch.inference_mode()
+    def _process(self, crops: torch.Tensor, rois: torch.Tensor):
+        """(N, 120, 120, 3) uint8 crops + (N, 4) f32 rois on the device ->
+        (param62, lmk, dense, angles, t3d) tensors, run in chunks of
+        ``MAX_FACES_PER_BATCH`` faces, TF32 off."""
+        out = []
+        with full_fp32():
+            for start in range(0, crops.shape[0], MAX_FACES_PER_BATCH):
+                c = crops[start:start + MAX_FACES_PER_BATCH]
+                r = rois[start:start + MAX_FACES_PER_BATCH]
+                param62, _ = self.model((c.float() - 127.5) / 128.0)
+                param62 = param62.float()
+                out.append((param62, *self.decode(param62, r)))
+        return [torch.cat(parts) for parts in zip(*out)]
+
+    def process_crops(self, crops_u8, roi_boxes):
+        """Batched core: (N, 120, 120, 3) uint8 crops (numpy or a tensor) +
+        (N, 4+) roi boxes -> (param62, lmk, dense, angles, t3d) numpy arrays
+        with leading dim N, in the rois' image coordinates. At zero faces
+        the five arrays are empty with the contract's trailing shapes."""
+        n = len(crops_u8)
+        if n == 0:
+            return (np.zeros((0, 62), np.float32),
+                    np.zeros((0, 3, N_LMK), np.float32),
+                    np.zeros((0, 3, self.pack.nver), np.float32),
+                    np.zeros((0, 3), np.float32),
+                    np.zeros((0, 3), np.float32))
+        crops = torch.as_tensor(crops_u8).to(self.device)
+        rois = torch.as_tensor(np.asarray(roi_boxes, np.float32)[:, :4],
+                               device=self.device)
+        return [x.cpu().numpy() for x in self._process(crops, rois)]
+
+    def get_all_outputs(self, img_bgr: np.ndarray,
+                        rects: Optional[Sequence] = None,
+                        interpolation: str = "lanczos4"
+                        ) -> Tuple[List, List, List]:
+        """Reference-compatible: (pts_res, vertices_lst, poses) where each
+        element i is ((3, 68) landmarks, (3, nver) vertices, [angles (3,),
+        t3d (3,)]) for face i, in original-image coordinates. Without
+        ``rects`` the faces come from :attr:`detector`."""
+        if rects is None:
+            rects = self.detector(img_bgr)
+        if len(rects) == 0:
+            return [], [], []
+        roi_boxes = np.stack([square_box(r) for r in rects])
+        frame = torch.from_numpy(np.ascontiguousarray(img_bgr, np.uint8)).to(
+            self.device)
+        crops = _crops_on(frame, roi_boxes, interpolation)
+        rois = torch.as_tensor(roi_boxes[:, :4].astype(np.float32),
+                               device=self.device)
+        _, lmk, dense, angles, t3d = (x.cpu().numpy() for x in
+                                      self._process(crops, rois))
+        pts_res = [lmk[i] for i in range(len(rects))]
+        vertices_lst = [dense[i] for i in range(len(rects))]
+        poses = [[angles[i], t3d[i]] for i in range(len(rects))]
+        return pts_res, vertices_lst, poses
 
 
 class FusedFrameEngine:
@@ -94,50 +214,26 @@ class FusedFrameEngine:
             raise ValueError(f"detector on {self.detector.device}, api on "
                              f"{api.device}")
         self.max_faces = max_faces
-        self._det_mean = torch.tensor(
-            np.tile(BGR_MEAN, self.detector.stem_r ** 2), dtype=torch.float32,
-            device=api.device)
+        self._det_mean = self.detector.mean
 
     def detect_candidates(self, frames_s2d: torch.Tensor,
                           true_hws: torch.Tensor
                           ) -> Tuple[torch.Tensor, torch.Tensor]:
         """(B, CH/8, CW/8, 192) s2d frames + (B, 2) true extents ->
         (scores (B, A) with -1 at ruled-out anchors, boxes (B, A, 4) in
-        canvas pixels)."""
-        ch, cw = CANVAS
-        det = self.detector
-        loc, conf = det.net(frames_s2d - self._det_mean)
-        scores = torch.softmax(conf, dim=-1)[..., 1]
-        boxes = decode_boxes(loc, det.anchors) * torch.tensor(
-            [cw, ch, cw, ch], dtype=torch.float32, device=loc.device)
-        th = true_hws[:, 0:1].float()
-        tw = true_hws[:, 1:2].float()
-        cx = (boxes[..., 0] + boxes[..., 2]) / 2
-        cy = (boxes[..., 1] + boxes[..., 3]) / 2
-        ok = (cx < tw) & (cy < th) & (scores > CONFIDENCE_THRESHOLD)
-        return torch.where(ok, scores, torch.full_like(scores, -1.0)), boxes
+        canvas pixels): :meth:`FaceBoxes.candidates`."""
+        return self.detector.candidates(frames_s2d, true_hws)
 
     def select_faces(self, scores: torch.Tensor, boxes: torch.Tensor
                      ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
-        """Top-k, greedy NMS, visibility filter, first ``max_faces`` kept:
+        """Top-k, greedy NMS, visibility filter, first ``max_faces`` kept
+        (:func:`~synergynet_tpu_torch.detect.detector.rank_and_keep`):
         (face_scores (B, F) with -1 on padding rows, n_faces (B,),
-        face_boxes (B, F, 4)). Stable sorts give ``lax.top_k``'s and
-        ``argsort(stable=True)``'s lower-index-first order on ties."""
-        k = min(NMS_TOP_K, scores.shape[-1])
-        top_scores, idx = torch.sort(scores, dim=-1, descending=True,
-                                     stable=True)
-        top_scores, idx = top_scores[:, :k], idx[:, :k]
-        top_boxes = torch.gather(boxes, 1, idx[..., None].expand(-1, -1, 4))
-        keep = greedy_nms_mask(top_boxes, top_scores > 0.0, NMS_THRESHOLD)
-        keep &= top_scores > VIS_THRESHOLD
-        order = torch.argsort((~keep).to(torch.uint8), dim=-1,
-                              stable=True)[:, :self.max_faces]
-        face_boxes = torch.gather(top_boxes, 1,
-                                  order[..., None].expand(-1, -1, 4))
-        face_scores = torch.where(torch.gather(keep, 1, order),
-                                  torch.gather(top_scores, 1, order),
-                                  torch.full_like(order, -1.0,
-                                                  dtype=torch.float32))
+        face_boxes (B, F, 4))."""
+        top_scores, face_boxes, keep, _ = rank_and_keep(scores, boxes,
+                                                        self.max_faces)
+        face_scores = torch.where(keep, top_scores,
+                                  torch.full_like(top_scores, -1.0))
         return face_scores, (face_scores > 0).sum(-1), face_boxes
 
     def regress(self, frames: torch.Tensor, rois: torch.Tensor
@@ -159,12 +255,9 @@ class FusedFrameEngine:
 
     def tail(self, param62: torch.Tensor, rois: torch.Tensor):
         """Flat (N, 62) params + (N, 4) rois -> (lmk (N, 3, 68), dense
-        (N, 3, nver), angles (N, 3), t3d (N, 3)); row-independent."""
-        pack, basis = self.api.pack_dev, self.api.basis
-        lmk = rescale_to_roi(decode_landmarks(param62, pack), rois)
-        dense = rescale_to_roi(decode_dense_fused(param62, basis, pack), rois)
-        angles, t3d = pose_from_param(param62, pack)
-        return lmk, dense, angles, rescale_pose_to_roi(t3d, rois)
+        (N, 3, nver), angles (N, 3), t3d (N, 3)): the api's
+        :meth:`SynergyNet3DMM.decode`."""
+        return self.api.decode(param62, rois)
 
     @torch.inference_mode()
     def process_batch(self, frames: torch.Tensor, frames_s2d: torch.Tensor,
@@ -190,66 +283,6 @@ class FusedFrameEngine:
         _, n, _, _, lmk, dense, angles, t3d = (x[0].cpu().numpy()
                                                for x in out)
         return unpack_face_outputs(int(n), lmk, dense, angles, t3d, scale)
-
-
-def _linear_taps(n_src: int, n_dst: int, clamp_edges: bool):
-    """cv2 INTER_LINEAR's taps along one axis: (first index, second index,
-    weight of the first, weight of the second), weights in 11-bit fixed
-    point. The sample point is ``(d + 0.5) * scale - 0.5`` in double,
-    rounded to f32; columns (``clamp_edges``) put a sample outside the
-    source on the edge pixel with weight 1, rows keep the fraction and
-    clamp the row index, as cv2's ``resize`` does."""
-    scale = 1.0 / (n_dst / n_src)
-    f = ((np.arange(n_dst) + 0.5) * scale - 0.5).astype(np.float32)
-    s = np.floor(f).astype(np.int64)
-    f = f - s.astype(np.float32)
-    if clamp_edges:
-        edge = (s < 0) | (s >= n_src - 1)
-        f[edge] = 0.0
-        s = np.where(s < 0, 0, np.where(s >= n_src - 1, n_src - 1, s))
-    w0 = np.rint((np.float32(1.0) - f) * np.float32(2048)).astype(np.int32)
-    w1 = np.rint(f * np.float32(2048)).astype(np.int32)
-    return (np.clip(s, 0, n_src - 1), np.clip(s + 1, 0, n_src - 1), w0, w1)
-
-
-def _resize_linear(img: torch.Tensor, h: int, w: int) -> torch.Tensor:
-    """(H, W, C) uint8 -> (h, w, C) float of uint8 values, equal bit for
-    bit to ``cv2.resize(img, (w, h))`` (INTER_LINEAR on 8-bit images): a
-    horizontal pass of int32 sums of 11-bit weights, then cv2's vertical
-    vector pass, ``((S0 >> 4) * b0 >> 16) + ((S1 >> 4) * b1 >> 16)``
-    rounded by ``(+ 2) >> 2`` and saturated to [0, 255]."""
-    dev = img.device
-    x0, x1, a0, a1 = (torch.from_numpy(t).to(dev)
-                      for t in _linear_taps(img.shape[1], w, True))
-    y0, y1, b0, b1 = (torch.from_numpy(t).to(dev)
-                      for t in _linear_taps(img.shape[0], h, False))
-    src = img.int()
-    rows = src[:, x0] * a0[None, :, None] + src[:, x1] * a1[None, :, None]
-    top = ((rows[y0] >> 4) * b0[:, None, None]) >> 16
-    bottom = ((rows[y1] >> 4) * b1[:, None, None]) >> 16
-    return ((top + bottom + 2) >> 2).clamp(0, 255).float()
-
-
-def prepare_frame(img_bgr: np.ndarray, stem_r: int, device="cuda"):
-    """Fit a BGR uint8 frame onto the fixed detector canvas on ``device``
-    (the card unless the caller asks for the CPU).
-
-    Returns (canvas f32 (CH, CW, 3), s2d-packed canvas, true_hw int32 (2,),
-    scale): frames larger than 720x1080 scale down by the reference rule
-    and sit at the canvas origin on a zero border."""
-    device = resolve_device(device)
-    h, w = img_bgr.shape[:2]
-    scale = _fit_scale(h, w)
-    img = torch.from_numpy(np.ascontiguousarray(img_bgr)).to(device)
-    if scale != 1.0:
-        img = _resize_linear(img, int(scale * h), int(scale * w))
-    hs, ws = img.shape[:2]
-    ch, cw = CANVAS
-    canvas = torch.zeros((ch, cw, 3), dtype=torch.float32, device=device)
-    canvas[:min(hs, ch), :min(ws, cw)] = img[:ch, :cw]
-    packed = space_to_depth(canvas, stem_r).contiguous()
-    true_hw = torch.tensor([hs, ws], dtype=torch.int32, device=device)
-    return canvas, packed, true_hw, scale
 
 
 def unpack_face_outputs(n: int, lmk, dense, angles, t3d, scale: float):

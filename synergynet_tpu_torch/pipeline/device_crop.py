@@ -1,12 +1,17 @@
 """On-device crop + bilinear resize: frames -> fixed 120x120 face crops.
 
-Counterpart of ``synergynet_tpu/pipeline/device_crop.py:72-121``. The
+Counterpart of ``synergynet_tpu/pipeline/device_crop.py``. The
 semantics are the host chain ``cv2.resize(crop_img(img, roi), 120x120,
 INTER_LINEAR)``: rois round to integers like ``crop_img``, sample
 coordinates follow cv2's ``(dst + 0.5) * scale - 0.5`` rule and clamp at the
 crop border, and samples from outside the image are zero. Resampling is
 separable, so each crop is two products with per-roi interpolation
 matrices, as in the JAX package; the products stay ``torch.matmul``.
+
+The JAX package's ``crop_resize_bilinear`` (a four-tap gather) and
+``crop_resize_hybrid`` (a row gather, then the column matmul) compute the
+same function in other shapes of TPU work, for its ``crop_mode`` selector;
+the port has one implementation and keeps their names for it.
 """
 
 from __future__ import annotations
@@ -64,3 +69,6 @@ def crop_resize_matmul(image: torch.Tensor, rois: torch.Tensor,
                          rows)                           # (BN, Scol, Srow*C)
     cols = cols.reshape(b, n, out_size, out_size, c)     # (.., Scol, Srow, C)
     return cols.transpose(2, 3).contiguous()             # (.., Srow, Scol, C)
+
+
+crop_resize_bilinear = crop_resize_hybrid = crop_resize_matmul

@@ -24,8 +24,9 @@ from typing import Optional, Tuple
 import numpy as np
 import torch
 
-from synergynet_tpu_torch.pipeline.api import (_resize_linear, prepare_frame,
-                                               unpack_face_outputs)
+from synergynet_tpu_torch.detect.detector import prepare_frame
+from synergynet_tpu_torch.ops.resize import _resize_linear
+from synergynet_tpu_torch.pipeline.api import unpack_face_outputs
 from synergynet_tpu_torch.render.lighting import (OVERLAY_LIGHT_CFG,
                                                   compute_vertex_light)
 from synergynet_tpu_torch.render.normals import (get_normal_rings,

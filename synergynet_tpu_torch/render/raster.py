@@ -1,13 +1,16 @@
-"""Z-buffer constants and the uint8 blend.
+"""Z-buffer constants, the uint8 blend and the host APIs' argument
+handling.
 
-Counterpart of ``synergynet_tpu/render/raster.py``: the depth the z-buffer
-starts from and the reference's truncating blend. The fragment-window
-rasterizer of that module is not ported here; the overlay path rasterizes
-with :mod:`synergynet_tpu_torch.render.raster_tiled`.
+Counterpart of ``synergynet_tpu/render/raster.py``'s depth the z-buffer
+starts from and the reference's truncating blend. Its host rasterizers
+(``rasterize_buffers``, ``rasterize``, ``rasterize_triangles``) live in
+:mod:`synergynet_tpu_torch.render.raster_tiled` beside the kernels they
+run.
 """
 
 from __future__ import annotations
 
+import numpy as np
 import torch
 
 DEPTH_INIT = -1e8    # reference Sim3DR/Sim3DR.py:25
@@ -28,3 +31,25 @@ def blend_uint8(bg_u8: torch.Tensor, zbuf: torch.Tensor, color: torch.Tensor,
     blended = torch.nan_to_num(blended, nan=0.0).clamp(0.0, 255.0)
     out = torch.where(mask, blended.to(torch.uint8), bg_u8)
     return out.flip(0) if reverse else out
+
+
+def no_window(window) -> None:
+    """Raise unless ``window`` is ``None``: the port's kernels take every
+    triangle whole and have no fragment window to set."""
+    if window is not None and window != (None, None):
+        raise ValueError(f"window {window!r}: the port renders every "
+                         "triangle whole and takes no fragment window; "
+                         "pass None")
+
+
+_NUMPY_DTYPE = {torch.float32: np.float32, torch.int32: np.int32,
+                torch.uint8: np.uint8}
+
+
+def as_tensor(x, dtype: torch.dtype, device: torch.device) -> torch.Tensor:
+    """An array-like or tensor as a contiguous ``dtype`` tensor on
+    ``device``."""
+    if torch.is_tensor(x):
+        return x.to(device=device, dtype=dtype).contiguous()
+    return torch.from_numpy(np.ascontiguousarray(
+        x, dtype=_NUMPY_DTYPE[dtype])).to(device)

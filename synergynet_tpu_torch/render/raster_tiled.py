@@ -26,7 +26,10 @@ replaces with the two entries of ``csrc/raster_tiled.cu``.
 
 The TPU kernel's bin sort, replication grid and chunk maps exist to fit
 its tile-local gather into VMEM; neither the kernels nor the twins here
-need them.
+need them. So :func:`rasterize_tiled`, the reference-compatible host API
+(and ``rasterize``, the same function), takes no ``replication``, and
+needs no fallback for a mesh whose replication grid would exceed the JAX
+package's budget: any triangle renders whole.
 
 3. **Deferred payloads** (``rasterize_buffers_tiled(..., deferred=True)``):
    :func:`rasterize_mesh_ids` resolves depth and the winning triangle id,
@@ -53,13 +56,16 @@ count the kernels' launches.
 from __future__ import annotations
 
 import ctypes
-from typing import Tuple
+from typing import Optional, Tuple
 
+import numpy as np
 import torch
 
+from synergynet_tpu_torch.core.device import resolve_device
 from synergynet_tpu_torch.ops.cuda_build import (check_tensor,
                                                  kernel_entry, require_sm90)
-from synergynet_tpu_torch.render.raster import DEPTH_INIT
+from synergynet_tpu_torch.render.raster import (DEPTH_INIT, as_tensor,
+                                                blend_uint8, no_window)
 
 # Record row layout (f32), width PAYLOAD0 + 3 * n_payload:
 #   0-2    Au Bu Cu        u(p) = (Au*x + Bu*y) + Cu
@@ -491,3 +497,85 @@ def rasterize_buffers_reference(vertices: torch.Tensor,
     then :func:`rasterize_records_reference`."""
     rec = plane_records(vertices, triangles, payloads, h=h, w=w)
     return rasterize_records_reference(rec, payloads.shape[1], h=h, w=w)
+
+
+# -- the reference-compatible host APIs ---------------------------------------
+#
+# The JAX versions render every triangle through a fragment window anchored
+# at its bbox, which ``window_for`` caps at 32 px: a larger triangle is
+# cropped to the window. Here every triangle renders whole, through B2 (the
+# colors) or B3 (the visibility), so the results equal the JAX package's
+# only where its window covers every triangle; where a triangle spans more
+# than 32 px the port draws what JAX crops. A ``window`` (or ``win_h`` /
+# ``win_w``) other than ``None`` raises: there is no window to set. The
+# coverage and depth come from the kernels' affine planes, which round
+# differently from the window path's per-fragment dot products, so a pixel
+# on a triangle's edge, or on a depth tie between two triangles, can fall
+# the other way.
+
+
+def rasterize_buffers(vertices, triangles, colors, *, h: int, w: int,
+                      win_h: Optional[int] = None,
+                      win_w: Optional[int] = None, device="cuda"
+                      ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Resolve the z-buffer of vertices (V, 3) f32 image-space, triangles
+    (T, 3) int and colors (V, 1-5) on ``device`` (the card unless the
+    caller asks for the CPU) -> (depth (h, w) f32 init ``DEPTH_INIT``,
+    colors (h, w, P), 0 where undrawn), tensors on ``device``:
+    :func:`rasterize_mesh` on arrays or tensors of any device. Equals the
+    JAX package's result where its window covers every triangle."""
+    no_window((win_h, win_w))
+    dev = resolve_device(device)
+    return rasterize_mesh(as_tensor(vertices, torch.float32, dev),
+                          as_tensor(triangles, torch.int32, dev),
+                          as_tensor(colors, torch.float32, dev), h=h, w=w)
+
+
+def rasterize_triangles(vertices, triangles, *, h: int, w: int,
+                        win_h: Optional[int] = None,
+                        win_w: Optional[int] = None, device="cuda"
+                        ) -> Tuple[torch.Tensor, torch.Tensor,
+                                   torch.Tensor]:
+    """Visibility buffers on ``device`` (the card unless the caller asks
+    for the CPU), the reference's ``_rasterize_triangles``
+    (rasterize_kernel.cpp:290-348): :func:`rasterize_triangles_tiled` on
+    arrays or tensors of any device -> (tri_id, depth, bary_w0). Equals the
+    JAX package's result where its window covers every triangle."""
+    no_window((win_h, win_w))
+    dev = resolve_device(device)
+    return rasterize_triangles_tiled(as_tensor(vertices, torch.float32, dev),
+                                     as_tensor(triangles, torch.int32, dev),
+                                     h=h, w=w)
+
+
+def rasterize_tiled(vertices, triangles, colors, bg=None, height=None,
+                    width=None, channel=None, reverse: bool = False,
+                    alpha: float = 1.0,
+                    window: Optional[Tuple[int, int]] = None, device="cuda"
+                    ) -> np.ndarray:
+    """Reference-compatible host API (Sim3DR/Sim3DR.py:15-29), the JAX
+    package's ``rasterize_tiled`` and ``rasterize``: vertices (V, 3) f32
+    image-space, triangles (T, 3) int, colors (V, 3) in [0, 1] (1-5
+    columns), an optional uint8 background (else zeros of ``height`` x
+    ``width`` x ``channel``) -> uint8 image (numpy), rendered on ``device``
+    (the card unless the caller asks for the CPU):
+    :func:`rasterize_buffers`, then
+    :func:`~synergynet_tpu_torch.render.raster.blend_uint8` at ``alpha``,
+    rows flipped with ``reverse``. ``window`` must be ``None``."""
+    no_window(window)
+    dev = resolve_device(device)
+    if bg is not None:
+        height, width, channel = bg.shape
+        bg = np.asarray(bg, np.uint8)
+    elif height is None or width is None:
+        raise ValueError("pass a background or its height and width")
+    else:
+        bg = np.zeros((height, width, channel or 3), np.uint8)
+    zbuf, color = rasterize_buffers(vertices, triangles, colors, h=height,
+                                    w=width, device=dev)
+    out = blend_uint8(torch.from_numpy(bg).to(dev), zbuf, color,
+                      float(alpha), reverse=reverse)
+    return out.cpu().numpy()
+
+
+rasterize = rasterize_tiled

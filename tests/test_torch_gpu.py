@@ -897,3 +897,224 @@ def test_data_paths_render_on_the_card(cuda):
                                atol=1e-3)
     diff = np.abs(card["images"].astype(np.int32) - cpu["images"])
     assert diff.max() <= 1 and (diff > 0).mean() < 1e-3
+
+
+# -- the packaged API and the host renders on the card -------------------------
+
+CHAIN = dict(rtol=1e-4, atol=1e-2)   # param62's 1e-4 chained through decode
+
+
+def _frame(hw, seed):
+    return np.random.default_rng(seed).integers(0, 256, (*hw, 3), np.uint8)
+
+
+def _edge_rois():
+    """Square rois over every edge and corner of a 720x1088 frame, inside
+    it, at .5 coordinates, and an identity 120 px crop."""
+    r = [[-40, 300, 100, 440], [1000, 200, 1150, 350], [500, -60, 620, 60],
+         [400, 650, 520, 770], [-50, -50, 90, 90], [1030, 680, 1110, 760],
+         [200, 100, 440, 340], [610.5, 300.5, 851.5, 541.5],
+         [10.5, 500.5, 70.5, 560.5], [300, 300, 420, 420]]
+    return [np.asarray(x, np.float64) for x in r]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("interpolation", ["lanczos4", "linear"])
+def test_preprocess_crops_card_equals_cpu(cuda, interpolation):
+    from synergynet_tpu_torch.pipeline import preprocess_crops
+    img = _frame((720, 1088), 3)
+    got = preprocess_crops(img, _edge_rois(), interpolation, device=cuda)
+    want = preprocess_crops(img, _edge_rois(), interpolation, device="cpu")
+    assert got.shape == (10, 120, 120, 3) and np.array_equal(got, want)
+
+
+@pytest.fixture(scope="module")
+def apis_card_cpu(cuda):
+    from synergynet_tpu_torch.pipeline import SynergyNet3DMM
+    return (SynergyNet3DMM("trained", device=cuda),
+            SynergyNet3DMM("trained", device="cpu"))
+
+
+RECTS8 = [[60.0 + 130 * i, 80.0 + 60 * (i % 3), 180.0 + 130 * i,
+           230.0 + 60 * (i % 3), 0.9] for i in range(8)]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("interpolation", ["lanczos4", "linear"])
+def test_get_all_outputs_card_matches_cpu(cuda, apis_card_cpu,
+                                          interpolation):
+    """The API's default precision, f32 with TF32 off: the card's faces
+    within CHAIN of the CPU's, the dense decode through kernel B1."""
+    card, cpu = apis_card_cpu
+    img = _frame((720, 1088), 5)
+    before = decode_dense_fused.launches
+    got = card.get_all_outputs(img, rects=RECTS8,
+                               interpolation=interpolation)
+    assert decode_dense_fused.launches == before + 1
+    want = cpu.get_all_outputs(img, rects=RECTS8,
+                               interpolation=interpolation)
+    assert len(got[0]) == len(want[0]) == 8
+    for i in range(8):
+        np.testing.assert_allclose(got[0][i], want[0][i], **CHAIN)
+        np.testing.assert_allclose(got[1][i], want[1][i], **CHAIN)
+        for k in range(2):
+            np.testing.assert_allclose(got[2][i][k], want[2][i][k], **CHAIN)
+
+
+@pytest.fixture(scope="module")
+def bfm_faces(apis_card_cpu):
+    """Three BFM meshes decoded on the CPU (the third overlapping the
+    others) on a 240x320 frame, and the topology."""
+    _, cpu = apis_card_cpu
+    img = _frame((240, 320), 0)
+    rects = [[40., 50., 140., 160.], [150., 60., 240., 150.],
+             [100., 100., 200., 200.]]
+    _, verts, _ = cpu.get_all_outputs(img, rects=rects)
+    return img, verts, load_param_pack().tri.numpy()
+
+
+def _assert_render_close(got, want, bg):
+    """The same pixels drawn (the raster kernel equals its twin bit for
+    bit); colours within one uint8 step (the light's last bit can differ
+    between the card's and the CPU's reductions)."""
+    assert np.array_equal((got != bg).any(-1), (want != bg).any(-1))
+    assert np.abs(got.astype(int) - want.astype(int)).max() <= 1
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("textured", [False, True])
+def test_render_pipeline_card_equals_cpu(cuda, bfm_faces, textured):
+    from synergynet_tpu_torch.render import (OVERLAY_LIGHT_CFG,
+                                             RenderPipeline, rasterize_mesh)
+    img, verts, tri = bfm_faces
+    v = np.ascontiguousarray(verts[0].T)
+    tex = (np.random.default_rng(1).uniform(0, 1, v.shape).astype(np.float32)
+           if textured else None)
+    before = rasterize_mesh.launches
+    got = RenderPipeline(device=cuda, **OVERLAY_LIGHT_CFG)(v, tri.T, img,
+                                                           texture=tex)
+    assert rasterize_mesh.launches == before + 1
+    want = RenderPipeline(device="cpu", **OVERLAY_LIGHT_CFG)(v, tri.T, img,
+                                                             texture=tex)
+    _assert_render_close(got, want, img)
+
+
+@pytest.mark.gpu
+def test_render_overlay_card_equals_cpu(cuda, bfm_faces):
+    from synergynet_tpu_torch.render import (OVERLAY_LIGHT_CFG,
+                                             RenderPipeline, rasterize_mesh,
+                                             render_overlay)
+    img, verts, tri = bfm_faces
+    before = rasterize_mesh.launches
+    ov, solid = render_overlay(img, verts, tri)     # the default: the card
+    assert rasterize_mesh.launches == before + len(verts)
+    ov_c, solid_c = render_overlay(img, verts, tri, pipeline=RenderPipeline(
+        device="cpu", **OVERLAY_LIGHT_CFG))
+    _assert_render_close(solid, solid_c, img)
+    assert np.abs(ov.astype(int) - ov_c.astype(int)).max() <= 1
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("bilinear", [True, False])
+def test_render_texture_card_equals_cpu(cuda, bfm_faces, bilinear):
+    from synergynet_tpu_torch.pipeline import UVTextureMapper
+    from synergynet_tpu_torch.render import rasterize_mesh, render_texture
+    img, verts, tri = bfm_faces
+    m = UVTextureMapper.synthetic(verts[0].shape[1])
+    uv = (np.stack([m.coord_v, m.coord_u], 1) / 255.0).astype(np.float32)
+    tex = np.random.default_rng(2).integers(0, 256, (256, 256, 3), np.uint8)
+    v = np.ascontiguousarray(verts[0].T)
+    before = rasterize_mesh.launches
+    got = render_texture(v, tri.T, uv, tex, img, alpha=0.8, bilinear=bilinear,
+                         device=cuda)
+    assert rasterize_mesh.launches == before + 1
+    want = render_texture(v, tri.T, uv, tex, img, alpha=0.8,
+                          bilinear=bilinear, device="cpu")
+    assert np.array_equal(got, want)
+
+
+@pytest.mark.gpu
+def test_rasterize_apis_card_equal_cpu(cuda, bfm_faces):
+    """rasterize / rasterize_tiled (B2) and rasterize_triangles (B3) on the
+    card equal their CPU twins bit for bit, on all three meshes at once."""
+    from synergynet_tpu_torch.render import (rasterize, rasterize_mesh,
+                                             rasterize_mesh_ids,
+                                             rasterize_tiled,
+                                             rasterize_triangles)
+    img, verts, tri = bfm_faces
+    n = tri.shape[1]
+    v = np.concatenate([x.T for x in verts]).astype(np.float32)
+    t = np.concatenate([tri.T + i * verts[0].shape[1]
+                        for i in range(len(verts))]).astype(np.int32)
+    c = np.random.default_rng(4).uniform(0, 1, v.shape).astype(np.float32)
+    assert t.shape == (3 * n, 3)
+    b2, b3 = rasterize_mesh.launches, rasterize_mesh_ids.launches
+    for fn in (rasterize, rasterize_tiled):
+        got = fn(v, t, c, bg=img, alpha=0.7, reverse=True, device=cuda)
+        assert np.array_equal(got, fn(v, t, c, bg=img, alpha=0.7,
+                                      reverse=True, device="cpu"))
+    got = rasterize_triangles(v, t, h=240, w=320, device=cuda)
+    want = rasterize_triangles(v, t, h=240, w=320, device="cpu")
+    for g, w_ in zip(got, want):
+        assert torch.equal(g.cpu(), w_)
+    assert rasterize_mesh.launches == b2 + 2
+    assert rasterize_mesh_ids.launches == b3 + 1
+
+
+BOXES = dict(rtol=1e-4, atol=0.05)      # f32 logits' 1e-4 through exp(0.2 x)
+
+
+@pytest.mark.gpu
+def test_host_detector_card_matches_cpu(cuda):
+    """The default detector (f32, TF32 off) on the card gives the CPU's
+    faces: equal counts, boxes within BOXES, scores within 1e-4, on a
+    720x1088 frame whose candidate scores all keep 1e-3 clear of the
+    visibility threshold."""
+    from synergynet_tpu_torch.detect import FaceBoxes
+    from synergynet_tpu_torch.detect.detector import (VIS_THRESHOLD,
+                                                      prepare_frame)
+    card, cpu = FaceBoxes(device=cuda), FaceBoxes(device="cpu")
+    img = _frame((720, 1088), 5)
+    _, packed, true_hw, _ = prepare_frame(img, 8, "cpu")
+    with torch.inference_mode():
+        scores, _ = cpu.candidates(packed[None], true_hw[None])
+    assert (scores[scores > 0] - VIS_THRESHOLD).abs().min() > 1e-3
+    got, n = card.detect_raw(img)
+    want, n_cpu = cpu.detect_raw(img)
+    assert n == n_cpu > 0 and got.shape == want.shape
+    np.testing.assert_allclose(got[:n, :4], want[:n, :4], **BOXES)
+    np.testing.assert_allclose(got[:n, 4], want[:n, 4], rtol=0, atol=1e-4)
+    assert card(img) == [list(map(float, got[i])) for i in range(n)]
+
+
+@pytest.mark.gpu
+def test_host_detector_launches_the_stem_kernel(cuda):
+    """FaceBoxes(stem_mode="pallas").__call__ runs kernel B4 once per frame,
+    which gives its twin's stem on the CPU for the call's own stem input;
+    its faces agree with the XLA stem's within bf16's rounding."""
+    from synergynet_tpu_torch.detect import FaceBoxes
+    from synergynet_tpu_torch.detect.detector import (prepare_frame,
+                                                      random_init_variables)
+    from synergynet_tpu_torch.detect.stem_fused import (
+        fused_stem1_s2d8, fused_stem1_s2d8_reference)
+    variables = random_init_variables(0)
+    dets = {mode: FaceBoxes(variables, dtype=torch.bfloat16, device=cuda,
+                            stem_mode=mode) for mode in ("xla", "pallas")}
+    img = _frame((480, 640), 8)
+    before = fused_stem1_s2d8.launches
+    faces = dets["pallas"](img)
+    assert fused_stem1_s2d8.launches == before + 1
+    raw, count = dets["pallas"].detect_raw(img)
+    assert raw.shape == (750, 5) and count == len(faces) > 0
+    assert np.isfinite(raw).all()
+    xla = dets["xla"](img)
+    assert fused_stem1_s2d8.launches == before + 2
+    assert abs(len(xla) - len(faces)) <= max(2, len(faces) // 20)
+    stem = dets["pallas"].net.conv1_s2d8
+    _, packed, _, _ = prepare_frame(img, 8, cuda)
+    x = (packed[None] - dets["pallas"].mean).to(torch.bfloat16)
+    with torch.inference_mode():
+        got = fused_stem1_s2d8(x, stem.tap_weights(), stem.bias.detach())
+        want = fused_stem1_s2d8_reference(x.cpu(), stem.tap_weights().cpu(),
+                                          stem.bias.detach().cpu())
+    torch.testing.assert_close(got.cpu().float(), want.float(), **STEM_TOL)

@@ -32,7 +32,12 @@ MODULES = [
     "synergynet_tpu_torch.detect.stem_fused",
     "synergynet_tpu_torch.pipeline",
     "synergynet_tpu_torch.pipeline.overlay_engine",
+    "synergynet_tpu_torch.pipeline.outputs",
+    "synergynet_tpu_torch.mm3d.crop",
+    "synergynet_tpu_torch.ops.resize",
     "synergynet_tpu_torch.render",
+    "synergynet_tpu_torch.render.overlay",
+    "synergynet_tpu_torch.render.texture",
     "synergynet_tpu_torch.losses",
     "synergynet_tpu_torch.nn.batchnorm",
     "synergynet_tpu_torch.nn.pointnet",
@@ -91,9 +96,20 @@ def test_no_jax_import_in_sources(root):
 
 
 def test_entry_points_default_to_the_card(monkeypatch):
-    from synergynet_tpu_torch.detect import FaceBoxes
-    from synergynet_tpu_torch.pipeline import SynergyNet3DMM, prepare_frame
-    for fn in (SynergyNet3DMM, FaceBoxes, prepare_frame):
+    import numpy as np
+    from synergynet_tpu_torch.detect import FaceBoxes, nms_indices, soft_nms
+    from synergynet_tpu_torch.pipeline import (SynergyNet3DMM, prepare_frame,
+                                               preprocess_crops)
+    from synergynet_tpu_torch.render import (RenderPipeline, rasterize,
+                                             rasterize_buffers,
+                                             rasterize_texture_buffers,
+                                             rasterize_tiled,
+                                             rasterize_triangles,
+                                             render_overlay, render_texture)
+    for fn in (SynergyNet3DMM, FaceBoxes, prepare_frame, preprocess_crops,
+               nms_indices, soft_nms, RenderPipeline, rasterize, rasterize_buffers,
+               rasterize_tiled, rasterize_triangles, render_texture,
+               rasterize_texture_buffers):
         assert inspect.signature(fn).parameters["device"].default == "cuda"
     # With no card, asking for one raises instead of running on the CPU.
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
@@ -104,8 +120,35 @@ def test_entry_points_default_to_the_card(monkeypatch):
         FaceBoxes()
     with pytest.raises(RuntimeError, match="no CUDA card"):
         SynergyNet3DMM(variables="trained")
+    with pytest.raises(RuntimeError, match="no CUDA card"):
+        SynergyNet3DMM()
+    roi = [np.array([0.0, 0.0, 8.0, 8.0])]
+    with pytest.raises(RuntimeError, match="no CUDA card"):
+        preprocess_crops(img, roi)
+    for fn in (nms_indices, soft_nms):
+        with pytest.raises(RuntimeError, match="no CUDA card"):
+            fn(np.ones((2, 5), np.float32))
+    verts = np.asarray([[1, 1, 1], [9, 1, 1], [1, 9, 1]], np.float32)
+    tris = np.asarray([[0, 1, 2]], np.int32)
+    with pytest.raises(RuntimeError, match="no CUDA card"):
+        RenderPipeline()
+    with pytest.raises(RuntimeError, match="no CUDA card"):
+        render_overlay(img, [verts.T], tris.T)
+    for fn in (rasterize, rasterize_tiled):
+        with pytest.raises(RuntimeError, match="no CUDA card"):
+            fn(verts, tris, verts, bg=img)
+    with pytest.raises(RuntimeError, match="no CUDA card"):
+        rasterize_buffers(verts, tris, verts, h=16, w=16)
+    with pytest.raises(RuntimeError, match="no CUDA card"):
+        rasterize_triangles(verts, tris, h=16, w=16)
+    with pytest.raises(RuntimeError, match="no CUDA card"):
+        render_texture(verts, tris, verts[:, :2], img, img)
+    with pytest.raises(RuntimeError, match="no CUDA card"):
+        rasterize_texture_buffers(verts, tris, verts[:, :2], img, h=16, w=16)
     canvas, _, _, _ = prepare_frame(img, 8, device="cpu")
     assert canvas.device.type == "cpu"
+    assert rasterize(verts, tris, verts, bg=img, device="cpu").shape == \
+        img.shape
 
 
 @pytest.mark.parametrize("flags", [(True, True), (False, True),

@@ -253,7 +253,7 @@ def test_prepare_frame_matches_cv2_on_oversized_frames(hw, kind):
     (``cv2.resize``, INTER_LINEAR's fixed point) bit for bit, and the
     overlay's scale back to the frame's size equals ``cv2.resize``'s."""
     import cv2
-    from synergynet_tpu_torch.pipeline.api import _resize_linear
+    from synergynet_tpu_torch.ops.resize import _resize_linear
     img = _oversized(hw, kind)
     jc, jp, jhw, js = jax_prepare_frame(img, 8)
     tc, tp, thw, ts = prepare_frame(img, 8, device="cpu")
