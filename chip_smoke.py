@@ -94,7 +94,22 @@ each fatal on failure:
    dots crops and ``fit_resident_generative`` on 16,384 shaded parameters,
    2 epochs each, the second under ``set_sync_debug_mode("error")`` up to
    its one metrics read, with epoch ms, crops/s and peak memory; and
-   ``python -m synergynet_tpu_torch.cli.train --resident`` for one epoch.
+   ``python -m synergynet_tpu_torch.cli.train --resident`` for one epoch;
+10. the packaged two-stage API and the host renders (``api_phase``):
+   launches of B1-B4 over its calls, each held against the CPU or its twin;
+11. model families and reference weights (``families_phase``): for
+   ``mobilenet_1``, ``resnet50``, ``resnext50_32x4d``, ``ghostnet``,
+   ``resnest50`` and ``mobilenet_v2_1.4``, a reference-layout
+   ``best.pth.tar`` made from a seed and imported through
+   ``nn/torch_import.py``; ``get_all_outputs`` with 8 rects in f32 (TF32
+   off) against the CPU and ``FusedFrameEngine.process_batch`` at 128
+   frames in bf16, B1 launched in each, with ms per call and faces/s; a
+   seeded ``FaceBoxesProd.pth`` through ``FaceBoxes(weights_path=...)``
+   in f32 with the fused stem (B4's f32 entry launched), with stem_r=4 and
+   with the 3-channel stem, each against the CPU face for face; B4's f32
+   entry against its twin (within 1e-5 of the output's largest
+   magnitude), cuDNN's f32 conv with TF32 off and its bound at 1 and 128
+   frames.
 
 Prints the kernels as one JSON line (each with its launches on its path,
 error against its twin, kernel, plain and library ms, and the least time
@@ -1275,6 +1290,242 @@ def api_phase(torch, dev, card):
             "drawn_share": float(drawn.mean()), "seconds": secs}
 
 
+# -- 11. model families and reference weights ---------------------------------
+
+# One representative of each backbone family at its published widths.
+FAMILY_ARCHS = ("mobilenet_1", "resnet50", "resnext50_32x4d", "ghostnet",
+                "resnest50", "mobilenet_v2_1.4")
+# The detector phase's parity frame: seeded reference-layout weights
+# (seed 0) on this 120x160 frame keep every candidate score more than 1e-3
+# from the 0.5 visibility threshold (checked in the run), so the card's
+# and the CPU's detections can be held face for face.
+DET_FRAME = ((120, 160), 1)
+# B4's f32 entry against its twin: both sum 768 f32 products, in another
+# order; no worse than 1e-5 of the output's largest magnitude.
+STEM_F32_REL = 1e-5
+
+
+def families_phase(torch, dev, card, frames, frames_s2d, hws, det_bf16):
+    """Every backbone family and the reference weights on the card (phase
+    11): for each of ``FAMILY_ARCHS`` a reference-layout ``best.pth.tar``
+    made from a seed and loaded through ``nn/torch_import``, served by
+    ``SynergyNet3DMM`` (``get_all_outputs`` with 8 rects in f32, TF32
+    off, against the CPU) and ``FusedFrameEngine.process_batch`` at 128
+    frames in bf16, B1 launched in each; the detector from a seeded
+    ``FaceBoxesProd.pth`` in f32 with the fused stem (B4's f32 entry),
+    stem_r=4 and the 3-channel stem, each against the CPU face for face;
+    and B4's f32 entry against its twin, cuDNN's f32 conv with TF32 off
+    and its bound at 1 and 128 frames. Returns the numbers for the JSON
+    line."""
+    import torch.nn.functional as F
+
+    from synergynet_tpu_torch.detect import FaceBoxes
+    from synergynet_tpu_torch.detect.detector import (VIS_THRESHOLD,
+                                                      prepare_frame)
+    from synergynet_tpu_torch.detect.stem_fused import (
+        fused_stem1_s2d8, fused_stem1_s2d8_reference)
+    from synergynet_tpu_torch.detect.torch_import import \
+        seeded_faceboxes_state_dict
+    from synergynet_tpu_torch.mm3d import rescale_to_roi
+    from synergynet_tpu_torch.mm3d.codec import full_fp32
+    from synergynet_tpu_torch.nn.torch_import import (
+        expected_torch_shapes, load_synergynet_variables,
+        seeded_torch_state_dict)
+    from synergynet_tpu_torch.ops.fused_decode import (
+        decode_dense_fused, decode_dense_fused_reference)
+    from synergynet_tpu_torch.mm3d import load_param_pack
+    from synergynet_tpu_torch.pipeline import (FusedFrameEngine,
+                                               SynergyNet3DMM)
+
+    t_phase = time.perf_counter()
+    ch, cw = CANVAS
+    pack = load_param_pack()
+    img = np.random.default_rng(API_FRAME_SEED).integers(0, 256, (ch, cw, 3),
+                                                         np.uint8)
+    tmp = os.path.join(os.path.dirname(os.path.abspath(__file__)), "build",
+                       "chip_smoke_weights")
+    os.makedirs(tmp, exist_ok=True)
+    families = {}
+    b = frames.shape[0]
+    for i, arch in enumerate(FAMILY_ARCHS):
+        t0 = time.perf_counter()
+        sd = seeded_torch_state_dict(expected_torch_shapes(arch), 10 + i)
+        path = os.path.join(tmp, f"{arch}.pth.tar")
+        torch.save({"state_dict": {"module." + k: v for k, v in sd.items()}},
+                   path)
+        tree = load_synergynet_variables(path, arch=arch)
+        api32 = SynergyNet3DMM(tree, arch=arch, pack=pack, device=dev)
+        api16 = SynergyNet3DMM(tree, arch=arch, dtype=torch.bfloat16,
+                               pack=pack, device=dev)
+        eng = FusedFrameEngine(api16, detector=det_bf16, max_faces=FACES)
+        # The family's own calls: launches over these only.
+        decode_dense_fused.launches = 0
+        got = api32.get_all_outputs(img, rects=API_RECTS)
+        out = eng.process_batch(frames, frames_s2d, hws)
+        torch.cuda.synchronize()
+        launches = decode_dense_fused.launches
+        if launches <= 0:
+            fail(f"phase 11 {arch}: never launched kernel B1")
+        want = SynergyNet3DMM(tree, arch=arch, pack=pack,
+                              device="cpu").get_all_outputs(
+                                  img, rects=API_RECTS)
+        if [len(x) for x in got] != [FACES] * 3:
+            fail(f"phase 11 {arch}: get_all_outputs gave "
+                 f"{[len(x) for x in got]} faces")
+        err = 0.0
+        for g, w_ in zip(got[0] + got[1] + [t for p in got[2] for t in p],
+                         want[0] + want[1] + [t for p in want[2] for t in p]):
+            if not np.isfinite(g).all():
+                fail(f"phase 11 {arch}: non-finite get_all_outputs")
+            np.testing.assert_allclose(g, w_, **CHAIN_TOL)
+            err = max(err, float(np.abs(g - w_).max()))
+        shapes = [tuple(x.shape) for x in out]
+        if shapes[3] != (b, FACES, 62) or shapes[5] != (b, FACES, 3, 53215):
+            fail(f"phase 11 {arch}: process_batch shapes {shapes}")
+        if not all(torch.isfinite(x).all() for x in out[2:]):
+            fail(f"phase 11 {arch}: non-finite process_batch outputs")
+        # B1 against its twin on the path's own param62, in the decode's
+        # units (the kernel's tolerance), and the path's dense mesh equal to
+        # the kernel's output rescaled to the rois.
+        with torch.inference_mode():
+            flat_p, flat_r = out[3].reshape(-1, 62), out[2].reshape(-1, 4)
+            kern = decode_dense_fused(flat_p, api16.basis, api16.pack_dev)
+            ref = decode_dense_fused_reference(flat_p, api16.basis,
+                                               api16.pack_dev)
+            torch.testing.assert_close(kern, ref, rtol=RTOL, atol=ATOL)
+            if not torch.equal(out[5].reshape(kern.shape),
+                               rescale_to_roi(kern, flat_r)):
+                fail(f"phase 11 {arch}: process_batch's dense mesh differs "
+                     "from B1's output rescaled to its rois")
+        del out, kern, ref
+        ms_api = time_ms(lambda: api32.get_all_outputs(img, rects=API_RECTS),
+                         5, torch)
+        ms_b = time_ms(lambda: eng.process_batch(frames, frames_s2d, hws), 3,
+                       torch)
+        families[arch] = {
+            "params_m": sum(v.numel() for v in sd.values()) / 1e6,
+            "launches_b1": launches, "card_vs_cpu_err": err,
+            "get_all_outputs_ms": ms_api,
+            "get_all_outputs_faces_per_s": FACES / ms_api * 1e3,
+            "process_batch_ms": ms_b,
+            "process_batch_faces_per_s": b * FACES / ms_b * 1e3}
+        log(f"phase 11 {arch} ({families[arch]['params_m']:.1f}M values in "
+            f"a seeded best.pth.tar, imported): B1 launched "
+            f"{launches} times; get_all_outputs 8 rects f32 (TF32 off) card "
+            f"vs CPU max |difference| {err:.3e} (rtol {CHAIN_TOL['rtol']}, "
+            f"atol {CHAIN_TOL['atol']}), {ms_api:.3f} ms per call, "
+            f"{FACES / ms_api * 1e3:.1f} faces/s; process_batch B={b} bf16 "
+            f"{ms_b:.3f} ms per call, {b * FACES / ms_b * 1e3:.1f} faces/s; "
+            f"{time.perf_counter() - t0:.1f} s | {card}")
+        del api32, api16, eng
+        torch.cuda.empty_cache()
+
+    # -- the detector from a seeded FaceBoxesProd.pth ------------------------
+    path = os.path.join(tmp, "FaceBoxesProd.pth")
+    torch.save({"module." + k: v for k, v in
+                seeded_faceboxes_state_dict(0).items()}, path)
+    (fh, fw), fseed = DET_FRAME
+    small = np.random.default_rng(fseed).integers(0, 256, (fh, fw, 3),
+                                                  np.uint8)
+    topologies = (("fused stem (B4 f32), stem_r=8", dict(stem_mode="pallas")),
+                  ("stem_r=4", dict(stem_r=4)),
+                  ("3-channel stem", dict(stem_s2d=False)))
+    detectors = {}
+    for name, kw in topologies:
+        det = FaceBoxes(weights_path=path, device=dev, **kw)
+        cpu = FaceBoxes(weights_path=path, device="cpu", **kw)
+        fused_stem1_s2d8.launches_f32 = 0
+        raw_g, n_g = det.detect_raw(small)
+        faces = det(small)
+        torch.cuda.synchronize()
+        f32_launches = fused_stem1_s2d8.launches_f32
+        if "pallas" in kw.values() and f32_launches <= 0:
+            fail("phase 11: the f32 fused-stem detector never launched B4's "
+                 "f32 entry")
+        _, packed_c, hw_c, _ = prepare_frame(small, cpu.stem_r, "cpu")
+        with torch.inference_mode():
+            s_cpu, _ = cpu.candidates(packed_c[None], hw_c[None])
+        margin = (s_cpu[s_cpu > 0] - VIS_THRESHOLD).abs().min().item()
+        if margin <= 1e-3:
+            fail(f"phase 11 detector {name}: the frame's candidate scores "
+                 f"come {margin:.2e} from the visibility threshold")
+        raw_c, n_c = cpu.detect_raw(small)
+        if not n_g == n_c == len(faces) > 0:
+            fail(f"phase 11 detector {name}: {n_g} faces on the card, {n_c} "
+                 "on the CPU")
+        np.testing.assert_allclose(raw_g[:n_g, :4], raw_c[:n_c, :4],
+                                   **BOX_TOL)
+        np.testing.assert_allclose(raw_g[:n_g, 4], raw_c[:n_c, 4], rtol=0,
+                                   atol=1e-4)
+        box_err = float(np.abs(raw_g[:n_g, :4] - raw_c[:n_c, :4]).max())
+        ms = time_ms(lambda: det(img), 5, torch)
+        detectors[name] = {"faces": n_g, "box_err_px": box_err,
+                           "score_margin": margin, "ms_720x1088": ms,
+                           "launches_f32": f32_launches}
+        log(f"phase 11 detector {name} (f32, from a seeded "
+            f"FaceBoxesProd.pth): {n_g} faces on {fh}x{fw}, card = CPU face "
+            f"for face (boxes within {box_err:.3e} px, scores 1e-4, "
+            f"{margin:.2e} clear of {VIS_THRESHOLD}); B4 f32 launches "
+            f"{f32_launches}; __call__ on {ch}x{cw} {ms:.3f} ms | {card}")
+    stem_det = FaceBoxes(weights_path=path, device=dev, stem_mode="pallas")
+
+    # -- B4's f32 entry vs its twin, cuDNN's f32 conv and the bound -----------
+    stem = stem_det.net.conv1_s2d8
+    k4, s_bias = stem.tap_weights(), stem.bias.detach()
+    flush_buf = torch.empty(256 * 2 ** 20, dtype=torch.uint8, device=dev)
+    stem_f32 = {}
+    with torch.inference_mode():
+        for nb in (1, b):
+            xb = (frames_s2d[:nb] - stem_det.mean).contiguous()
+            got = fused_stem1_s2d8(xb, k4, s_bias)
+            want = fused_stem1_s2d8_reference(xb, k4, s_bias)
+            torch.cuda.synchronize()
+            err = (got - want).abs().max().item()
+            scale = want.abs().max().item()
+            if not err <= STEM_F32_REL * scale:
+                fail(f"B4 f32 entry B={nb}: max_abs_err {err:.3e} > "
+                     f"{STEM_F32_REL} x {scale:.3e}")
+            del got, want
+            spread = time_spread(lambda: fused_stem1_s2d8(xb, k4, s_bias), 20,
+                                 torch, flush_buf.zero_)
+            plain = time_ms(lambda: fused_stem1_s2d8_reference(
+                xb, k4, s_bias), 5, torch, flush_buf.zero_)
+            # The library yardstick: cuDNN's f32 conv with bias on the
+            # pre-padded input, TF32 off, without the pool.
+            xpad = F.pad(xb.permute(0, 3, 1, 2), (1, 0, 1, 0)).contiguous(
+                memory_format=torch.channels_last)
+            with full_fp32():
+                lib = time_spread(lambda: F.conv2d(xpad, stem.weight,
+                                                   stem.bias),
+                                  20, torch, flush_buf.zero_)[1]
+            del xpad
+            npos = nb * xb.shape[1] * xb.shape[2]
+            s_bound = bound(4 * (xb.numel() + k4.numel() + npos * 48 + 192),
+                            2 * npos * 768 * 192 + 9 * npos * 48, F32_FLOPS)
+            stem_f32[nb] = {"ms": spread[1], "ms_min": spread[0],
+                            "ms_max": spread[2], "plain_ms": plain,
+                            "library_ms": lib, "bound_ms": s_bound[0],
+                            "bound_by": s_bound[1], "max_abs_err": err,
+                            "out_scale": scale}
+            log(f"stem_s2d8 f32 entry B={nb} ({tuple(xb.shape)} f32): "
+                f"max_abs_err {err:.3e} of {scale:.3e} (limit "
+                f"{STEM_F32_REL} of it) | kernel min/median/max "
+                f"{spread[0]:.4f} / {spread[1]:.4f} / {spread[2]:.4f} ms over "
+                f"20 | plain {plain:.4f} ms | cuDNN f32 conv (TF32 off) alone "
+                f"{lib:.4f} ms | bound {s_bound[0]:.4f} ms ({s_bound[1]}) | "
+                f"{s_bound[0] / spread[1]:.3f} of bound, "
+                f"{spread[1] / lib:.3f}x the cuDNN conv | {card}")
+            del xb
+    del flush_buf
+    torch.cuda.empty_cache()
+    secs = time.perf_counter() - t_phase
+    log(f"phase 11 (model families and reference weights): {secs:.1f} s")
+    return {"families": families, "detectors": detectors,
+            "stem_f32": {str(k): v for k, v in stem_f32.items()},
+            "launches_f32": detectors[topologies[0][0]]["launches_f32"],
+            "seconds": secs}
+
+
 def main():
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--profile", metavar="DIR",
@@ -1902,6 +2153,10 @@ def main():
     api_path = api_phase(torch, dev, card)
     api_launches = api_path["launches"]
 
+    # -- 11. model families and reference weights ------------------------------
+    fam = families_phase(torch, dev, card, frames, frames_s2d, hws, det)
+    sf = fam["stem_f32"]
+
     log(f"chip_smoke: all phases in {time.perf_counter() - t_start:.1f} s")
 
     ms8, plain8, lib8, bound8, _, spread8, entry8 = kernel_stats[FACES]
@@ -1975,14 +2230,32 @@ def main():
         "frames": BATCH, "ms_b1": stem_stats[1][0],
         "ms_min_b1": stem_stats[1][5][0], "ms_max_b1": stem_stats[1][5][2],
         "plain_ms_b1": stem_stats[1][1], "library_ms_b1": stem_stats[1][2],
-        "bound_ms_b1": stem_stats[1][3]}],
+        "bound_ms_b1": stem_stats[1][3]}, {
+        "name": "stem_s2d8_f32", "route": "cuda",
+        "source": "synergynet_tpu_torch/csrc/stem_s2d8.cu",
+        "replaces": "synergynet_tpu/detect/stem_pallas.py:76",
+        "entry": "B4's f32 entry, synergy_stem_s2d8_f32 (SIMT FMA)",
+        "launches": fam["launches_f32"],
+        "max_abs_err": max(v["max_abs_err"] for v in sf.values()),
+        "ms": sf[str(BATCH)]["ms"], "plain_ms": sf[str(BATCH)]["plain_ms"],
+        "bound_ms": sf[str(BATCH)]["bound_ms"],
+        "bound_by": sf[str(BATCH)]["bound_by"],
+        "library_ms": sf[str(BATCH)]["library_ms"],
+        "library": "F.conv2d f32 + bias (cuDNN, TF32 off), conv only, no "
+        "pool", "timing": spread_timing,
+        "ms_min": sf[str(BATCH)]["ms_min"], "ms_max": sf[str(BATCH)]["ms_max"],
+        "frames": BATCH, "ms_b1": sf["1"]["ms"], "ms_min_b1": sf["1"]["ms_min"],
+        "ms_max_b1": sf["1"]["ms_max"], "plain_ms_b1": sf["1"]["plain_ms"],
+        "library_ms_b1": sf["1"]["library_ms"],
+        "bound_ms_b1": sf["1"]["bound_ms"]}],
         "e2e_faces_per_s": {str(b): v[1] for b, v in e2e.items()},
         "e2e_ms": {str(b): v[0] for b, v in e2e.items()},
         "e2e_fused_stem_ms": {str(b): v[0] for b, v in e2e_p.items()},
         "stages_ms": stages, "overlay_ms": overlay_ms,
         "overlay_stages_ms": ov_stages, "raster_path_ms": raster_ms,
         "raster_ab": raster_turns, "training": training,
-        "data_path": data_path, "api_host_render": api_path}),
+        "data_path": data_path, "api_host_render": api_path,
+        "families": {k: v for k, v in fam.items() if k != "stem_f32"}}),
         flush=True)
     print(card, flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -2,7 +2,9 @@
 
 Counterpart of ``synergynet_tpu/cli/train.py`` with the same flags (the
 reference's ``main_train.py`` / ``train_script.sh``: mobilenet_v2, batch
-1024, lr 0.08, 80 epochs, milestones 48,64, warmup 5, 8 workers). It runs
+1024, lr 0.08, 80 epochs, milestones 48,64, warmup 5, 8 workers);
+``--arch`` takes any name of
+:func:`synergynet_tpu_torch.nn.available_backbones`. It runs
 on the card unless ``--platform cpu`` asks for the CPU. ``--resident``
 uploads the whole dataset to the device once and trains device-resident
 epochs (:func:`synergynet_tpu_torch.train.fit_resident`). The
@@ -23,7 +25,8 @@ PLATFORMS = {"cuda": "cuda", "gpu": "cuda", "cpu": "cpu"}
 def main(argv=None):
     p = argparse.ArgumentParser(description="SynergyNet training (PyTorch)")
     p.add_argument("--config", default=None, help="JSON config path")
-    p.add_argument("--arch", default=None)
+    p.add_argument("--arch", default=None,
+                   help="backbone: any name of nn.available_backbones()")
     p.add_argument("--batch-size", type=int, default=None)
     p.add_argument("--base-lr", type=float, default=None)
     p.add_argument("--epochs", type=int, default=None)

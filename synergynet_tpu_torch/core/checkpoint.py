@@ -15,7 +15,8 @@ rebuilds the nested flax tree with float32 leaves and
 :mod:`synergynet_tpu_torch.convert` turns it into the port's
 ``state_dict``. The file is read where the JAX package ships it,
 ``synergynet_tpu/assets/trained/``, by plain file access: the port never
-imports ``synergynet_tpu``.
+imports ``synergynet_tpu``. :func:`load_torch_state_dict` reads a reference
+PyTorch checkpoint for :mod:`synergynet_tpu_torch.nn.torch_import`.
 """
 
 from __future__ import annotations
@@ -135,3 +136,17 @@ def shipped_trained_path(arch: str = "mobilenet_v2") -> str:
             f"shipped trained asset missing at {path} — the synergynet_tpu "
             "package data is not beside this package")
     return path
+
+
+def load_torch_state_dict(path: str) -> Dict[str, np.ndarray]:
+    """A reference PyTorch checkpoint (``best.pth.tar``) -> its state_dict as
+    numpy arrays: a ``{"state_dict": ...}`` wrapper is unwrapped and any
+    DataParallel ``module.`` prefix stripped. Read as the JAX package reads
+    it, with ``torch.load(..., weights_only=False)``: the file is unpickled
+    whole, so load only checkpoints from a trusted source."""
+    import torch
+    ckpt = torch.load(path, map_location="cpu", weights_only=False)
+    if isinstance(ckpt, dict) and "state_dict" in ckpt:
+        ckpt = ckpt["state_dict"]
+    return {k.removeprefix("module."): v.detach().cpu().numpy()
+            for k, v in ckpt.items() if hasattr(v, "numpy")}

@@ -8,6 +8,9 @@
 //   bias  (192,)           f32
 //   out   (B, H8, W8, 48)  bf16
 //
+// A second entry, synergy_stem_s2d8_f32, takes x, w4 and out in f32 (the
+// JAX kernel runs in its input's dtype); its design is at stem_kernel_f32.
+//
 // Conv channel (2p+q)*48 + o is the stride-4 output phase (p, q) of pooled
 // channel o. Over x padded by one zero row on top and one zero column on the
 // left (F.pad(x, (1, 0, 1, 0))), conv(r, c) = sum over taps (a, b) of
@@ -426,6 +429,159 @@ EncodeTiled encode_tiled() {
   return fn;
 }
 
+// ---------------------------------------------------------------------------
+// The f32 entry: the same function on f32 frames, taps and output, with f32
+// products and an f32 accumulator, as the JAX Pallas stem computes on an f32
+// input. TF32 would keep 10 of the 23 mantissa bits, so the products stay on
+// the FMA units: at B = 128 frames the 462 GFLOP take at least 6.9 ms at
+// the card's 67 TFLOP/s f32 peak, against 0.3 ms for the 4x bytes, so the
+// FMA units' rate bounds it. A simple SIMT tiling: a block computes one 8 x 16
+// conv tile (7 x 15 pooled outputs with their halo row and column) for 16
+// pooled channels (64 conv channels), K streamed in 16-channel chunks of
+// the 9 x 17 window and of the four taps' weights through shared memory;
+// each thread holds 8 conv rows of one column x 8 conv channels in
+// registers, so each k step reads 18 window values and 4 x 8 weights for
+// 256 FMAs. The epilogue (+ bias, ReLU, the pool's zero pad) writes the f32
+// conv tile into the same shared memory and the pool reads it there: the
+// 4x-phase activation never reaches HBM.
+
+constexpr int F_TR = 7, F_TC = 15;          // pooled output tile
+constexpr int F_CR = F_TR + 1, F_CC = F_TC + 1;   // conv tile: 8 x 16
+constexpr int F_XR = F_TR + 2, F_XC = F_TC + 2;   // input window: 9 x 17
+constexpr int F_M = F_CR * F_CC;            // 128 conv positions
+constexpr int F_KC = 16;                    // input channels per K-chunk
+constexpr int F_XS = F_KC + 1;              // padded window row, in words
+constexpr int F_THREADS = F_CC * (NB / 8);  // 16 columns x 8 channel octets
+constexpr int F_CS = NB + 1;                // padded conv tile row, in words
+constexpr int F_X_WORDS = (F_XR * F_XC * F_XS + 3) / 4 * 4;  // 16-byte end
+constexpr int F_W_WORDS = 4 * F_KC * NB;
+constexpr int F_C_WORDS = F_M * F_CS;
+constexpr int F_SMEM_WORDS = F_X_WORDS + F_W_WORDS > F_C_WORDS
+                                 ? F_X_WORDS + F_W_WORDS
+                                 : F_C_WORDS;
+static_assert(CIN % F_KC == 0, "K-chunks tile the input channels");
+
+__global__ void __launch_bounds__(F_THREADS)
+stem_kernel_f32(const float* __restrict__ x, const float* __restrict__ w4,
+                const float* __restrict__ bias, float* __restrict__ out,
+                int h8, int w8) {
+  // Window chunk s_x[pos * F_XS + k] and taps s_w[(tap * F_KC + k) * NB + n]
+  // while the products run; the conv tile s_c[m * F_CS + n] after them.
+  __shared__ __align__(16) float smem[F_SMEM_WORDS];
+  float* s_x = smem;
+  float* s_w = smem + F_X_WORDS;
+  float* s_c = smem;
+
+  const int tid = threadIdx.x;
+  const int col = tid % F_CC;        // this thread's conv column
+  const int oct = tid / F_CC;        // its conv channels 8 oct .. 8 oct + 7
+  const int g = blockIdx.y;          // pooled channels 16g .. 16g + 15
+  const int ntr = (h8 + F_TR - 1) / F_TR, ntc = (w8 + F_TC - 1) / F_TC;
+  const int b = blockIdx.x / (ntr * ntc);
+  const int rem = blockIdx.x - b * ntr * ntc;
+  const int i0 = (rem / ntc) * F_TR, j0 = (rem % ntc) * F_TC;
+
+  float acc[F_CR][8];
+#pragma unroll
+  for (int r = 0; r < F_CR; ++r)
+#pragma unroll
+    for (int n = 0; n < 8; ++n) acc[r][n] = 0.0f;
+
+#pragma unroll 1
+  for (int c0 = 0; c0 < CIN; c0 += F_KC) {
+    __syncthreads();   // every thread is done with the previous chunk
+    // Window rows i0-2 .. i0+6, columns j0-2 .. j0+14; zero off the frame.
+    for (int i = tid; i < F_XR * F_XC * (F_KC / 4); i += F_THREADS) {
+      const int pos = i / (F_KC / 4), q = i % (F_KC / 4);
+      const int xr = pos / F_XC, xc = pos - xr * F_XC;
+      const int r = i0 - 2 + xr, c = j0 - 2 + xc;
+      float4 v = make_float4(0.0f, 0.0f, 0.0f, 0.0f);
+      if (r >= 0 && r < h8 && c >= 0 && c < w8)
+        v = *reinterpret_cast<const float4*>(
+            x + (((size_t)b * h8 + r) * w8 + c) * CIN + c0 + 4 * q);
+      float* d = s_x + pos * F_XS + 4 * q;
+      d[0] = v.x;
+      d[1] = v.y;
+      d[2] = v.z;
+      d[3] = v.w;
+    }
+    // Block channel n = ph*16 + o is conv channel ph*48 + 16g + o.
+    for (int i = tid; i < 4 * F_KC * NB / 4; i += F_THREADS) {
+      const int q = i % 4, ph = (i / 4) % 4, tk = i / 16;
+      const int tap = tk / F_KC, k = tk % F_KC;
+      *reinterpret_cast<float4*>(s_w + tk * NB + ph * CG + 4 * q) =
+          *reinterpret_cast<const float4*>(
+              w4 + ((size_t)tap * CIN + c0 + k) * (4 * COUT) + ph * COUT +
+              g * CG + 4 * q);
+    }
+    __syncthreads();
+    // conv(rr, col) reads window (rr + a, col + b) for tap (a, b).
+#pragma unroll 2
+    for (int k = 0; k < F_KC; ++k) {
+      float a[F_XR][2];
+#pragma unroll
+      for (int r = 0; r < F_XR; ++r)
+#pragma unroll
+        for (int bb = 0; bb < 2; ++bb)
+          a[r][bb] = s_x[(r * F_XC + col + bb) * F_XS + k];
+#pragma unroll
+      for (int tap = 0; tap < 4; ++tap) {
+        const float* wp = s_w + (tap * F_KC + k) * NB + oct * 8;
+        const float4 w0 = *reinterpret_cast<const float4*>(wp);
+        const float4 w1 = *reinterpret_cast<const float4*>(wp + 4);
+        const float wv[8] = {w0.x, w0.y, w0.z, w0.w, w1.x, w1.y, w1.z, w1.w};
+#pragma unroll
+        for (int r = 0; r < F_CR; ++r)
+#pragma unroll
+          for (int n = 0; n < 8; ++n)
+            acc[r][n] = fmaf(a[r + (tap >> 1)][tap & 1], wv[n], acc[r][n]);
+      }
+    }
+  }
+  __syncthreads();   // the conv tile overwrites the last chunk
+
+  // + bias, ReLU, zero the pool pad (conv row -1, conv column -1).
+  float bv[8];
+#pragma unroll
+  for (int n = 0; n < 8; ++n) {
+    const int nn = oct * 8 + n;
+    bv[n] = bias[(nn / CG) * COUT + g * CG + nn % CG];
+  }
+  const bool pad_col = j0 - 1 + col < 0;
+#pragma unroll
+  for (int r = 0; r < F_CR; ++r) {
+    const bool pad = pad_col || i0 - 1 + r < 0;
+#pragma unroll
+    for (int n = 0; n < 8; ++n)
+      s_c[(r * F_CC + col) * F_CS + oct * 8 + n] =
+          pad ? 0.0f : fmaxf(acc[r][n] + bv[n], 0.0f);
+  }
+  __syncthreads();
+
+  // Pool: output (ii, jj) reads conv rows ii (p1) and ii+1 (p0, p1), conv
+  // columns jj (q1) and jj+1 (q0, q1) of the tile; lanes take consecutive
+  // channels of one output.
+  for (int i = tid; i < F_TR * F_TC * CG; i += F_THREADS) {
+    const int o = i % CG, pos = i / CG;
+    const int ii = pos / F_TC, jj = pos - ii * F_TC;
+    const int oi = i0 + ii, oj = j0 + jj;
+    if (oi >= h8 || oj >= w8) continue;
+    auto at = [&](int ph, int r, int c) {
+      return s_c[(r * F_CC + c) * F_CS + ph * CG + o];
+    };
+    float v = at(2, ii, jj + 1);
+    v = fmaxf(v, at(0, ii + 1, jj + 1));
+    v = fmaxf(v, at(2, ii + 1, jj + 1));
+    v = fmaxf(v, at(3, ii, jj + 1));
+    v = fmaxf(v, at(1, ii + 1, jj + 1));
+    v = fmaxf(v, at(3, ii + 1, jj + 1));
+    v = fmaxf(v, at(3, ii, jj));
+    v = fmaxf(v, at(1, ii + 1, jj));
+    v = fmaxf(v, at(3, ii + 1, jj));
+    out[(((size_t)b * h8 + oi) * w8 + oj) * COUT + g * CG + o] = v;
+  }
+}
+
 }  // namespace
 
 // x (nb, h8, w8, 192) bf16, w4 (4, 192, 192) bf16, bias (192,) f32, out
@@ -473,5 +629,21 @@ extern "C" int synergy_stem_s2d8(const void* x, const void* w4,
   stem_kernel<<<grid, THREADS, SMEM_BYTES, static_cast<cudaStream_t>(stream)>>>(
       xmap, static_cast<const __nv_bfloat16*>(w4), bias,
       static_cast<__nv_bfloat16*>(out), nb, h8, w8);
+  return (int)cudaGetLastError();
+}
+
+// x (nb, h8, w8, 192) f32, w4 (4, 192, 192) f32, bias (192,) f32, out
+// (nb, h8, w8, 48) f32: contiguous, 16-byte aligned, on the current device.
+// Launches on `stream` and returns cudaGetLastError().
+extern "C" int synergy_stem_s2d8_f32(const float* x, const float* w4,
+                                     const float* bias, float* out, int nb,
+                                     int h8, int w8, void* stream) {
+  if (nb <= 0 || h8 <= 0 || w8 <= 0) return (int)cudaSuccess;
+  const long long ntiles = (long long)nb * ((h8 + F_TR - 1) / F_TR) *
+                           ((w8 + F_TC - 1) / F_TC);
+  if (ntiles > 0x7fffffffLL) return (int)cudaErrorInvalidValue;
+  const dim3 grid((unsigned)ntiles, GROUPS);
+  stem_kernel_f32<<<grid, F_THREADS, 0, static_cast<cudaStream_t>(stream)>>>(
+      x, w4, bias, out, h8, w8);
   return (int)cudaGetLastError();
 }

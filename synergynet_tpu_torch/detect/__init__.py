@@ -1,4 +1,5 @@
-"""Face detection: FaceBoxes net (folded s2d8), anchors, NMS, detector."""
+"""Face detection: FaceBoxes net (every topology), anchors, NMS, detector,
+and the reference checkpoint importer."""
 
 from synergynet_tpu_torch.detect.anchors import (  # noqa: F401
     generate_anchors, num_anchors, decode_boxes, STEPS, MIN_SIZES, VARIANCES,
@@ -8,5 +9,8 @@ from synergynet_tpu_torch.detect.nms import (  # noqa: F401
 )
 from synergynet_tpu_torch.detect.net import FaceBoxesNet  # noqa: F401
 from synergynet_tpu_torch.detect.detector import (  # noqa: F401
-    FaceBoxes, load_faceboxes_variables, select_detections,
+    FaceBoxes, select_detections,
+)
+from synergynet_tpu_torch.detect.torch_import import (  # noqa: F401
+    convert_torch_state_dict, load_faceboxes_variables,
 )

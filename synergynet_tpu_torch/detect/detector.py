@@ -1,9 +1,11 @@
-"""The FaceBoxes detector: the folded s2d8 net, its anchors on the fixed
-canvas, the folded weight tree, candidate selection and the host calls.
+"""The FaceBoxes detector: the net, its anchors on the fixed canvas, the
+weight tree in the topology it runs, candidate selection and the host calls.
 
 Counterpart of ``synergynet_tpu/detect/detector.py``: its thresholds, its
 canvas, ``_fit_scale``, the weight handling of ``FaceBoxes.__init__``
-(``:111-154``) for the stem_r=8 topology, ``select_detections``
+(``:92-160``: fold a raw tree and convert it to stem_r=8, take a folded or
+pre-converted tree, or run the stem_r=4 or 3-channel topology, folded or
+not), ``select_detections``
 (``:54-74``: top-k 2048, greedy NMS at 0.3, visibility > 0.5, compacted to
 ``KEEP_TOP_K``) and the host calls ``FaceBoxes.detect_raw`` and
 ``FaceBoxes.__call__`` (``:187-213``), which fit the frame onto the canvas
@@ -12,9 +14,12 @@ and run the net, the anchor decode and the selection on the detector's
 device. The serving engine's ``select_faces`` shares the selection
 (:func:`rank_and_keep`).
 
-Without weights, the detector loads the JAX package's cached conversion of
-the reference checkpoint (``<assets>/faceboxes.npz``) when one exists, and
-otherwise the JAX package's default init: flax's init from
+Weights come from ``variables``, from ``weights_path`` (a reference
+``FaceBoxesProd.pth`` or an ``.npz`` tree, through
+:mod:`synergynet_tpu_torch.detect.torch_import`), or by default
+(:func:`default_variables`): the JAX package's cached conversion of the
+reference checkpoint (``<assets>/faceboxes.npz``) when one exists, and
+otherwise the JAX package's default init, flax's init from
 ``PRNGKey(0)``, exported once into this package's data
 (``assets/faceboxes_flax_seed0.npz``, by
 ``scripts/export_faceboxes_seed0.py``), so both packages' default
@@ -31,12 +36,15 @@ from typing import List, Optional, Tuple
 import numpy as np
 import torch
 
-from synergynet_tpu_torch.convert import faceboxes_state_dict
+from synergynet_tpu_torch.convert import state_dict_from_flax
 from synergynet_tpu_torch.core.device import resolve_device
 from synergynet_tpu_torch.core.paths import asset_dir
 from synergynet_tpu_torch.detect.anchors import decode_boxes, generate_anchors
 from synergynet_tpu_torch.detect.net import (FaceBoxesNet, fold_bn_variables,
-                                             fold_to_s2d8, space_to_depth)
+                                             fold_to_s2d8, space_to_depth,
+                                             variables_to_s2d)
+from synergynet_tpu_torch.detect.torch_import import (
+    load_faceboxes_variables, load_variables_npz)
 from synergynet_tpu_torch.detect.nms import greedy_nms_mask
 from synergynet_tpu_torch.mm3d.codec import full_fp32
 from synergynet_tpu_torch.ops.resize import _resize_linear
@@ -55,7 +63,7 @@ NMS_TOP_K = 2048
 STEM_R = 8
 
 # The unfolded FaceBoxesNet tree: (module path, kh, kw, cin, cout).
-_BN_CONVS = (
+BN_CONVS = (
     ("conv1", 7, 7, 3, 24), ("conv2", 5, 5, 48, 64),
     *((f"inception{i}/{b}", k, k, cin, cout)
       for i in (1, 2, 3)
@@ -67,8 +75,8 @@ _BN_CONVS = (
     ("conv3_1", 1, 1, 128, 128), ("conv3_2", 3, 3, 128, 256),
     ("conv4_1", 1, 1, 256, 128), ("conv4_2", 3, 3, 128, 256),
 )
-_HEADS = (("loc0", 128, 84), ("conf0", 128, 42), ("loc1", 256, 4),
-          ("conf1", 256, 2), ("loc2", 256, 4), ("conf2", 256, 2))
+HEADS = (("loc0", 128, 84), ("conf0", 128, 42), ("loc1", 256, 4),
+         ("conf1", 256, 2), ("loc2", 256, 4), ("conf2", 256, 2))
 
 
 def _fit_scale(h: int, w: int) -> float:
@@ -165,29 +173,17 @@ def random_init_variables(seed: int = 0) -> dict:
             node = node.setdefault(p, {})
         node[path[-1]] = leaf
 
-    for name, kh, kw, cin, cout in _BN_CONVS:
+    for name, kh, kw, cin, cout in BN_CONVS:
         path = tuple(name.split("/"))
         put(params, path + ("conv", "kernel"), kernel(kh, kw, cin, cout))
         put(params, path + ("bn", "scale"), np.ones(cout, np.float32))
         put(params, path + ("bn", "bias"), np.zeros(cout, np.float32))
         put(stats, path + ("bn", "mean"), np.zeros(cout, np.float32))
         put(stats, path + ("bn", "var"), np.ones(cout, np.float32))
-    for name, cin, cout in _HEADS:
+    for name, cin, cout in HEADS:
         params[name] = {"kernel": kernel(3, 3, cin, cout),
                         "bias": np.zeros(cout, np.float32)}
     return {"params": params, "batch_stats": stats}
-
-
-def _load_npz_tree(path: str) -> dict:
-    tree: dict = {}
-    with np.load(path) as z:
-        for key in z.files:
-            node = tree
-            parts = key.split("/")
-            for p in parts[:-1]:
-                node = node.setdefault(p, {})
-            node[parts[-1]] = z[key]
-    return tree
 
 
 # The JAX package's ``random_init_variables(0)``
@@ -196,56 +192,85 @@ JAX_SEED0_INIT = os.path.join(os.path.dirname(os.path.dirname(
     os.path.abspath(__file__))), "assets", "faceboxes_flax_seed0.npz")
 
 
-def load_faceboxes_variables(seed: int = 0) -> dict:
+def default_variables(seed: int = 0) -> dict:
     """The JAX package's cached detector weights (``<assets>/faceboxes.npz``)
     when present; else, for ``seed`` 0, the JAX package's default init
     (:data:`JAX_SEED0_INIT`); else :func:`random_init_variables`."""
     cache = os.path.join(asset_dir(), "faceboxes.npz")
     if os.path.exists(cache):
-        return _load_npz_tree(cache)
+        return load_variables_npz(cache)
     if seed == 0:
-        return _load_npz_tree(JAX_SEED0_INIT)
+        return load_variables_npz(JAX_SEED0_INIT)
     return random_init_variables(seed)
 
 
-def to_folded_s2d8(variables: dict) -> dict:
-    """Any FaceBoxesNet tree -> the folded stem_r=8 tree, as
-    ``FaceBoxes.__init__`` converts it: a pre-converted tree as-is, a folded
-    tree (conv1 bias present) through :func:`fold_to_s2d8`, a raw tree
-    through :func:`fold_bn_variables` first."""
+def convert_for_topology(variables: dict, stem_s2d: bool = True,
+                         fold_bn: bool = True, stem_r: int = 8
+                         ) -> Tuple[dict, bool, int]:
+    """A FaceBoxesNet tree -> (tree, folded, stem_r) of the topology it
+    runs, as the JAX ``FaceBoxes.__init__`` decides: a pre-converted
+    ``conv1_s2d8`` tree as-is (it needs ``stem_s2d``); stem_r=8 from a 7x7
+    conv1 when folding (a raw tree folds first, a folded one, conv bias
+    present, converts directly); otherwise stem_r=4 (or 1 without
+    ``stem_s2d``), the 7x7 kernel re-laid out for s2d, folded when asked or
+    already folded."""
     params = variables["params"]
+    stem_r = stem_r if stem_s2d else 1
     if "conv1_s2d8" in params:
-        return variables
+        if not stem_s2d:
+            raise ValueError(
+                "the variable tree is pre-converted for the deep-s2d stem "
+                "(conv1_s2d8) but stem_s2d=False was requested — a 3-channel "
+                "net cannot apply it; pass stem_s2d=True or an unconverted "
+                "tree")
+        return variables, True, 8
     conv1 = params["conv1"]["conv"]
-    if np.shape(conv1["kernel"])[0] != 7:
-        raise ValueError("the stem_r=8 detector converts from the 7x7 stem "
-                         f"kernel, got {np.shape(conv1['kernel'])}")
-    if "bias" not in conv1:
+    seven = np.shape(conv1["kernel"])[0] == 7
+    already_folded = "bias" in conv1
+    if stem_r == 8 and fold_bn and seven:
+        if not already_folded:
+            variables = fold_bn_variables(variables)
+        return fold_to_s2d8(variables), True, 8
+    if stem_r == 8:
+        stem_r = 4
+    if stem_s2d and seven:
+        variables = variables_to_s2d(variables)
+    if fold_bn and not already_folded:
         variables = fold_bn_variables(variables)
-    return fold_to_s2d8(variables)
+    return variables, fold_bn or already_folded, stem_r
 
 
 class FaceBoxes:
-    """The detector: ``net`` (folded s2d8 :class:`FaceBoxesNet` on
-    ``device``, the card unless the caller asks for the CPU), ``anchors``
-    (A, 4) on ``device`` for the fixed canvas, and ``variables`` (the folded
-    flax-layout tree the net was loaded from). ``stem_mode="pallas"`` runs
-    the stem through the fused kernel (``csrc/stem_s2d8.cu``). Called on a
-    BGR uint8 frame, it returns the reference's ``[[x1, y1, x2, y2,
-    score], ...]``; construct once and reuse."""
-
-    stem_s2d = True
-    stem_r = STEM_R
+    """The detector: ``net`` (:class:`FaceBoxesNet` on ``device``, the card
+    unless the caller asks for the CPU), ``anchors`` (A, 4) on ``device``
+    for the fixed canvas, and ``variables`` (the flax-layout tree the net
+    was loaded from, in its topology). Weights: ``variables``, else
+    ``weights_path`` (a reference ``.pth`` or an ``.npz`` tree), else the
+    default weights for ``seed``. By default the tree is folded and
+    converted to the stem_r=8 net; ``fold_bn=False``, ``stem_r=4``,
+    ``stem_s2d=False`` or a tree already in one of those forms run that
+    topology (``stem_r`` is then 4, or 1 for the 3-channel stem).
+    ``stem_mode="pallas"`` runs the stem_r=8 stem through the fused kernel
+    (``csrc/stem_s2d8.cu``, bf16 or f32). Called on a BGR uint8 frame, it
+    returns the reference's ``[[x1, y1, x2, y2, score], ...]``; construct
+    once and reuse."""
 
     def __init__(self, variables: Optional[dict] = None,
-                 dtype: torch.dtype = torch.float32, device="cuda",
-                 stem_mode: Optional[str] = None, seed: int = 0):
+                 weights_path: Optional[str] = None,
+                 dtype: torch.dtype = torch.float32, stem_s2d: bool = True,
+                 fold_bn: bool = True, stem_r: int = STEM_R,
+                 stem_mode: Optional[str] = None, device="cuda",
+                 seed: int = 0):
         self.device = resolve_device(device)
         if variables is None:
-            variables = load_faceboxes_variables(seed)
-        self.variables = to_folded_s2d8(variables)
-        net = FaceBoxesNet(dtype=dtype, stem_mode=stem_mode)
-        net.load_state_dict(faceboxes_state_dict(self.variables))
+            variables = load_faceboxes_variables(weights_path, seed)
+        self.variables, self.fold_bn, self.stem_r = convert_for_topology(
+            variables, stem_s2d, fold_bn, stem_r)
+        self.stem_s2d = stem_s2d
+        net = FaceBoxesNet(dtype=dtype, stem_mode=stem_mode,
+                           stem_s2d=stem_s2d, folded=self.fold_bn,
+                           stem_r=self.stem_r if stem_s2d else 4)
+        net.load_state_dict(state_dict_from_flax(self.variables))
         self.net = net.to(self.device).eval()
         h, w = CANVAS
         self.anchors = torch.tensor(generate_anchors(h, w),
@@ -255,8 +280,8 @@ class FaceBoxes:
 
     def candidates(self, frames_s2d: torch.Tensor, true_hws: torch.Tensor
                    ) -> Tuple[torch.Tensor, torch.Tensor]:
-        """(B, CH/8, CW/8, 192) s2d frames + (B, 2) true extents ->
-        (scores (B, A) with -1 at ruled-out anchors: below
+        """(B, CH/r, CW/r, 3r^2) s2d frames (r = ``stem_r``) + (B, 2) true
+        extents -> (scores (B, A) with -1 at ruled-out anchors: below
         ``CONFIDENCE_THRESHOLD`` or centred in the canvas padding; boxes
         (B, A, 4) in canvas pixels, unclipped)."""
         ch, cw = CANVAS

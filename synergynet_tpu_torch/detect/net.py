@@ -1,22 +1,28 @@
-"""FaceBoxes detection CNN in the folded, stem_r=8 inference form.
+"""FaceBoxes detection CNN: the folded stem_r=8 serving form and the
+topologies that reference weights feed.
 
-Counterpart of the topology ``synergynet_tpu/detect/net.py`` runs on the
-serving path (``FaceBoxesNet(stem_s2d=True, folded=True, stem_r=8)``):
+Counterpart of ``synergynet_tpu/detect/net.py``'s ``FaceBoxesNet``:
 
-- ``conv1_s2d8`` (:class:`StemS2D8`): the 7x7/4 CRelu stem as a 2x2 conv
+- ``stem_s2d=True, stem_r=8`` (folded only, what serving runs):
+  ``conv1_s2d8`` (:class:`StemS2D8`), the 7x7/4 CRelu stem as a 2x2 conv
   over the space-to-depth(8) input with 4x phase-packed outputs, then the
   3x3/2 max-pool as shifted maxes over the phases
   (:func:`phase_maxpool_s2d8`); with ``stem_mode="pallas"`` the fused
   kernel of :mod:`synergynet_tpu_torch.detect.stem_fused` instead;
-- ``conv2``: the folded 5x5/2 CRelu (one channel-doubled conv + ReLU) and
-  a 3x3/2 max-pool;
-- three Inception blocks, ``conv3_*`` and ``conv4_*`` (folded conv + ReLU);
-- the loc/conf heads on the three sources.
+- ``stem_s2d=True, stem_r=4``: ``conv1`` a 2x2 CRelu over the
+  space-to-depth(4) input, padded ((1, 0), (1, 0));
+- ``stem_s2d=False``: ``conv1`` the reference's 3-channel 7x7/4 CRelu;
+- then, in all three, a 3x3/2 max-pool (the stem_r=8 stem has it inside),
+  the 5x5/2 CRelu ``conv2`` and a 3x3/2 max-pool, three Inception blocks,
+  ``conv3_*`` and ``conv4_*``, and the loc/conf heads on three sources.
 
-BatchNorm is folded into the convs (:func:`fold_bn_variables`), so the
-module holds only convs. Public tensors stay NHWC as in the JAX package;
-inside, activations are NCHW in ``channels_last`` memory. The numpy
-helpers at the end convert weight trees exactly as the JAX package does.
+``folded=True`` is the inference form with BatchNorm folded into the
+convs (:func:`fold_bn_variables`): a CRelu is one channel-doubled conv +
+ReLU, a ``BasicConv2d`` a conv with bias + ReLU. ``folded=False`` keeps
+the reference's ``conv`` + ``bn`` (+ ``cat[x, -x]`` in a CRelu) + ReLU.
+Public tensors stay NHWC as in the JAX package; inside, activations are
+NCHW in ``channels_last`` memory. The numpy helpers at the end convert
+weight trees exactly as the JAX package does.
 """
 
 from __future__ import annotations
@@ -28,37 +34,57 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from synergynet_tpu_torch.nn.batchnorm import BatchNorm
+
 NUM_CLASSES = 2
 ANCHORS_PER_CELL = (21, 1, 1)
 STEM_MODES = (None, "xla", "pallas")
 
 
-class FoldedConv(nn.Module):
-    """A BN-folded ``BasicConv2d`` or ``CRelu``: conv with bias + ReLU (the
-    CRelu's ``cat[x, -x]`` is already in the doubled kernel). Holds the conv
-    under ``conv`` as the flax tree does."""
+class ConvUnit(nn.Module):
+    """``BasicConv2d`` (conv + BN + ReLU) or, with ``crelu``, ``CRelu``
+    (conv + BN + ``cat[x, -x]`` + ReLU) under the flax names: ``conv`` and,
+    unfolded, ``bn``. Folded, the conv has a bias, BN is inside it, and a
+    CRelu's conv has ``2 * cout`` channels (``[a*K, -a*K]``), so the unit is
+    conv + ReLU. ``pad`` is an int (both sides) or F.pad's (left, right,
+    top, bottom)."""
 
     def __init__(self, cin: int, cout: int, kernel: int, stride: int = 1,
-                 pad: int = 0):
+                 pad=0, folded: bool = True, crelu: bool = False):
         super().__init__()
-        self.conv = nn.Conv2d(cin, cout, kernel, stride, pad, bias=True)
+        self.pad = pad if isinstance(pad, tuple) else None
+        self.crelu = crelu and not folded
+        conv_out = 2 * cout if crelu and folded else cout
+        self.conv = nn.Conv2d(cin, conv_out, kernel, stride,
+                              0 if self.pad else pad, bias=folded)
+        if not folded:
+            self.bn = BatchNorm(cout)
 
     def forward(self, x):
-        return F.relu(self.conv(x))
+        if self.pad:
+            x = F.pad(x, self.pad)
+        x = self.conv(x)
+        if hasattr(self, "bn"):
+            x = self.bn(x)
+        if self.crelu:
+            x = torch.cat([x, -x], dim=1)
+        return F.relu(x)
 
 
 class Inception(nn.Module):
-    """4-branch Inception block, 128 -> 128 channels, folded."""
+    """4-branch Inception block, 128 -> 128 channels."""
 
-    def __init__(self):
+    def __init__(self, folded: bool = True):
         super().__init__()
-        self.branch1x1 = FoldedConv(128, 32, 1)
-        self.branch1x1_2 = FoldedConv(128, 32, 1)
-        self.branch3x3_reduce = FoldedConv(128, 24, 1)
-        self.branch3x3 = FoldedConv(24, 32, 3, pad=1)
-        self.branch3x3_reduce_2 = FoldedConv(128, 24, 1)
-        self.branch3x3_2 = FoldedConv(24, 32, 3, pad=1)
-        self.branch3x3_3 = FoldedConv(32, 32, 3, pad=1)
+        unit = lambda cin, cout, k: ConvUnit(    # noqa: E731
+            cin, cout, k, pad=k // 2, folded=folded)
+        self.branch1x1 = unit(128, 32, 1)
+        self.branch1x1_2 = unit(128, 32, 1)
+        self.branch3x3_reduce = unit(128, 24, 1)
+        self.branch3x3 = unit(24, 32, 3)
+        self.branch3x3_reduce_2 = unit(128, 24, 1)
+        self.branch3x3_2 = unit(24, 32, 3)
+        self.branch3x3_3 = unit(32, 32, 3)
 
     def forward(self, x):
         b0 = self.branch1x1(x)
@@ -140,26 +166,37 @@ def check_stem_mode(stem_mode: Optional[str]) -> None:
 
 
 class FaceBoxesNet(nn.Module):
-    """Folded stem_r=8 FaceBoxes: (B, H/8, W/8, 192) mean-subtracted s2d8
-    BGR (NHWC) -> (loc (B, A, 4), conf (B, A, 2)) fp32 raw logits, with
-    anchors in :func:`synergynet_tpu_torch.detect.anchors.generate_anchors`
-    order."""
+    """(B, H/r, W/r, 3r^2) mean-subtracted BGR packed space-to-depth(r)
+    (r = 8 or 4 with ``stem_s2d``; the plain (B, H, W, 3) frame without),
+    NHWC -> (loc (B, A, 4), conf (B, A, 2)) fp32 raw logits, with anchors
+    in :func:`synergynet_tpu_torch.detect.anchors.generate_anchors` order.
+    ``stem_mode`` applies to the stem_r=8 stem."""
 
     def __init__(self, dtype: torch.dtype = torch.float32,
-                 stem_mode: Optional[str] = None):
+                 stem_mode: Optional[str] = None, stem_s2d: bool = True,
+                 folded: bool = True, stem_r: int = 8):
         super().__init__()
         check_stem_mode(stem_mode)
         self.dtype = dtype
         self.stem_mode = stem_mode
-        self.conv1_s2d8 = StemS2D8()
-        self.conv2 = FoldedConv(48, 128, 5, 2, 2)
-        self.inception1 = Inception()
-        self.inception2 = Inception()
-        self.inception3 = Inception()
-        self.conv3_1 = FoldedConv(128, 128, 1)
-        self.conv3_2 = FoldedConv(128, 256, 3, 2, 1)
-        self.conv4_1 = FoldedConv(256, 128, 1)
-        self.conv4_2 = FoldedConv(128, 256, 3, 2, 1)
+        self.s2d8 = stem_s2d and stem_r == 8
+        if self.s2d8:
+            if not folded:
+                raise ValueError("stem_r=8 requires the folded (inference) "
+                                 "topology")
+            self.conv1_s2d8 = StemS2D8()
+        elif stem_s2d:
+            self.conv1 = ConvUnit(48, 24, 2, 1, (1, 0, 1, 0), folded, True)
+        else:
+            self.conv1 = ConvUnit(3, 24, 7, 4, 3, folded, True)
+        self.conv2 = ConvUnit(48, 64, 5, 2, 2, folded, True)
+        self.inception1 = Inception(folded)
+        self.inception2 = Inception(folded)
+        self.inception3 = Inception(folded)
+        self.conv3_1 = ConvUnit(128, 128, 1, folded=folded)
+        self.conv3_2 = ConvUnit(128, 256, 3, 2, 1, folded)
+        self.conv4_1 = ConvUnit(256, 128, 1, folded=folded)
+        self.conv4_2 = ConvUnit(128, 256, 3, 2, 1, folded)
         for i, (cin, n) in enumerate(zip((128, 256, 256), ANCHORS_PER_CELL)):
             self.add_module(f"loc{i}", nn.Conv2d(cin, n * 4, 3, padding=1))
             self.add_module(f"conf{i}", nn.Conv2d(cin, n * NUM_CLASSES, 3,
@@ -169,7 +206,10 @@ class FaceBoxesNet(nn.Module):
     def forward(self, x: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
         x = x.permute(0, 3, 1, 2).to(self.dtype).contiguous(
             memory_format=torch.channels_last)
-        x = self.conv1_s2d8(x, self.stem_mode)
+        if self.s2d8:
+            x = self.conv1_s2d8(x, self.stem_mode)
+        else:
+            x = F.max_pool2d(self.conv1(x), 3, stride=2, padding=1)
         x = F.max_pool2d(self.conv2(x), 3, stride=2, padding=1)
         x = self.inception3(self.inception2(self.inception1(x)))
         src1 = x                                             # stride 32
@@ -218,6 +258,36 @@ def stem_kernel_to_s2d8(kernel7) -> np.ndarray:
                     oc = (2 * p + q) * cout
                     k2[a, b, ch:ch + cin, oc:oc + cout] = k7[ty, tx]
     return k2
+
+
+def stem_kernel_to_s2d(kernel7) -> np.ndarray:
+    """Exact re-layout of the 7x7/4 stem kernel (7, 7, 3, 24) HWIO into the
+    space-to-depth(4) 2x2 kernel (2, 2, 48, 24): tap (ty, tx) lands in block
+    (by, bx) at offset (dy, dx) with ty = 4*by + dy - 1 (the -1 absorbs the
+    original padding of 3 against the ((1, 0), (1, 0)) block padding);
+    taps at -1 are zero."""
+    k7 = np.asarray(kernel7)
+    cin, cout = k7.shape[2], k7.shape[3]
+    k2 = np.zeros((2, 2, 16 * cin, cout), k7.dtype)
+    for by in range(2):
+        for bx in range(2):
+            for dy in range(4):
+                for dx in range(4):
+                    ty, tx = 4 * by + dy - 1, 4 * bx + dx - 1
+                    if 0 <= ty < k7.shape[0] and 0 <= tx < k7.shape[1]:
+                        ch = (dy * 4 + dx) * cin
+                        k2[by, bx, ch:ch + cin] = k7[ty, tx]
+    return k2
+
+
+def variables_to_s2d(variables: dict) -> dict:
+    """A FaceBoxesNet tree with the 7x7 conv1 -> the stem_r=4 tree: only
+    conv1's kernel changes (a folded bias rides along)."""
+    params = dict(variables["params"])
+    conv = dict(params["conv1"]["conv"])
+    conv["kernel"] = stem_kernel_to_s2d(conv["kernel"])
+    params["conv1"] = dict(params["conv1"], conv=conv)
+    return dict(variables, params=params)
 
 
 def fold_to_s2d8(folded_variables: dict) -> dict:

@@ -6,15 +6,17 @@ compute, over the (B, H8, W8, 192) space-to-depth(8) frame, the 2x2 conv
 into the four stride-4 phases of 48 channels (f32 accumulation), + bias,
 ReLU, and the 3x3/2 max-pool as a phase-shifted max with a zero halo
 (:func:`~synergynet_tpu_torch.detect.net.phase_maxpool_s2d8`), rounded to
-the input's dtype once at the end. The 4x-phase conv activation stays in
-the kernel's shared memory.
+the input's dtype once at the end, in bf16 or f32 as the JAX kernel runs
+in its input's dtype. The 4x-phase conv activation stays in the kernel's
+shared memory.
 
 The JAX kernel's row-band budget and its fallback to the XLA stem exist
 because VMEM is small; the Hopper kernel takes any H8 and W8.
 
 :func:`fused_stem1_s2d8` launches the kernel on a CUDA tensor, or raises;
 on a CPU tensor it runs the plain twin :func:`fused_stem1_s2d8_reference`.
-``fused_stem1_s2d8.launches`` counts kernel launches.
+``fused_stem1_s2d8.launches`` counts the launches of the bf16 entry and
+``fused_stem1_s2d8.launches_f32`` those of the f32 entry.
 """
 
 from __future__ import annotations
@@ -32,6 +34,7 @@ from synergynet_tpu_torch.ops.cuda_build import (check_tensor,
 
 CIN = 192
 COUT = 48
+DTYPES = (torch.bfloat16, torch.float32)
 
 
 def taps_from_oihw(weight: torch.Tensor) -> torch.Tensor:
@@ -60,12 +63,12 @@ def fused_stem1_s2d8_reference(x: torch.Tensor, weight4: torch.Tensor,
 
 def _launch(x: torch.Tensor, weight4: torch.Tensor, bias: torch.Tensor
             ) -> torch.Tensor:
-    """Check what the kernel takes, allocate the output, launch on the
-    current stream. Raises on anything else; never falls back."""
+    """Check what the kernel takes, allocate the output, launch the entry
+    of ``x``'s dtype on the current stream. Raises on anything else; never
+    falls back."""
     dev = x.device
-    check_tensor("x", x, (torch.bfloat16,), (None, None, None, CIN), dev)
-    check_tensor("weight4", weight4, (torch.bfloat16,), (4, CIN, 4 * COUT),
-                 dev)
+    check_tensor("x", x, DTYPES, (None, None, None, CIN), dev)
+    check_tensor("weight4", weight4, (x.dtype,), (4, CIN, 4 * COUT), dev)
     check_tensor("bias", bias, (torch.float32, torch.bfloat16), (4 * COUT,),
                  dev)
     b, h8, w8, _ = x.shape
@@ -76,11 +79,13 @@ def _launch(x: torch.Tensor, weight4: torch.Tensor, bias: torch.Tensor
         if t.data_ptr() % 16:
             raise ValueError(f"{name} is not 16-byte aligned")
     require_sm90(dev, "stem")
-    fn = kernel_entry("stem_s2d8", "synergy_stem_s2d8",
+    f32 = x.dtype == torch.float32
+    fn = kernel_entry("stem_s2d8",
+                      "synergy_stem_s2d8_f32" if f32 else "synergy_stem_s2d8",
                       [ctypes.c_void_p] * 4 + [ctypes.c_int] * 3
                       + [ctypes.c_void_p])
     bias32 = bias.float().contiguous()
-    out = torch.empty((b, h8, w8, COUT), dtype=torch.bfloat16, device=dev)
+    out = torch.empty((b, h8, w8, COUT), dtype=x.dtype, device=dev)
     if out.numel() == 0:
         return out
     with torch.cuda.device(dev):
@@ -89,7 +94,10 @@ def _launch(x: torch.Tensor, weight4: torch.Tensor, bias: torch.Tensor
                 out.data_ptr(), b, h8, w8, stream)
     if rc != 0:
         raise RuntimeError(f"stem kernel launch failed: CUDA error {rc}")
-    fused_stem1_s2d8.launches += 1
+    if f32:
+        fused_stem1_s2d8.launches_f32 += 1
+    else:
+        fused_stem1_s2d8.launches += 1
     return out
 
 
@@ -97,9 +105,13 @@ def fused_stem1_s2d8(x: torch.Tensor, weight4: torch.Tensor,
                      bias: torch.Tensor, cout: int = COUT) -> torch.Tensor:
     """(B, H8, W8, 192) s2d8 frames + (4, 192, 4*cout) tap weights (see
     :func:`taps_from_oihw`) + (4*cout,) bias -> (B, H8, W8, cout) pooled
-    stem output, NHWC. On a CUDA tensor the kernel ``csrc/stem_s2d8.cu``
-    (bf16 in and out, cout = 48), or an error; on a CPU tensor the plain
-    twin, in ``x``'s dtype."""
+    stem output, NHWC, in ``x``'s dtype, bf16 or f32 (any other raises). On
+    a CUDA tensor the kernel ``csrc/stem_s2d8.cu`` (cout = 48): its bf16
+    entry, counted in ``fused_stem1_s2d8.launches``, or its f32 entry,
+    counted in ``fused_stem1_s2d8.launches_f32``; or an error. On a CPU
+    tensor the plain twin."""
+    if x.dtype not in DTYPES:
+        raise TypeError(f"x is {x.dtype}; the stem takes one of {DTYPES}")
     if x.device.type == "cuda":
         if cout != COUT:
             raise ValueError(f"the stem kernel is built for cout={COUT}, "
@@ -111,3 +123,4 @@ def fused_stem1_s2d8(x: torch.Tensor, weight4: torch.Tensor,
 
 
 fused_stem1_s2d8.launches = 0
+fused_stem1_s2d8.launches_f32 = 0

@@ -1,4 +1,5 @@
-"""Neural network modules: the MobileNetV2 backbone and SynergyNet."""
+"""Neural network modules: every backbone family, SynergyNet and the
+reference checkpoint importer (``nn.torch_import``)."""
 
 from synergynet_tpu_torch.nn.synergy import SynergyNet  # noqa: F401
 from synergynet_tpu_torch.nn.backbones import (  # noqa: F401

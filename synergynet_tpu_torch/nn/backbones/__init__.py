@@ -1,7 +1,10 @@
 """Backbone registry. Every backbone returns ``(param62, pooled_feat)``.
 
-Only ``mobilenet_v2`` (the shipped model) is ported so far; the JAX
-package's other backbones are later slices.
+The same names and factories as ``synergynet_tpu/nn/backbones/__init__.py``:
+MobileNetV2 at widths 1.0, 0.5 and 1.4; MobileNetV1 at six widen factors;
+GhostNet; the ResNet, ResNeXt and wide-ResNet variants; ResNeSt at four
+depths and its six "fast" ablations. Each factory takes ``dtype`` and
+``dropout`` (and the family's own options).
 """
 
 from __future__ import annotations
@@ -10,10 +13,25 @@ from typing import Callable, Dict
 
 from torch import nn
 
-from synergynet_tpu_torch.nn.backbones.mobilenet_v2 import MobileNetV2  # noqa: F401
+from synergynet_tpu_torch.nn.backbones.ghostnet import GhostNet
+from synergynet_tpu_torch.nn.backbones.mobilenet_v1 import MobileNetV1
+from synergynet_tpu_torch.nn.backbones.mobilenet_v2 import MobileNetV2
+from synergynet_tpu_torch.nn.backbones.resnest import (
+    RESNEST_FAST_VARIANTS, RESNEST_LAYERS, make_resnest)
+from synergynet_tpu_torch.nn.backbones.resnet import RESNET_LAYERS, make_resnet
 
 _REGISTRY: Dict[str, Callable[..., nn.Module]] = {
     "mobilenet_v2": MobileNetV2,
+    "mobilenet_v2_0.5": lambda **kw: MobileNetV2(width_mult=0.5, **kw),
+    "mobilenet_v2_1.4": lambda **kw: MobileNetV2(width_mult=1.4, **kw),
+    "mobilenet_1": MobileNetV1,
+    **{f"mobilenet_1_{w}": (lambda w=w, **kw: MobileNetV1(widen_factor=w,
+                                                            **kw))
+       for w in (0.25, 0.5, 0.75, 1.5, 2.0)},
+    "ghostnet": GhostNet,
+    **{n: (lambda n=n, **kw: make_resnet(n, **kw)) for n in RESNET_LAYERS},
+    **{n: (lambda n=n, **kw: make_resnest(n, **kw))
+       for n in (*RESNEST_LAYERS, *RESNEST_FAST_VARIANTS)},
 }
 
 

@@ -7,8 +7,8 @@ standard MobileNetV2 trunk, global average pool, and the 62-d head; returns
 ``ParamHead_0``), so :mod:`synergynet_tpu_torch.convert` maps a flax tree
 by path.
 
-Numerics follow flax in the compute dtype: convolutions and activations
-run in ``dtype`` (bf16 for serving and training) while the parameters,
+Numerics follow flax in the compute dtype (:mod:`~synergynet_tpu_torch.nn.
+layers`): convolutions and activations run in ``dtype`` (bf16 for serving and training) while the parameters,
 the BatchNorm statistics and the head stay fp32. Flax evaluates BatchNorm
 in fp32 and rounds once to the module dtype; ``F.batch_norm`` on a bf16
 input with fp32 statistics does the same in eval, and
@@ -26,6 +26,7 @@ from torch import nn
 
 from synergynet_tpu_torch.nn.batchnorm import BatchNorm
 from synergynet_tpu_torch.nn.heads import ParamHead
+from synergynet_tpu_torch.nn.layers import Conv2d, spatial_mean, to_nchw
 
 # (expand_ratio t, out_channels c, repeats n, stride s)
 _DEFAULT_SETTING: Tuple[Tuple[int, int, int, int], ...] = (
@@ -47,30 +48,6 @@ def make_divisible(v: float, divisor: int = 8, min_value: int | None = None) -> 
     if new_v < 0.9 * v:
         new_v += divisor
     return new_v
-
-
-class Conv2d(nn.Conv2d):
-    """A bias-free conv that casts its weight to the input's dtype, as flax
-    casts its kernel to the module dtype: the fp32 parameters of training
-    compute in bf16. A serving model stores its weights in the compute
-    dtype already (``cast_convs_``), and the cast is then a no-op."""
-
-    def __init__(self, *args, **kwargs):
-        super().__init__(*args, bias=False, **kwargs)
-
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
-        return F.conv2d(x, self.weight.to(x.dtype), None, self.stride,
-                        self.padding, self.dilation, self.groups)
-
-
-def cast_convs_(model: nn.Module, dtype: torch.dtype) -> nn.Module:
-    """Store every conv weight of ``model`` in ``dtype`` (in place), for
-    inference: the weights round to ``dtype`` once, as the per-call cast of
-    a training model rounds them each call."""
-    for m in model.modules():
-        if isinstance(m, nn.Conv2d):
-            m.to(dtype)
-    return model
 
 
 def relu6(x: torch.Tensor) -> torch.Tensor:
@@ -146,14 +123,9 @@ class MobileNetV2(nn.Module):
     def forward(self, x: torch.Tensor,
                 generator: Optional[torch.Generator] = None
                 ) -> Tuple[torch.Tensor, torch.Tensor]:
-        x = x.permute(0, 3, 1, 2).to(self.dtype).contiguous(
-            memory_format=torch.channels_last)
-        x = self.ConvBNReLU6_0(x)
+        x = self.ConvBNReLU6_0(to_nchw(x, self.dtype))
         for i in range(self._n_blocks):
             x = getattr(self, f"InvertedResidual_{i}")(x)
         x = self.ConvBNReLU6_1(x)
-        # jnp.mean accumulates a bf16 input in fp32 (float64 in float64),
-        # then rounds to the input's dtype; the head takes it in fp32.
-        acc = torch.promote_types(x.dtype, torch.float32)
-        pool = x.mean(dim=(2, 3), dtype=acc).to(self.dtype).float()
+        pool = spatial_mean(x).float()
         return self.ParamHead_0(pool, generator), pool

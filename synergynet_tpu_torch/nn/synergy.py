@@ -76,7 +76,9 @@ def init_synergy_(model: nn.Module, generator: torch.Generator
     """Draw every parameter of ``model`` as flax initializes the JAX tree:
     conv and dense kernels lecun-normal (a normal truncated at two standard
     deviations, rescaled to variance 1 / fan_in), biases zero, BatchNorm
-    scale 1 and bias 0, running mean 0 and variance 1. In place; the draws
+    scale 1 (0 where the module sets ``zero_init``, as flax's
+    ``scale_init=zeros`` in ResNet's blocks) and bias 0, running mean 0
+    and variance 1. In place; the draws
     come from ``generator`` (on the parameters' device)."""
     for m in model.modules():
         if isinstance(m, (nn.Conv2d, nn.Linear)):
@@ -88,7 +90,7 @@ def init_synergy_(model: nn.Module, generator: torch.Generator
             if m.bias is not None:
                 m.bias.zero_()
         elif hasattr(m, "running_var"):
-            m.weight.fill_(1.0)
+            m.weight.fill_(0.0 if getattr(m, "zero_init", False) else 1.0)
             m.bias.zero_()
             m.running_mean.zero_()
             m.running_var.fill_(1.0)

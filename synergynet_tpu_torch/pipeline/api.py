@@ -8,14 +8,16 @@ Counterpart of ``synergynet_tpu/pipeline/api.py``:
   reference synergy3DMM.py:167-207): ``get_all_outputs`` squares each rect
   on the host, crops and resizes every face on the device with
   :func:`preprocess_crops`' ``cv2.resize`` emulation (LANCZOS4 by default,
-  bit for bit), and ``process_crops`` runs MobileNetV2 -> 62 parameters ->
-  68 landmarks + dense mesh (the ``csrc/fused_decode.cu`` kernel on a card)
+  bit for bit), and ``process_crops`` runs the regressor (any backbone
+  family; MobileNetV2 is the shipped one) -> 62 parameters -> 68
+  landmarks + dense mesh (the ``csrc/fused_decode.cu`` kernel on a card)
   + pose, in chunks of ``MAX_FACES_PER_BATCH`` faces. The JAX package pads
   the chunks to power-of-two buckets to bound its compiles; the port runs
   each chunk at its own size, and no output depends on the chunking;
-- :class:`FusedFrameEngine` runs detect (folded s2d8 FaceBoxes, anchor
-  decode, top-k, greedy NMS) -> square rois -> bilinear crop -> MobileNetV2
-  -> 68 landmarks + dense mesh + pose, for a fixed ``max_faces`` per frame.
+- :class:`FusedFrameEngine` runs detect (FaceBoxes, anchor decode,
+  top-k, greedy NMS) -> square rois -> bilinear crop -> the api's
+  regressor -> 68 landmarks + dense mesh + pose, for a fixed
+  ``max_faces`` per frame.
   ``process_batch`` runs the head batched over B frames and the decode tail
   once on the flat B x max_faces rows; ``__call__`` is the one-frame form.
 
@@ -44,7 +46,7 @@ from synergynet_tpu_torch.mm3d.codec import (decode_landmarks, full_fp32,
 from synergynet_tpu_torch.mm3d.crop import crop_rect, square_box
 from synergynet_tpu_torch.mm3d.pose import (pose_from_param,
                                             rescale_pose_to_roi)
-from synergynet_tpu_torch.nn.backbones.mobilenet_v2 import cast_convs_
+from synergynet_tpu_torch.nn.layers import cast_convs_
 from synergynet_tpu_torch.nn.synergy import SynergyNet, init_synergy_
 from synergynet_tpu_torch.ops.fused_decode import (build_decode_basis,
                                                    decode_dense_fused)
@@ -85,11 +87,15 @@ class SynergyNet3DMM:
     once; call :meth:`get_all_outputs` per image.
 
     ``variables``: the string ``"trained"`` (the shipped full-recipe
-    weights), a flax SynergyNet tree (converted by
-    :mod:`synergynet_tpu_torch.convert`), or ``None``: flax's init drawn
-    from ``torch.Generator().manual_seed(seed)``, so the pipeline runs
-    without a checkpoint. ``dtype`` is the backbone's compute dtype (bf16
-    for serving). :meth:`process_crops` and :meth:`get_all_outputs` run
+    weights, ``arch="mobilenet_v2"`` only, as in the JAX package), a flax
+    SynergyNet tree of ``arch`` (any name of
+    :func:`~synergynet_tpu_torch.nn.available_backbones`; from training,
+    a checkpoint or a reference ``best.pth.tar`` through
+    :func:`synergynet_tpu_torch.nn.torch_import.load_synergynet_variables`,
+    converted by :mod:`synergynet_tpu_torch.convert`), or ``None``: flax's
+    init drawn from ``torch.Generator().manual_seed(seed)``, so the
+    pipeline runs without a checkpoint. ``dtype`` is the backbone's compute
+    dtype (bf16 for serving). :meth:`process_crops` and :meth:`get_all_outputs` run
     their f32 products and convolutions in full f32, TF32 off, as the JAX
     package's API computes by default. ``detector``: the
     :class:`FaceBoxes` that :meth:`get_all_outputs` calls when given no

@@ -610,6 +610,128 @@ def test_stem_kernel_rejects_what_it_does_not_take(cuda):
         fused_stem1_s2d8(x, k4, bias, cout=24)
 
 
+# -- kernel B4's f32 entry (fault C10) ------------------------------------------
+
+def _stem_case_f32(cuda, b, h8, w8, seed=0):
+    """Seeded f32 s2d8 frames, taps and bias on the card."""
+    g = torch.Generator(device=cuda).manual_seed(seed)
+    x = torch.randn((b, h8, w8, 192), generator=g, device=cuda) * 60
+    k4 = torch.randn((4, 192, 192), generator=g, device=cuda) * 0.02
+    bias = torch.randn((192,), generator=g, device=cuda) * 0.5
+    return x, k4, bias
+
+
+# 1, 2 and 128 full 720x1088 frames; tiles cut by the canvas edge (the
+# 7 x 15 output tile's ragged last row and column, one row, one column, one
+# pixel).
+STEM_F32_SHAPES = [(1, 90, 136), (2, 90, 136), (128, 90, 136), (3, 7, 17),
+                   (1, 1, 1), (2, 31, 35), (1, 8, 16), (1, 30, 1),
+                   (1, 15, 17), (2, 14, 136)]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("shape", STEM_F32_SHAPES)
+def test_stem_f32_kernel_matches_plain_twin(cuda, shape):
+    """Both sum the same 768 f32 products (+ bias) per conv value in other
+    orders, so they differ by summation order only: no more than 1e-5 of
+    the output's largest magnitude."""
+    from synergynet_tpu_torch.detect.stem_fused import (
+        fused_stem1_s2d8, fused_stem1_s2d8_reference)
+    x, k4, bias = _stem_case_f32(cuda, *shape)
+    before = (fused_stem1_s2d8.launches, fused_stem1_s2d8.launches_f32)
+    got = fused_stem1_s2d8(x, k4, bias)
+    torch.cuda.synchronize()
+    assert (fused_stem1_s2d8.launches, fused_stem1_s2d8.launches_f32) == (
+        before[0], before[1] + 1)
+    assert got.shape == (*shape, 48) and got.dtype == torch.float32
+    want = fused_stem1_s2d8_reference(x, k4, bias)
+    scale = want.abs().max().item()
+    torch.testing.assert_close(got, want, rtol=0, atol=1e-5 * scale)
+    assert (got > 0).float().mean() > 0.2
+
+
+@pytest.mark.gpu
+def test_stem_takes_bf16_or_f32_only(cuda):
+    from synergynet_tpu_torch.detect.stem_fused import fused_stem1_s2d8
+    x, k4, bias = _stem_case_f32(cuda, 1, 4, 8)
+    with pytest.raises(TypeError):
+        fused_stem1_s2d8(x.double(), k4.double(), bias)
+    with pytest.raises(TypeError):
+        fused_stem1_s2d8(x.half(), k4.half(), bias)
+    with pytest.raises(TypeError):
+        fused_stem1_s2d8(x, k4.to(torch.bfloat16), bias)
+
+
+def _seeded_faceboxes_pth(tmp_path):
+    from synergynet_tpu_torch.detect.torch_import import \
+        seeded_faceboxes_state_dict
+    path = str(tmp_path / "FaceBoxesProd.pth")
+    torch.save({"module." + k: v for k, v in
+                seeded_faceboxes_state_dict(0).items()}, path)
+    return path
+
+
+@pytest.mark.gpu
+def test_f32_fused_stem_detector_card_matches_cpu(cuda, tmp_path):
+    """Fault C10: an f32 FaceBoxes(stem_mode="pallas") from reference-layout
+    weights runs B4's f32 entry on the card and gives the CPU's faces, face
+    for face, on a frame whose candidate scores keep 1e-3 clear of the 0.5
+    threshold (chip_smoke.py's DET_FRAME)."""
+    from synergynet_tpu_torch.detect import FaceBoxes
+    from synergynet_tpu_torch.detect.detector import (VIS_THRESHOLD,
+                                                      prepare_frame)
+    from synergynet_tpu_torch.detect.stem_fused import fused_stem1_s2d8
+    path = _seeded_faceboxes_pth(tmp_path)
+    card = FaceBoxes(weights_path=path, device=cuda, stem_mode="pallas")
+    cpu = FaceBoxes(weights_path=path, device="cpu", stem_mode="pallas")
+    img = np.random.default_rng(1).integers(0, 256, (120, 160, 3), np.uint8)
+    _, packed, hw, _ = prepare_frame(img, 8, "cpu")
+    with torch.inference_mode():
+        s, _ = cpu.candidates(packed[None], hw[None])
+    assert (s[s > 0] - VIS_THRESHOLD).abs().min() > 1e-3
+    before = fused_stem1_s2d8.launches_f32
+    raw_g, n_g = card.detect_raw(img)
+    assert fused_stem1_s2d8.launches_f32 == before + 1
+    raw_c, n_c = cpu.detect_raw(img)
+    assert n_g == n_c > 0
+    np.testing.assert_allclose(raw_g[:n_g, :4], raw_c[:n_c, :4], rtol=1e-4,
+                               atol=0.05)
+    np.testing.assert_allclose(raw_g[:n_g, 4], raw_c[:n_c, 4], rtol=0,
+                               atol=1e-4)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("arch", ["mobilenet_1", "resnet50",
+                                  "resnext50_32x4d", "ghostnet", "resnest50",
+                                  "mobilenet_v2_1.4"])
+def test_imported_family_card_matches_cpu(cuda, arch, tmp_path):
+    """chip_smoke.py phase 11's families: a reference-layout best.pth.tar
+    from a seed, imported and served by SynergyNet3DMM in f32 (TF32 off)
+    on the card, against the CPU at the API's chain tolerance; the decode
+    tail launches B1."""
+    from synergynet_tpu_torch.nn.torch_import import (
+        expected_torch_shapes, load_synergynet_variables,
+        seeded_torch_state_dict)
+    from synergynet_tpu_torch.pipeline import SynergyNet3DMM
+    sd = seeded_torch_state_dict(expected_torch_shapes(arch), 7)
+    path = str(tmp_path / "best.pth.tar")
+    torch.save({"state_dict": {"module." + k: v for k, v in sd.items()}},
+               path)
+    tree = load_synergynet_variables(path, arch=arch)
+    pack = load_param_pack()
+    img = np.random.default_rng(3).integers(0, 256, (240, 320, 3), np.uint8)
+    rects = [[40.0, 50.0, 140.0, 160.0, 0.99], [-20.5, 150.5, 60.5, 260.5],
+             [250.0, -30.0, 340.0, 70.0]]
+    before = decode_dense_fused.launches
+    got = SynergyNet3DMM(tree, arch=arch, pack=pack, device=cuda
+                         ).get_all_outputs(img, rects=rects)
+    assert decode_dense_fused.launches > before
+    want = SynergyNet3DMM(tree, arch=arch, pack=pack, device="cpu"
+                          ).get_all_outputs(img, rects=rects)
+    for g, w in zip(got[0] + got[1], want[0] + want[1]):
+        np.testing.assert_allclose(g, w, rtol=1e-4, atol=1e-2)
+
+
 # -- blend_uint8 on the card ---------------------------------------------------
 
 @pytest.mark.gpu
