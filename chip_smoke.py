@@ -108,7 +108,8 @@ each fatal on failure:
    in f32 with the fused stem (B4's f32 entry launched), with stem_r=4 and
    with the 3-channel stem, each against the CPU face for face; B4's f32
    entry against its twin (within 1e-5 of the output's largest
-   magnitude), cuDNN's f32 conv with TF32 off and its bound at 1 and 128
+   magnitude), cuDNN's f32 conv with TF32 off, its 3xTF32 bound (the
+   FMA units' beside it) and its clock64 stall shares at 1 and 128
    frames.
 
 Prints the kernels as one JSON line (each with its launches on its path,
@@ -140,8 +141,10 @@ STEM_TOL = dict(rtol=1.6e-2, atol=1e-5)     # bf16's own tolerance
 DEVICE = "cuda:0"
 KERNELS = ("fused_decode", "raster_tiled", "stem_s2d8")
 # Published H100 SXM peaks (dense): HBM bytes/s, bf16 tensor-core and f32
-# (outside the tensor cores) FLOP/s.
+# (outside the tensor cores) FLOP/s, and TF32 tensor-core FLOP/s (NVIDIA's
+# H100 SXM data sheet, dense TF32).
 HBM_BPS, BF16_FLOPS, F32_FLOPS = 3.35e12, 989e12, 67e12
+TF32_FLOPS = 495e12
 
 
 def log(msg):
@@ -1305,6 +1308,30 @@ DET_FRAME = ((120, 160), 1)
 STEM_F32_REL = 1e-5
 
 
+def stem_f32_stalls(torch, dev, launch, x, k4, bias):
+    """Where B4's f32 product loop waits: one launch of the kernel's
+    clock64-stamped build (``launch(..., stamps=)``, its output checked
+    equal to the plain build's), and the shares of all warps' cycles spent
+    waiting for window chunks (their barrier and the block barrier before
+    the products), in the products, in epilogue + pool, and in the rest
+    (staging the taps); and warps 0-3's product cycles over warps 4-7's."""
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    stamps = torch.zeros(sms * 8 * 4, dtype=torch.int64, device=dev)
+    got = launch(x, k4, bias, stamps=stamps)
+    if not torch.equal(got, launch(x, k4, bias)):
+        fail("B4 f32 entry: the stamped build's output differs")
+    s = stamps.view(-1, 8, 4).double()
+    s = s[s[:, 0, 3] > 0]
+    tot = s.sum((0, 1))
+    parts = dict(zip(("wait", "products", "epilogue_pool"),
+                     (tot[:3] / tot[3]).tolist()))
+    parts["rest"] = 1.0 - sum(parts.values())
+    # Warps 0-3 also take the two left-over m16 tiles.
+    mma = s[:, :, 1].mean(0)
+    parts["products_w0_3_over_w4_7"] = (mma[:4].mean() / mma[4:].mean()).item()
+    return {k: round(v, 4) for k, v in parts.items()}
+
+
 def families_phase(torch, dev, card, frames, frames_s2d, hws, det_bf16):
     """Every backbone family and the reference weights on the card (phase
     11): for each of ``FAMILY_ARCHS`` a reference-layout ``best.pth.tar``
@@ -1314,14 +1341,15 @@ def families_phase(torch, dev, card, frames, frames_s2d, hws, det_bf16):
     frames in bf16, B1 launched in each; the detector from a seeded
     ``FaceBoxesProd.pth`` in f32 with the fused stem (B4's f32 entry),
     stem_r=4 and the 3-channel stem, each against the CPU face for face;
-    and B4's f32 entry against its twin, cuDNN's f32 conv with TF32 off
-    and its bound at 1 and 128 frames. Returns the numbers for the JSON
-    line."""
+    and B4's f32 entry against its twin, cuDNN's f32 conv with TF32 off,
+    its 3xTF32 and FMA-unit bounds and its stall shares at 1 and 128
+    frames. Returns the numbers for the JSON line."""
     import torch.nn.functional as F
 
     from synergynet_tpu_torch.detect import FaceBoxes
     from synergynet_tpu_torch.detect.detector import (VIS_THRESHOLD,
                                                       prepare_frame)
+    from synergynet_tpu_torch.detect import stem_fused
     from synergynet_tpu_torch.detect.stem_fused import (
         fused_stem1_s2d8, fused_stem1_s2d8_reference)
     from synergynet_tpu_torch.detect.torch_import import \
@@ -1499,22 +1527,32 @@ def families_phase(torch, dev, card, frames, frames_s2d, hws, det_bf16):
                                                    stem.bias),
                                   20, torch, flush_buf.zero_)[1]
             del xpad
+            # The products run as 3xTF32 on the tensor cores (three TF32
+            # MMAs a product); the FMA units' bound on the same work beside.
             npos = nb * xb.shape[1] * xb.shape[2]
-            s_bound = bound(4 * (xb.numel() + k4.numel() + npos * 48 + 192),
-                            2 * npos * 768 * 192 + 9 * npos * 48, F32_FLOPS)
+            nbytes = 4 * (xb.numel() + k4.numel() + npos * 48 + 192)
+            conv_flops = 2 * npos * 768 * 192
+            s_bound = bound(nbytes, 3 * conv_flops, TF32_FLOPS)
+            fma_bound = bound(nbytes, conv_flops + 9 * npos * 48, F32_FLOPS)
+            stalls = stem_f32_stalls(torch, dev, stem_fused._launch, xb, k4,
+                                     s_bias)
             stem_f32[nb] = {"ms": spread[1], "ms_min": spread[0],
                             "ms_max": spread[2], "plain_ms": plain,
                             "library_ms": lib, "bound_ms": s_bound[0],
-                            "bound_by": s_bound[1], "max_abs_err": err,
-                            "out_scale": scale}
-            log(f"stem_s2d8 f32 entry B={nb} ({tuple(xb.shape)} f32): "
-                f"max_abs_err {err:.3e} of {scale:.3e} (limit "
+                            "bound_by": s_bound[1],
+                            "bound_fma_ms": fma_bound[0],
+                            "max_abs_err": err, "out_scale": scale,
+                            "stall_shares": stalls}
+            log(f"stem_s2d8 f32 entry B={nb} ({tuple(xb.shape)} f32, "
+                f"3xTF32): max_abs_err {err:.3e} of {scale:.3e} (limit "
                 f"{STEM_F32_REL} of it) | kernel min/median/max "
                 f"{spread[0]:.4f} / {spread[1]:.4f} / {spread[2]:.4f} ms over "
                 f"20 | plain {plain:.4f} ms | cuDNN f32 conv (TF32 off) alone "
-                f"{lib:.4f} ms | bound {s_bound[0]:.4f} ms ({s_bound[1]}) | "
-                f"{s_bound[0] / spread[1]:.3f} of bound, "
-                f"{spread[1] / lib:.3f}x the cuDNN conv | {card}")
+                f"{lib:.4f} ms | 3xTF32 bound {s_bound[0]:.4f} ms "
+                f"({s_bound[1]}), FMA-unit bound {fma_bound[0]:.4f} ms | "
+                f"{s_bound[0] / spread[1]:.3f} of the 3xTF32 bound, "
+                f"{spread[1] / lib:.3f}x the cuDNN conv | clock64 shares per "
+                f"warp: {stalls} | {card}")
             del xb
     del flush_buf
     torch.cuda.empty_cache()
@@ -2234,7 +2272,8 @@ def main():
         "name": "stem_s2d8_f32", "route": "cuda",
         "source": "synergynet_tpu_torch/csrc/stem_s2d8.cu",
         "replaces": "synergynet_tpu/detect/stem_pallas.py:76",
-        "entry": "B4's f32 entry, synergy_stem_s2d8_f32 (SIMT FMA)",
+        "entry": "B4's f32 entry, synergy_stem_s2d8_f32 (3xTF32 mma.sync "
+        "under a TMA ring)",
         "launches": fam["launches_f32"],
         "max_abs_err": max(v["max_abs_err"] for v in sf.values()),
         "ms": sf[str(BATCH)]["ms"], "plain_ms": sf[str(BATCH)]["plain_ms"],
@@ -2247,7 +2286,11 @@ def main():
         "frames": BATCH, "ms_b1": sf["1"]["ms"], "ms_min_b1": sf["1"]["ms_min"],
         "ms_max_b1": sf["1"]["ms_max"], "plain_ms_b1": sf["1"]["plain_ms"],
         "library_ms_b1": sf["1"]["library_ms"],
-        "bound_ms_b1": sf["1"]["bound_ms"]}],
+        "bound_ms_b1": sf["1"]["bound_ms"],
+        "bound_fma_ms": sf[str(BATCH)]["bound_fma_ms"],
+        "bound_fma_ms_b1": sf["1"]["bound_fma_ms"],
+        "stall_shares": sf[str(BATCH)]["stall_shares"],
+        "stall_shares_b1": sf["1"]["stall_shares"]}],
         "e2e_faces_per_s": {str(b): v[1] for b, v in e2e.items()},
         "e2e_ms": {str(b): v[0] for b, v in e2e.items()},
         "e2e_fused_stem_ms": {str(b): v[0] for b, v in e2e_p.items()},

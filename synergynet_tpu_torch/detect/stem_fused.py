@@ -8,7 +8,8 @@ ReLU, and the 3x3/2 max-pool as a phase-shifted max with a zero halo
 (:func:`~synergynet_tpu_torch.detect.net.phase_maxpool_s2d8`), rounded to
 the input's dtype once at the end, in bf16 or f32 as the JAX kernel runs
 in its input's dtype. The 4x-phase conv activation stays in the kernel's
-shared memory.
+shared memory. The f32 entry multiplies on the tensor cores in three TF32
+passes (3xTF32), which keeps the products f32-accurate.
 
 The JAX kernel's row-band budget and its fallback to the XLA stem exist
 because VMEM is small; the Hopper kernel takes any H8 and W8.
@@ -61,11 +62,14 @@ def fused_stem1_s2d8_reference(x: torch.Tensor, weight4: torch.Tensor,
     return out.permute(0, 2, 3, 1).to(x.dtype).contiguous()
 
 
-def _launch(x: torch.Tensor, weight4: torch.Tensor, bias: torch.Tensor
-            ) -> torch.Tensor:
+def _launch(x: torch.Tensor, weight4: torch.Tensor, bias: torch.Tensor,
+            stamps: torch.Tensor | None = None) -> torch.Tensor:
     """Check what the kernel takes, allocate the output, launch the entry
     of ``x``'s dtype on the current stream. Raises on anything else; never
-    falls back."""
+    falls back. ``stamps`` (f32 only: a zeroed int64 tensor of at least
+    SMs x 8 x 4 values on ``x``'s device) takes the f32 kernel's clock64
+    stamps per warp: cycles waiting for window chunks, in the products, in
+    epilogue + pool, and in all."""
     dev = x.device
     check_tensor("x", x, DTYPES, (None, None, None, CIN), dev)
     check_tensor("weight4", weight4, (x.dtype,), (4, CIN, 4 * COUT), dev)
@@ -80,18 +84,27 @@ def _launch(x: torch.Tensor, weight4: torch.Tensor, bias: torch.Tensor
             raise ValueError(f"{name} is not 16-byte aligned")
     require_sm90(dev, "stem")
     f32 = x.dtype == torch.float32
+    if stamps is not None:
+        sms = torch.cuda.get_device_properties(dev).multi_processor_count
+        if not f32 or stamps.dtype != torch.int64 or stamps.device != dev \
+                or not stamps.is_contiguous() or stamps.numel() < sms * 8 * 4:
+            raise ValueError("stamps: a contiguous int64 tensor of SMs x 8 x "
+                             "4 values on x's device, for the f32 entry")
+    # The f32 entry takes the stamps pointer before the stream.
     fn = kernel_entry("stem_s2d8",
                       "synergy_stem_s2d8_f32" if f32 else "synergy_stem_s2d8",
                       [ctypes.c_void_p] * 4 + [ctypes.c_int] * 3
-                      + [ctypes.c_void_p])
+                      + [ctypes.c_void_p] * (2 if f32 else 1))
     bias32 = bias.float().contiguous()
     out = torch.empty((b, h8, w8, COUT), dtype=x.dtype, device=dev)
     if out.numel() == 0:
         return out
+    args = (x.data_ptr(), weight4.data_ptr(), bias32.data_ptr(),
+            out.data_ptr(), b, h8, w8)
+    if f32:
+        args += (None if stamps is None else stamps.data_ptr(),)
     with torch.cuda.device(dev):
-        stream = torch.cuda.current_stream(dev).cuda_stream
-        rc = fn(x.data_ptr(), weight4.data_ptr(), bias32.data_ptr(),
-                out.data_ptr(), b, h8, w8, stream)
+        rc = fn(*args, torch.cuda.current_stream(dev).cuda_stream)
     if rc != 0:
         raise RuntimeError(f"stem kernel launch failed: CUDA error {rc}")
     if f32:

@@ -621,12 +621,17 @@ def _stem_case_f32(cuda, b, h8, w8, seed=0):
     return x, k4, bias
 
 
-# 1, 2 and 128 full 720x1088 frames; tiles cut by the canvas edge (the
-# 7 x 15 output tile's ragged last row and column, one row, one column, one
-# pixel).
+# 1, 2 and 128 full 720x1088 frames; tiles cut by the canvas edge (for an
+# earlier 7 x 15 output tile: its ragged last row and column, one row, one
+# column, one pixel); then the kernel's 15 x 17 tile cut one past its edge
+# (one more conv row and column than a tile), ragged in both directions
+# (29 x 33, 46 x 69, 91 x 137), and many small frames, so that a block
+# walks hundreds of tiles through its ring.
 STEM_F32_SHAPES = [(1, 90, 136), (2, 90, 136), (128, 90, 136), (3, 7, 17),
                    (1, 1, 1), (2, 31, 35), (1, 8, 16), (1, 30, 1),
-                   (1, 15, 17), (2, 14, 136)]
+                   (1, 15, 17), (2, 14, 136),
+                   (1, 16, 18), (2, 29, 33), (1, 46, 69), (3, 91, 137),
+                   (500, 15, 17), (1000, 1, 2)]
 
 
 @pytest.mark.gpu
@@ -648,6 +653,54 @@ def test_stem_f32_kernel_matches_plain_twin(cuda, shape):
     scale = want.abs().max().item()
     torch.testing.assert_close(got, want, rtol=0, atol=1e-5 * scale)
     assert (got > 0).float().mean() > 0.2
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("b", [1, 128])
+def test_stem_f32_tolerance_rejects_one_tf32_pass(cuda, b):
+    """The unchanged 1e-5 of the scale tells the kernel's three TF32 passes
+    from one: cuDNN's conv with TF32 on, followed by the twin's ReLU and
+    pool, lies outside it on the same data, while the kernel lies inside."""
+    import torch.nn.functional as F
+
+    from synergynet_tpu_torch.detect.net import phase_maxpool_s2d8
+    from synergynet_tpu_torch.detect.stem_fused import (
+        fused_stem1_s2d8, fused_stem1_s2d8_reference)
+    x, k4, bias = _stem_case_f32(cuda, b, 90, 136)
+    want = fused_stem1_s2d8_reference(x, k4, bias)
+    limit = 1e-5 * want.abs().max().item()
+    got = fused_stem1_s2d8(x, k4, bias)
+    assert (got - want).abs().max().item() <= limit
+    w = k4.reshape(2, 2, 192, 192).permute(3, 2, 0, 1)
+    prev = torch.backends.cudnn.allow_tf32
+    torch.backends.cudnn.allow_tf32 = True
+    try:
+        y = F.conv2d(F.pad(x.permute(0, 3, 1, 2), (1, 0, 1, 0)), w, bias)
+    finally:
+        torch.backends.cudnn.allow_tf32 = prev
+    once = phase_maxpool_s2d8(F.relu(y), 48).permute(0, 2, 3, 1)
+    assert (once - want).abs().max().item() > limit
+
+
+@pytest.mark.gpu
+def test_stem_f32_stamps_leave_the_output_alone(cuda):
+    """The clock64-stamped build gives the plain build's output bit for bit
+    and fills every warp's stamps: waits, products and epilogue within its
+    total."""
+    from synergynet_tpu_torch.detect.stem_fused import _launch
+    x, k4, bias = _stem_case_f32(cuda, 2, 90, 136)
+    sms = torch.cuda.get_device_properties(cuda).multi_processor_count
+    stamps = torch.zeros(sms * 8 * 4, dtype=torch.int64, device=cuda)
+    got = _launch(x, k4, bias, stamps=stamps)
+    assert torch.equal(got, _launch(x, k4, bias))
+    s = stamps.view(-1, 4)
+    s = s[s[:, 3] > 0]
+    assert len(s) == sms // 6 * 6 * 8
+    assert (s[:, 1] > 0).all() and (s[:, :3].sum(1) <= s[:, 3]).all()
+    with pytest.raises(ValueError):
+        _launch(x, k4, bias, stamps=stamps[:8])
+    with pytest.raises(ValueError):
+        _launch(x.bfloat16(), k4.bfloat16(), bias, stamps=stamps)
 
 
 @pytest.mark.gpu

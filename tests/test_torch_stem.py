@@ -6,6 +6,11 @@ Pallas-vs-XLA stem tolerance; the two sum the taps in other orders); bf16
 at rtol 1.6e-2 / atol 1e-5, bf16's own tolerance, since both round the
 f32 result to bf16 once and an order difference can flip the last bit;
 the twin against the port's XLA stem at f32 at the same 1e-5 / 1e-4.
+
+The f32 kernel's arithmetic (3xTF32 on the tensor cores) is emulated here:
+its operand split on the bit pattern, and its three partial products per
+tap summed in float64, meet the f32 tolerance against the JAX stem, where
+one TF32 pass does not.
 """
 
 import jax
@@ -135,3 +140,54 @@ def test_pool_of_rounded_conv_equals_rounded_pool(seed):
     got = phase_maxpool_s2d8(relu.to(torch.bfloat16), 48)
     assert got.dtype == torch.bfloat16
     assert torch.equal(got.view(torch.int16), want.view(torch.int16))
+
+
+def _tf32_rna(a):
+    """cvt.rna.tf32.f32 on the bit pattern: add 0x1000, mask 0xFFFFE000."""
+    bits = np.ascontiguousarray(a, np.float32).view(np.uint32)
+    return ((bits + np.uint32(0x1000)) & np.uint32(0xFFFFE000)).view(
+        np.float32)
+
+
+def _split_tf32(a):
+    """a -> (hi, lo), hi = tf32(a), lo = tf32(a - hi) (a - hi is exact)."""
+    hi = _tf32_rna(a)
+    return hi, _tf32_rna(a - hi)
+
+
+def _stem_conv_tf32(x, k, bias, passes):
+    """The stem's conv, + bias, on TF32 operands, each product and every sum
+    in float64: ``passes`` 3 sums lo.hi + hi.lo + hi.hi (3xTF32), 1 sums
+    hi.hi (one TF32 pass). (B, H8, W8, C) -> (B, 4*cout, H8, W8)."""
+    (xh, xl), (kh, kl) = _split_tf32(x), _split_tf32(k)
+    terms = [(xl, kh), (xh, kl), (xh, kh)] if passes == 3 else [(xh, kh)]
+    b, h8, w8, _ = x.shape
+    y = np.zeros((b, h8, w8, k.shape[-1]))
+    for xa, ka in terms:
+        xp = np.pad(xa.astype(np.float64), ((0, 0), (1, 0), (1, 0), (0, 0)))
+        for a in range(2):
+            for c in range(2):
+                y += xp[:, a:a + h8, c:c + w8] @ ka[a, c].astype(np.float64)
+    return torch.from_numpy(y + bias).permute(0, 3, 1, 2)
+
+
+@pytest.fixture(scope="module")
+def jax_stem_f32():
+    x, k, bias = _stem_inputs(1)
+    want = jax_stem(jnp.asarray(x), jnp.asarray(k), jnp.asarray(bias),
+                    interpret=True, hb=4)
+    return x, k, bias, torch.from_numpy(np.array(want, np.float32))
+
+
+@pytest.mark.parametrize("passes", [3, 1])
+def test_tf32_passes_against_the_f32_tolerance(jax_stem_f32, passes):
+    """3xTF32, then the twin's ReLU and pool, meets the f32 tolerance
+    against the JAX Pallas stem; one TF32 pass misses it."""
+    x, k, bias, want = jax_stem_f32
+    y = _stem_conv_tf32(x, k, bias, passes)
+    got = phase_maxpool_s2d8(torch.relu(y), 48).permute(0, 2, 3, 1).float()
+    assert got.shape == want.shape == (1, 8, 136, 48)
+    if passes == 3:
+        torch.testing.assert_close(got, want, **F32)
+    else:
+        assert not torch.allclose(got, want, **F32)
