@@ -111,6 +111,28 @@ each fatal on failure:
    magnitude), cuDNN's f32 conv with TF32 off, its 3xTF32 bound (the
    FMA units' beside it) and its clock64 stall shares at 1 and 128
    frames.
+12. reference-data ingest, the evaluation CLI and the f32 engine
+   (``ingest_eval_phase``): a seeded ``3dmm_data/`` tree and a raw BFM
+   ``.mat`` with its whitening pickle (scipy writes them), converted bit
+   for bit, the raw one installed through ``$SYNERGY_BFM`` and loaded onto
+   the card; ``decode_dense_fast`` on 8 and 1,024 faces against B1's plain
+   twin (B1's launches over these calls are the ``kernels`` line's
+   ``launches_eval``); ``python -m synergynet_tpu_torch.cli.evaluate``'s
+   ``main`` on the card and with ``--platform cpu``, on the shipped
+   ``.npz`` and on a seeded ``resnet50`` ``best.pth.tar``, over an
+   ``--aflw2000-npz`` of 512 synthetic samples written by
+   ``save_eval_pack`` at batch 128, NME and FOE card vs CPU within 1e-3,
+   ms per CLI call and images/s; the f32 ``FusedFrameEngine`` on phase
+   10's frame against the CPU (equal face counts, rois within
+   ``BOX_TOL``, meshes within rtol 1e-4 / atol 1e-3), the TF32 flags
+   before and after its call, its difference when one TF32 pass runs (no
+   guard, the flags on), and its ms at B=1 with and without the guard, in
+   turns, beside the bf16 engine's. The apps (``cli.infer``,
+   ``cli.artistic``, ``cli.uv_texture``, ``pipeline.draw``) read, write
+   and draw images with cv2 and matplotlib, which the card's machine may
+   not have, so this run does not call them: their work on the card is
+   ``get_all_outputs`` and ``render_overlay``, which phase 10 drives and
+   holds.
 
 Prints the kernels as one JSON line (each with its launches on its path,
 error against its twin, kernel, plain and library ms, and the least time
@@ -125,6 +147,7 @@ import argparse
 import contextlib
 import json
 import os
+import shutil
 import subprocess
 import sys
 import time
@@ -949,7 +972,7 @@ def data_phase(torch, dev, card, training):
         ", ".join(f"{r:.1f}" for r in host_rates["neither"]) +
         f" (host clock, {TRAIN_BATCH} crops each) | {card}")
 
-    # -- 9d. resident and generative epochs ------------------------------------
+    # -- 9d. resident and generative epochs -----------------------------------
     cfg = Config()
     cfg.data.synthetic_size = RESIDENT_STEPS * TRAIN_BATCH
     cfg.data.device_augment = True
@@ -974,7 +997,7 @@ def data_phase(torch, dev, card, training):
     del tr
     torch.cuda.empty_cache()
 
-    # -- 9e. the CLI's --resident ----------------------------------------------
+    # -- 9e. the CLI's --resident ---------------------------------------------
     history = cli.main(["--resident", "--no-eval", "--synthetic-size",
                         str(2 * TRAIN_BATCH), "--batch-size",
                         str(TRAIN_BATCH), "--epochs", "1",
@@ -1037,7 +1060,7 @@ def api_phase(torch, dev, card):
     det_p = FaceBoxes(random_init_variables(0), dtype=torch.bfloat16,
                       device=dev, stem_mode="pallas")
     det_f = FaceBoxes(device=dev)        # the API's default: f32, XLA stem
-    api = SynergyNet3DMM("trained", device=dev, detector=det_p)
+    api = SynergyNet3DMM(variables="trained", device=dev, detector=det_p)
     pipe = RenderPipeline(device=dev, **OVERLAY_LIGHT_CFG)
     tri = api.pack.tri.numpy()
     nver = api.pack.nver
@@ -1052,7 +1075,7 @@ def api_phase(torch, dev, card):
                               ).astype(np.int32)
     torch.cuda.synchronize()
 
-    # -- the phase's own calls: launches over these only -----------------------
+    # -- the phase's own calls: launches over these only ----------------------
     counters = {"B1 fused_decode": decode_dense_fused,
                 "B2 raster_tiled": rasterize_mesh,
                 "B3 raster_ids": rasterize_mesh_ids,
@@ -1088,9 +1111,9 @@ def api_phase(torch, dev, card):
         if n <= 0:
             fail(f"phase 10 never launched kernel {k}")
 
-    # -- checks ------------------------------------------------------------------
+    # -- checks ---------------------------------------------------------------
     rois = np.stack([square_box(r) for r in API_RECTS])
-    cpu = SynergyNet3DMM("trained", device="cpu")
+    cpu = SynergyNet3DMM(variables="trained", device="cpu")
     crops_card = {}
     for interp, (pts, verts, poses) in outs.items():
         if len(pts) != FACES:
@@ -1228,7 +1251,7 @@ def api_phase(torch, dev, card):
         "== CPU; rasterize_tiled, rasterize, rasterize_triangles == their "
         "CPU twins bit for bit")
 
-    # -- times: CUDA events around each whole call, after warm-up --------------
+    # -- times: CUDA events around each whole call, after warm-up -------------
     frame = torch.from_numpy(img).to(dev)
     crops_t = _crops_on(frame, rois, "lanczos4")
     rois_t = torch.tensor(rois.astype(np.float32), device=dev)
@@ -1382,8 +1405,10 @@ def families_phase(torch, dev, card, frames, frames_s2d, hws, det_bf16):
         torch.save({"state_dict": {"module." + k: v for k, v in sd.items()}},
                    path)
         tree = load_synergynet_variables(path, arch=arch)
-        api32 = SynergyNet3DMM(tree, arch=arch, pack=pack, device=dev)
-        api16 = SynergyNet3DMM(tree, arch=arch, dtype=torch.bfloat16,
+        api32 = SynergyNet3DMM(variables=tree, arch=arch, pack=pack,
+                               device=dev)
+        api16 = SynergyNet3DMM(variables=tree, arch=arch,
+                               dtype=torch.bfloat16,
                                pack=pack, device=dev)
         eng = FusedFrameEngine(api16, detector=det_bf16, max_faces=FACES)
         # The family's own calls: launches over these only.
@@ -1394,7 +1419,7 @@ def families_phase(torch, dev, card, frames, frames_s2d, hws, det_bf16):
         launches = decode_dense_fused.launches
         if launches <= 0:
             fail(f"phase 11 {arch}: never launched kernel B1")
-        want = SynergyNet3DMM(tree, arch=arch, pack=pack,
+        want = SynergyNet3DMM(variables=tree, arch=arch, pack=pack,
                               device="cpu").get_all_outputs(
                                   img, rects=API_RECTS)
         if [len(x) for x in got] != [FACES] * 3:
@@ -1564,6 +1589,301 @@ def families_phase(torch, dev, card, frames, frames_s2d, hws, det_bf16):
             "seconds": secs}
 
 
+# -- 12. reference-data ingest, the evaluation CLI, the f32 engine ------------
+
+# The evaluation CLI's defaults: 512 synthetic samples, batch 128.
+EVAL_N, EVAL_BATCH = 512, 128
+EVAL_ATOL = 1e-3        # NME (percent) and FOE (degrees), card vs CPU
+ENGINE_MESH_TOL = dict(rtol=1e-4, atol=1e-3)   # the dense decode's, f32
+
+
+def write_reference_bfm(tmp, d, rng):
+    """``d`` (an asset dict) written as the reference's ``3dmm_data/``
+    (npy bases, the whitening pickle, a 1-based ``tri.mat``) and as a raw
+    BFM ``.mat`` in the ``model_refine`` layout (bases padded with columns
+    the conversion trims, 1-based keypoints and triangles) with its
+    whitening pickle. -> (3dmm_data dir, .mat path, .pkl path)."""
+    import pickle
+
+    import scipy.io as sio
+
+    ref = os.path.join(tmp, "3dmm_data")
+    os.makedirs(ref, exist_ok=True)
+    for name, key in (("u_shp", "u_shp"), ("u_exp", "u_exp"),
+                      ("w_shp_sim", "w_shp"), ("w_exp_sim", "w_exp"),
+                      ("keypoints_sim", "keypoints")):
+        np.save(os.path.join(ref, name + ".npy"), d[key])
+    pkl = os.path.join(ref, "param_whitening.pkl")
+    with open(pkl, "wb") as f:
+        pickle.dump({"param_mean": d["param_mean"],
+                     "param_std": d["param_std"]}, f)
+    sio.savemat(os.path.join(ref, "tri.mat"),
+                {"tri": d["tri"].astype(np.float64) + 1})
+    nv3 = d["w_shp"].shape[0]
+    kp_vert = (d["keypoints"].reshape(-1, 3)[:, 0] // 3).astype(np.float64)
+    mat = os.path.join(tmp, "BFM_model_front.mat")
+    sio.savemat(mat, {"model_refine": {
+        "w": np.concatenate([d["w_shp"], rng.normal(0, 5, (nv3, 20))], 1),
+        "w_exp": np.concatenate([d["w_exp"], rng.normal(0, 2, (nv3, 19))],
+                                1),
+        "mu_shape": d["u_shp"].astype(np.float64),
+        "mu_exp": d["u_exp"].astype(np.float64),
+        "keypoints": (kp_vert + 1.0)[None, :],
+        "tri": d["tri"].astype(np.int64) + 1}})
+    return ref, mat, pkl
+
+
+def engine_faces(torch, engine, img):
+    """``engine.process_batch`` on one frame -> (n faces, rois (n, 4),
+    dense (n, 3, N)) as numpy."""
+    from synergynet_tpu_torch.detect.detector import prepare_frame
+    canvas, packed, hw, _ = prepare_frame(img, engine.detector.stem_r,
+                                          engine.api.device)
+    out = engine.process_batch(canvas[None], packed[None], hw[None])
+    n = int(out[1][0])
+    return n, out[2][0, :n].cpu().numpy(), out[5][0, :n].cpu().numpy()
+
+
+def tf32_flags(torch):
+    return (torch.backends.cuda.matmul.allow_tf32,
+            torch.backends.cudnn.allow_tf32)
+
+
+def ingest_eval_phase(torch, dev, card):
+    """Reference-data ingest, the evaluation CLI and the f32 engine on the
+    card (phase 12). Returns the numbers for the JSON line."""
+    from synergynet_tpu_torch.cli import evaluate as cli_evaluate
+    from synergynet_tpu_torch.core.checkpoint import shipped_trained_path
+    from synergynet_tpu_torch.data import (make_synthetic_aflw2000,
+                                           save_eval_pack)
+    from synergynet_tpu_torch.detect import FaceBoxes
+    from synergynet_tpu_torch.detect.detector import random_init_variables
+    from synergynet_tpu_torch.mm3d import assets
+    from synergynet_tpu_torch.nn.torch_import import (expected_torch_shapes,
+                                                      seeded_torch_state_dict)
+    from synergynet_tpu_torch.ops.fused_decode import (
+        decode_dense_fast, decode_dense_fused, decode_dense_fused_reference,
+        get_decode_basis)
+    from synergynet_tpu_torch.pipeline import FusedFrameEngine, SynergyNet3DMM
+    from synergynet_tpu_torch.pipeline import api as api_module
+
+    t_phase = time.perf_counter()
+    tmp = os.path.join(os.path.dirname(os.path.abspath(__file__)), "build",
+                       "chip_smoke_ingest")
+    os.makedirs(tmp, exist_ok=True)
+    out = {}
+
+    # -- the converters, the converted pack on the card, B1 on it -------------
+    t0 = time.perf_counter()
+    src = assets.make_synthetic_assets(seed=5)
+    ref_dir, mat, pkl = write_reference_bfm(tmp, src,
+                                            np.random.default_rng(99))
+    converted = {"3dmm_data": assets.convert_reference_assets(ref_dir),
+                 "raw BFM": assets.convert_raw_bfm(mat, pkl)}
+    for name, d in converted.items():
+        for k in src:
+            if not np.array_equal(d[k], src[k]):
+                fail(f"phase 12: convert {name} changed {k}")
+    bfm = os.path.join(tmp, "converted_bfm.npz")
+    assets.save_assets_npz(bfm, converted["raw BFM"])
+    before_env = os.environ.get("SYNERGY_BFM")
+    os.environ["SYNERGY_BFM"] = bfm
+    try:
+        pack = assets.device_pack(assets.load_param_pack(), dev)
+    finally:
+        if before_env is None:
+            os.environ.pop("SYNERGY_BFM")
+        else:
+            os.environ["SYNERGY_BFM"] = before_env
+    convert_s = time.perf_counter() - t0
+    rng = np.random.default_rng(12)
+    params = {b: torch.tensor(rng.normal(0, 1, (b, 62)).astype(np.float32),
+                              device=dev) for b in (FACES, FACES * BATCH)}
+    torch.cuda.synchronize()
+    decode_dense_fused.launches = 0
+    fast = {b: decode_dense_fast(p, pack) for b, p in params.items()}
+    torch.cuda.synchronize()
+    launches = decode_dense_fused.launches
+    if launches <= 0:
+        fail("phase 12: decode_dense_fast never launched kernel B1")
+    basis = get_decode_basis(pack)
+    if get_decode_basis(pack) is not basis or basis.w.device != dev:
+        fail("phase 12: the decode basis is not cached on the pack's device")
+    dense_err = 0.0
+    for b, p in params.items():
+        want = decode_dense_fused_reference(p, basis, pack)
+        torch.testing.assert_close(fast[b], want, rtol=RTOL, atol=ATOL)
+        dense_err = max(dense_err, (fast[b] - want).abs().max().item())
+    del fast
+    out["converters"] = {"seconds": convert_s, "launches_b1": launches,
+                         "max_abs_err": dense_err, "nver": pack.nver}
+    log(f"phase 12 converters: 3dmm_data/ and a raw BFM .mat "
+        f"({pack.nver} vertices) converted bit for bit, the raw one "
+        f"installed through $SYNERGY_BFM and loaded onto the card in "
+        f"{convert_s:.1f} s; decode_dense_fast on {FACES} and "
+        f"{FACES * BATCH} faces: B1 launched {launches} times, max_abs_err "
+        f"{dense_err:.3e} against its twin (rtol {RTOL}, atol {ATOL}) | "
+        f"{card}")
+    del pack, basis
+    torch.cuda.empty_cache()
+
+    # -- the evaluation CLI, card vs CPU --------------------------------------
+    npz = save_eval_pack(make_synthetic_aflw2000(EVAL_N, device=dev),
+                         os.path.join(tmp, "aflw2000_synthetic.npz"))
+    pth = os.path.join(tmp, "resnet50.pth.tar")
+    torch.save({"state_dict": {"module." + k: v for k, v in
+                               seeded_torch_state_dict(
+                                   expected_torch_shapes("resnet50"),
+                                   11).items()}}, pth)
+    evals = {}
+    for label, wargs in (("mobilenet_v2 shipped .npz",
+                          ["-w", shipped_trained_path()]),
+                         ("resnet50 seeded .pth.tar",
+                          ["-w", pth, "--arch", "resnet50"])):
+        argv = wargs + ["--aflw2000-npz", npz, "--batch-size",
+                        str(EVAL_BATCH)]
+        runs = {}
+        for where, extra in (("card", []), ("cpu", ["--platform", "cpu"])):
+            t0 = time.perf_counter()
+            r = cli_evaluate.main(argv + extra)
+            if where == "card":
+                torch.cuda.synchronize()
+            runs[where] = (r, time.perf_counter() - t0)
+        (g, g_s), (c, c_s) = runs["card"], runs["cpu"]
+        diffs = {"nme_mean": abs(g["nme_mean"] - c["nme_mean"]),
+                 "foe_mae_mean": abs(g["foe"]["mae_mean"]
+                                     - c["foe"]["mae_mean"])}
+        for name in ("[ 0, 30]", "[30, 60]", "[60, 90]"):
+            if g["nme"][name]["count"]:
+                diffs[name] = abs(g["nme"][name]["mean"]
+                                  - c["nme"][name]["mean"])
+        if not (np.isfinite(g["nme_mean"]) and np.isfinite(
+                g["foe"]["mae_mean"])):
+            fail(f"phase 12 evaluate {label}: non-finite report")
+        if max(diffs.values()) > EVAL_ATOL:
+            fail(f"phase 12 evaluate {label}: card vs CPU {diffs} > "
+                 f"{EVAL_ATOL}")
+        evals[label] = {"nme_mean": g["nme_mean"],
+                        "foe_mae_mean": g["foe"]["mae_mean"],
+                        "max_card_cpu_diff": max(diffs.values()),
+                        "card_ms": g_s * 1e3, "cpu_ms": c_s * 1e3,
+                        "card_images_per_s": EVAL_N / g_s,
+                        "cpu_images_per_s": EVAL_N / c_s}
+        log(f"phase 12 evaluate ({label}, {EVAL_N} synthetic samples from "
+            f"--aflw2000-npz, batch {EVAL_BATCH}, f32 TF32 off): NME "
+            f"{g['nme_mean']:.4f} FOE {g['foe']['mae_mean']:.4f}, card vs "
+            f"CPU max |difference| {max(diffs.values()):.3e} (atol "
+            f"{EVAL_ATOL}); one CLI call (host clock, model build and "
+            f"weights included) card {g_s * 1e3:.1f} ms = "
+            f"{EVAL_N / g_s:.1f} images/s, CPU {c_s * 1e3:.1f} ms = "
+            f"{EVAL_N / c_s:.1f} images/s | {card}")
+    out["evaluate"] = evals
+
+    # -- C11: the f32 engine on the card, TF32 off ----------------------------
+    ch, cw = CANVAS
+    img = np.random.default_rng(API_FRAME_SEED).integers(0, 256, (ch, cw, 3),
+                                                         np.uint8)
+    eng = FusedFrameEngine(SynergyNet3DMM(variables="trained", device=dev))
+    cpu = FusedFrameEngine(SynergyNet3DMM(variables="trained", device="cpu"))
+    flags_before = tf32_flags(torch)
+    n, rois, dense = engine_faces(torch, eng, img)
+    flags_after = tf32_flags(torch)
+    if flags_after != flags_before:
+        fail(f"phase 12: the f32 engine left the TF32 flags at "
+             f"{flags_after}, found {flags_before}")
+    n_c, rois_c, dense_c = engine_faces(torch, cpu, img)
+    if not n == n_c > 0:
+        fail(f"phase 12 f32 engine: {n} faces on the card, {n_c} on the CPU")
+    np.testing.assert_allclose(rois, rois_c, **BOX_TOL)
+    np.testing.assert_allclose(dense, dense_c, **ENGINE_MESH_TOL)
+    roi_err = float(np.abs(rois - rois_c).max())
+    mesh_err = float(np.abs(dense - dense_c).max())
+    mesh_excess = float((np.abs(dense - dense_c) - ENGINE_MESH_TOL["rtol"]
+                         * np.abs(dense_c)).max())
+
+    # One TF32 pass: the engine without its guard and with TF32 forced on
+    # for cuBLAS and cuDNN, against the same CPU faces.
+    def unguarded():
+        real = api_module.full_fp32_if
+        api_module.full_fp32_if = lambda dtype: contextlib.nullcontext()
+        torch.backends.cuda.matmul.allow_tf32 = True
+        torch.backends.cudnn.allow_tf32 = True
+        return real
+
+    def guarded(real):
+        api_module.full_fp32_if = real
+        (torch.backends.cuda.matmul.allow_tf32,
+         torch.backends.cudnn.allow_tf32) = flags_before
+
+    real = unguarded()
+    try:
+        n_t, rois_t, dense_t = engine_faces(torch, eng, img)
+    finally:
+        guarded(real)
+    tf32 = {"faces": n_t}
+    if n_t == n_c:
+        tf32["roi_err_px"] = float(np.abs(rois_t - rois_c).max())
+        tf32["mesh_err"] = float(np.abs(dense_t - dense_c).max())
+        tf32["mesh_excess"] = float((np.abs(dense_t - dense_c)
+                                     - ENGINE_MESH_TOL["rtol"]
+                                     * np.abs(dense_c)).max())
+        tf32["within_tolerance"] = bool(
+            np.allclose(rois_t, rois_c, **BOX_TOL)
+            and np.allclose(dense_t, dense_c, **ENGINE_MESH_TOL))
+    else:
+        tf32["within_tolerance"] = False
+
+    # Times at B=1: the f32 engine with its guard and without it (TF32
+    # forced on) in turns, and the bf16 engine of phase 4.
+    from synergynet_tpu_torch.detect.detector import prepare_frame
+    canvas, packed, hw, _ = prepare_frame(img, 8, dev)
+    args1 = (canvas[None], packed[None], hw[None])
+    api16 = SynergyNet3DMM(variables="trained", dtype=torch.bfloat16,
+                           device=dev)
+    eng16 = FusedFrameEngine(api16, detector=FaceBoxes(
+        random_init_variables(0), dtype=torch.bfloat16, device=dev),
+        max_faces=FACES)
+    turns = {"f32": [], "f32_tf32_on": []}
+    for which in ("f32", "f32_tf32_on", "f32_tf32_on", "f32"):
+        real = unguarded() if which == "f32_tf32_on" else None
+        try:
+            turns[which].append(time_ms(lambda: eng.process_batch(*args1),
+                                        10, torch))
+        finally:
+            if real is not None:
+                guarded(real)
+    ms16 = time_ms(lambda: eng16.process_batch(*args1), 10, torch)
+    ms32 = float(np.mean(turns["f32"]))
+    ms_on = float(np.mean(turns["f32_tf32_on"]))
+    out["f32_engine"] = {
+        "faces": n, "roi_err_px": roi_err, "mesh_err": mesh_err,
+        "mesh_excess": mesh_excess, "tf32_flags_before": flags_before,
+        "tf32_flags_after": flags_after, "one_tf32_pass": tf32,
+        "ms_b1": ms32, "ms_b1_turns": turns["f32"],
+        "ms_b1_tf32_on": ms_on, "ms_b1_tf32_on_turns": turns["f32_tf32_on"],
+        "repair_cost_ms_b1": ms32 - ms_on, "bf16_ms_b1": ms16}
+    log(f"phase 12 C11: FusedFrameEngine(SynergyNet3DMM(variables='trained'))"
+        f" f32 on {ch}x{cw} (seed {API_FRAME_SEED}): {n} faces, card = CPU "
+        f"(rois within {roi_err:.3e} px of BOX_TOL {BOX_TOL}, meshes within "
+        f"{mesh_err:.3e}, rtol {ENGINE_MESH_TOL['rtol']} / atol "
+        f"{ENGINE_MESH_TOL['atol']}); TF32 flags (matmul, cudnn) before "
+        f"{flags_before} after {flags_after}; one TF32 pass (no guard, TF32 "
+        f"forced on): {tf32} | {card}")
+    log(f"phase 12 C11 times at B=1 (process_batch, CUDA events, mean of 10 "
+        f"after 2 warm-ups, turns off/on/on/off): f32 TF32 off "
+        f"{ms32:.3f} ms {turns['f32']}, f32 without the guard, TF32 forced "
+        f"on {ms_on:.3f} ms {turns['f32_tf32_on']}, the repair's cost "
+        f"{ms32 - ms_on:+.3f} ms; bf16 engine {ms16:.3f} ms | {card}")
+    del eng, cpu, eng16, api16
+    torch.cuda.empty_cache()
+    shutil.rmtree(tmp)                  # ~280 MB of written reference files
+    secs = time.perf_counter() - t_phase
+    out["seconds"] = secs
+    out["launches_b1"] = launches
+    log(f"phase 12 (ingest, the evaluation CLI, the f32 engine): {secs:.1f} s")
+    return out
+
+
 def main():
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--profile", metavar="DIR",
@@ -1627,7 +1947,7 @@ def main():
     log(f"built {len(KERNELS)} kernels in parallel: "
         f"{time.perf_counter() - t0:.2f} s total")
 
-    # -- 3a. kernel B1 vs plain twin at the path's shapes ----------------------
+    # -- 3a. kernel B1 vs plain twin at the path's shapes ---------------------
     api = SynergyNet3DMM(variables="trained", dtype=torch.bfloat16,
                          device=dev)
     pack, basis = api.pack_dev, api.basis
@@ -1947,7 +2267,7 @@ def main():
         f"{within_1px:.3f} of faces within 1 px")
     del out_p
 
-    # -- 5. the overlay path ----------------------------------------------------
+    # -- 5. the overlay path --------------------------------------------------
     imgs = {hw: np.random.default_rng(2).integers(0, 256, (*hw, 3), np.uint8)
             for hw in OVERLAY_FRAMES}
     # Launches count over the overlay path's own calls only.
@@ -2041,7 +2361,7 @@ def main():
                 f"kernel's ({(ids >= 0).float().mean().item():.3f} drawn)")
         del deferred
 
-    # -- 6. end-to-end timing ---------------------------------------------------
+    # -- 6. end-to-end timing -------------------------------------------------
     # The XLA-stem and fused-stem engines in turns: xla, fused, fused, xla.
     e2e, e2e_p = {}, {}
     for b in (1, BATCH):
@@ -2168,10 +2488,10 @@ def main():
         with open(os.path.join(args.profile, "profile.json"), "w") as f:
             json.dump(summary, f, indent=1)
 
-    # -- 8. the training path ---------------------------------------------------
+    # -- 8. the training path -------------------------------------------------
     training = training_phase(torch, dev, card, args.profile)
 
-    # -- 9. the training data path ----------------------------------------------
+    # -- 9. the training data path --------------------------------------------
     data_path = data_phase(torch, dev, card, training)
     log("phase 9 (training data path, no kernel of B1-B4): " + json.dumps({
         "render_ms_1024": data_path["render"]["ms"],
@@ -2187,13 +2507,16 @@ def main():
         "generative_peak_gib": data_path["generative"]["peak_gib"]})
         + f" | {card}")
 
-    # -- 10. the packaged API and the host renders ------------------------------
+    # -- 10. the packaged API and the host renders ----------------------------
     api_path = api_phase(torch, dev, card)
     api_launches = api_path["launches"]
 
-    # -- 11. model families and reference weights ------------------------------
+    # -- 11. model families and reference weights -----------------------------
     fam = families_phase(torch, dev, card, frames, frames_s2d, hws, det)
     sf = fam["stem_f32"]
+
+    # -- 12. reference-data ingest, the evaluation CLI, the f32 engine --------
+    ingest = ingest_eval_phase(torch, dev, card)
 
     log(f"chip_smoke: all phases in {time.perf_counter() - t_start:.1f} s")
 
@@ -2218,6 +2541,7 @@ def main():
         "replaces": "synergynet_tpu/ops/fused_decode.py:66",
         "launches": launches,
         "launches_api": api_launches["B1 fused_decode"],
+        "launches_eval": ingest["launches_b1"],
         "max_abs_err": max_err, "ms": ms1k, "plain_ms": plain1k, "bound_ms": bound1k,
         "bound_by": by1k, "library_ms": lib1k,
         "library": "torch.matmul (B,50)x(50,3*Npad) f32, no rotation",
@@ -2298,7 +2622,8 @@ def main():
         "overlay_stages_ms": ov_stages, "raster_path_ms": raster_ms,
         "raster_ab": raster_turns, "training": training,
         "data_path": data_path, "api_host_render": api_path,
-        "families": {k: v for k, v in fam.items() if k != "stem_f32"}}),
+        "families": {k: v for k, v in fam.items() if k != "stem_f32"},
+        "ingest_eval": ingest}),
         flush=True)
     print(card, flush=True)
     print(json.dumps({"ok": True, "device": {

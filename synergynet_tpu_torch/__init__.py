@@ -15,3 +15,14 @@ what runs on a CPU tensor.
 """
 
 __version__ = "0.1.0"
+
+from synergynet_tpu_torch.mm3d import (  # noqa: F401,E402
+    ParamPack,
+    load_param_pack,
+    decode_param62,
+    decode_landmarks,
+    decode_dense,
+    pose_from_param,
+)
+
+from synergynet_tpu_torch.pipeline.api import SynergyNet3DMM  # noqa: F401,E402

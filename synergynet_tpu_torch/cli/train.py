@@ -19,6 +19,7 @@ import argparse
 import logging
 import sys
 
+# --platform -> device, shared by every CLI of the port.
 PLATFORMS = {"cuda": "cuda", "gpu": "cuda", "cpu": "cpu"}
 
 

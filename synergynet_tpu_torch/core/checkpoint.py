@@ -138,6 +138,13 @@ def shipped_trained_path(arch: str = "mobilenet_v2") -> str:
     return path
 
 
+def load_shipped_trained(arch: str = "mobilenet_v2") -> Dict[str, Any]:
+    """The shipped full-recipe weights of ``arch`` as flax variables (see
+    :func:`load_trained_variables`); raises as
+    :func:`shipped_trained_path` does for an arch with no shipped run."""
+    return load_trained_variables(shipped_trained_path(arch))
+
+
 def load_torch_state_dict(path: str) -> Dict[str, np.ndarray]:
     """A reference PyTorch checkpoint (``best.pth.tar``) -> its state_dict as
     numpy arrays: a ``{"state_dict": ...}`` wrapper is unwrapped and any

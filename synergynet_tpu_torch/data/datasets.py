@@ -20,6 +20,8 @@ from typing import Callable, Optional
 
 import numpy as np
 
+from synergynet_tpu_torch.core.optional import import_cv2
+
 
 def _load_params(param_fp: str) -> np.ndarray:
     if param_fp.endswith(".npz"):
@@ -52,13 +54,7 @@ class FileListDataset:
 
     def __getitem__(self, index: int,
                     rng: Optional[np.random.Generator] = None):
-        try:
-            import cv2
-        except ImportError as e:
-            raise ImportError(
-                "FileListDataset reads images with OpenCV (cv2), which is "
-                "not installed; install opencv-python or train on an "
-                "ArrayDataset") from e
+        cv2 = import_cv2("FileListDataset")
         img = cv2.imread(os.path.join(self.root, self.lines[index]),
                          cv2.IMREAD_COLOR)
         if img is None:

@@ -25,6 +25,7 @@ from synergynet_tpu_torch.evals.nme import (analyze_by_yaw, calc_nme,
                                             format_nme_report)
 from synergynet_tpu_torch.mm3d import (ParamPack, decode_landmarks,
                                        load_param_pack, pose_from_param)
+from synergynet_tpu_torch.mm3d.codec import full_fp32_if
 
 
 def make_param_extractor(model: torch.nn.Module, *, std: float = 128.0,
@@ -33,8 +34,10 @@ def make_param_extractor(model: torch.nn.Module, *, std: float = 128.0,
     """Returns ``extract(images_u8 (N, 120, 120, 3)) -> (N, 62)``: the
     model in eval mode on its own device, in fixed-size batches (the last
     one zero-padded, then trimmed), the model's train/eval mode restored
-    after."""
+    after. An f32 model (``model.dtype``, f32 when it has none) runs in
+    full f32, TF32 off, as the JAX package's extractor computes."""
     dev = next(model.parameters()).device
+    dtype = getattr(model, "dtype", torch.float32)
 
     def extract(images_u8: np.ndarray) -> np.ndarray:
         n = images_u8.shape[0]
@@ -42,7 +45,7 @@ def make_param_extractor(model: torch.nn.Module, *, std: float = 128.0,
         was_training = model.training
         model.eval()
         try:
-            with torch.no_grad():
+            with torch.no_grad(), full_fp32_if(dtype):
                 for s in range(0, n, batch):
                     chunk = images_u8[s:s + batch]
                     pad = batch - chunk.shape[0]

@@ -2,7 +2,9 @@
 
 from synergynet_tpu_torch.mm3d.assets import (  # noqa: F401
     NVER, NTRI, N_SHP, N_EXP, N_POSE, N_PARAM, N_LMK, STD_SIZE,
-    ParamPack, load_param_pack, make_synthetic_assets, pack_from_arrays,
+    ParamPack, load_param_pack, make_synthetic_assets,
+    convert_reference_assets, convert_raw_bfm, pack_from_arrays,
+    save_assets_npz, load_assets_npz, device_pack,
 )
 from synergynet_tpu_torch.mm3d.codec import (  # noqa: F401
     dewhiten, whiten, parse_param62, decode_param62, decode_landmarks,

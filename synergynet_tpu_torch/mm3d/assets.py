@@ -5,7 +5,10 @@ cached with numpy exactly as there — :func:`make_synthetic_assets` is a
 byte-identical copy of the JAX package's generator, and
 :func:`load_param_pack` shares its ``assets/bfm_synth.npz`` cache — and
 :class:`ParamPack` then holds them as CPU tensors; ``pack.to(device)`` moves
-every leaf.
+every leaf. :func:`convert_reference_assets` and :func:`convert_raw_bfm`
+turn the reference's own files (its ``3dmm_data/`` directory, or a raw
+Basel Face Model ``.mat``) into the same asset dict, which
+:func:`save_assets_npz` writes for ``$SYNERGY_BFM``.
 """
 
 from __future__ import annotations
@@ -16,6 +19,7 @@ from typing import NamedTuple
 import numpy as np
 import torch
 
+from synergynet_tpu_torch.core.device import resolve_device
 from synergynet_tpu_torch.core.paths import asset_dir
 
 NVER = 53_215          # dense mesh vertices
@@ -147,6 +151,94 @@ def make_synthetic_assets(seed: int = 0) -> dict:
         "keypoints": keypoints, "param_mean": param_mean,
         "param_std": param_std, "tri": tri,
     }
+
+
+def convert_reference_assets(d: str) -> dict:
+    """The reference's ``3dmm_data/`` directory -> the asset dict: npy
+    bases and a pickled whitening dict (reference utils/params.py:12-24),
+    and ``tri.mat``'s 1-based 3 x T triangles made 0-based when present
+    (model_building.py:68; else no triangles). The pickle is unpickled
+    whole: load only trusted data."""
+    import pickle
+
+    def _load(p):
+        if p.endswith(".npy"):
+            return np.load(p)
+        with open(p, "rb") as f:
+            return pickle.load(f)
+
+    out = {
+        "u_shp": _load(os.path.join(d, "u_shp.npy")).astype(np.float32),
+        "u_exp": _load(os.path.join(d, "u_exp.npy")).astype(np.float32),
+        "w_shp": _load(os.path.join(d, "w_shp_sim.npy")).astype(np.float32),
+        "w_exp": _load(os.path.join(d, "w_exp_sim.npy")).astype(np.float32),
+        "keypoints": _load(os.path.join(d, "keypoints_sim.npy")).astype(
+            np.int32),
+    }
+    meta = _load(os.path.join(d, "param_whitening.pkl"))
+    out["param_mean"] = np.asarray(meta["param_mean"], np.float32)
+    out["param_std"] = np.asarray(meta["param_std"], np.float32)
+    tri_path = os.path.join(d, "tri.mat")
+    if os.path.exists(tri_path):
+        import scipy.io as sio
+        out["tri"] = (sio.loadmat(tri_path)["tri"] - 1).astype(np.int32)
+    else:
+        out["tri"] = np.zeros((3, 0), np.int32)
+    return out
+
+
+def convert_raw_bfm(mat_path: str, param_whitening_path: str | None = None,
+                    tri_path: str | None = None, n_shp: int = N_SHP,
+                    n_exp: int = N_EXP) -> dict:
+    """A raw Basel Face Model ``.mat`` (the ``model_refine`` layout) -> the
+    asset dict, by the reference's ``load_bfm`` recipe (utils/io.py:58-104):
+    the shape basis cut to ``n_shp`` columns and the expression basis to
+    ``n_exp``, triangles and keypoints made 0-based, and each of the 68
+    keypoints expanded to its interleaved (3k, 3k+1, 3k+2) rows. Triangles
+    come from ``tri_path``, else the model's own ``tri``, else none; the
+    whitening stats from ``param_whitening_path`` (a trusted pickle), else
+    an identity camera mean and unit deviations."""
+    import pickle
+
+    import scipy.io as sio
+
+    model = sio.loadmat(mat_path)["model_refine"][0, 0]
+    w_shp = model["w"].astype(np.float32)[:, :n_shp]
+    w_exp = model["w_exp"].astype(np.float32)[:, :n_exp]
+    u_shp = model["mu_shape"].astype(np.float32).reshape(-1, 1)
+    u_exp = model["mu_exp"].astype(np.float32).reshape(-1, 1)
+
+    kp = model["keypoints"].astype(np.int64) - 1
+    keypoints = np.concatenate(
+        (3 * kp, 3 * kp + 1, 3 * kp + 2), axis=0).T.flatten().astype(np.int32)
+
+    out = {
+        "u_shp": u_shp, "u_exp": u_exp, "w_shp": w_shp, "w_exp": w_exp,
+        "keypoints": keypoints,
+    }
+    if tri_path:
+        out["tri"] = (sio.loadmat(tri_path)["tri"] - 1).astype(np.int32)
+    elif "tri" in model.dtype.names:
+        out["tri"] = (model["tri"].astype(np.int64) - 1).astype(np.int32)
+    else:
+        out["tri"] = np.zeros((3, 0), np.int32)
+    if param_whitening_path:
+        with open(param_whitening_path, "rb") as f:
+            meta = pickle.load(f)
+        out["param_mean"] = np.asarray(meta["param_mean"], np.float32)
+        out["param_std"] = np.asarray(meta["param_std"], np.float32)
+    else:
+        out["param_mean"] = np.zeros(N_PARAM, np.float32)
+        out["param_mean"][:12] = np.array(
+            [1, 0, 0, 0, 0, 1, 0, 0, 0, 0, 1, 0], np.float32)
+        out["param_std"] = np.ones(N_PARAM, np.float32)
+    return out
+
+
+def device_pack(pack: ParamPack, device="cuda") -> ParamPack:
+    """The pack with every leaf on ``device`` (the card unless the caller
+    asks for the CPU): ``pack.to`` on a resolved device."""
+    return pack.to(resolve_device(device))
 
 
 def pack_from_arrays(d: dict) -> ParamPack:

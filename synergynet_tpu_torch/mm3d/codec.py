@@ -16,6 +16,7 @@ products run with TF32 off.
 from __future__ import annotations
 
 import contextlib
+import threading
 from typing import Tuple
 
 import torch
@@ -23,20 +24,46 @@ import torch
 from synergynet_tpu_torch.mm3d.assets import ParamPack, STD_SIZE
 
 
+# The TF32 flags are process-wide, so ``full_fp32`` counts its holders
+# across threads: the first to enter saves the flags and turns TF32 off,
+# the last to leave restores them. The lock guards only the count and the
+# flags, never the enclosed work.
+_FP32_LOCK = threading.Lock()
+_fp32_holders = 0
+_fp32_saved: Tuple[bool, bool] = (False, False)
+
+
 @contextlib.contextmanager
 def full_fp32():
     """Run the enclosed products and convolutions in full fp32: TF32 off
     for cuBLAS (``torch.backends.cuda.matmul.allow_tf32``) and for cuDNN
-    (``torch.backends.cudnn.allow_tf32``), both restored after."""
-    prev = (torch.backends.cuda.matmul.allow_tf32,
-            torch.backends.cudnn.allow_tf32)
-    torch.backends.cuda.matmul.allow_tf32 = False
-    torch.backends.cudnn.allow_tf32 = False
+    (``torch.backends.cudnn.allow_tf32``) while any thread is inside, and
+    the values found before the first holder restored when the last one
+    leaves. Nests, within a thread and across threads; entering and
+    leaving wait on a module lock, the enclosed work does not."""
+    global _fp32_holders, _fp32_saved
+    with _FP32_LOCK:
+        if _fp32_holders == 0:
+            _fp32_saved = (torch.backends.cuda.matmul.allow_tf32,
+                           torch.backends.cudnn.allow_tf32)
+            torch.backends.cuda.matmul.allow_tf32 = False
+            torch.backends.cudnn.allow_tf32 = False
+        _fp32_holders += 1
     try:
         yield
     finally:
-        (torch.backends.cuda.matmul.allow_tf32,
-         torch.backends.cudnn.allow_tf32) = prev
+        with _FP32_LOCK:
+            _fp32_holders -= 1
+            if _fp32_holders == 0:
+                (torch.backends.cuda.matmul.allow_tf32,
+                 torch.backends.cudnn.allow_tf32) = _fp32_saved
+
+
+def full_fp32_if(dtype: torch.dtype):
+    """:func:`full_fp32` for a float32 net, a null context otherwise: the
+    TF32 flags do not touch a bf16 net's convolutions, so its path takes
+    no lock."""
+    return full_fp32() if dtype == torch.float32 else contextlib.nullcontext()
 
 
 def dewhiten(param: torch.Tensor, pack: ParamPack) -> torch.Tensor:

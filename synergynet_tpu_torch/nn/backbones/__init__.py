@@ -4,7 +4,12 @@ The same names and factories as ``synergynet_tpu/nn/backbones/__init__.py``:
 MobileNetV2 at widths 1.0, 0.5 and 1.4; MobileNetV1 at six widen factors;
 GhostNet; the ResNet, ResNeXt and wide-ResNet variants; ResNeSt at four
 depths and its six "fast" ablations. Each factory takes ``dtype`` and
-``dropout`` (and the family's own options).
+``dropout`` (and the family's own options). :func:`register_backbone`
+adds a name: ``SynergyNet(arch=name)`` then builds it, and the
+checkpoint loaders take it wherever they build the net (a framework
+``.npz``; a reference ``.pth.tar`` needs a name mapping of its own).
+A registered factory returns a module whose ``forward`` gives
+``(param62, pooled_feat)`` and which holds the head as ``ParamHead_0``.
 """
 
 from __future__ import annotations
@@ -33,6 +38,12 @@ _REGISTRY: Dict[str, Callable[..., nn.Module]] = {
     **{n: (lambda n=n, **kw: make_resnest(n, **kw))
        for n in (*RESNEST_LAYERS, *RESNEST_FAST_VARIANTS)},
 }
+
+
+def register_backbone(name: str, factory: Callable[..., nn.Module]) -> None:
+    """Make ``factory(dtype=, dropout=, **options)`` the backbone of
+    ``name``, replacing any earlier one."""
+    _REGISTRY[name] = factory
 
 
 def make_backbone(arch: str, **kwargs) -> nn.Module:

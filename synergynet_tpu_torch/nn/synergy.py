@@ -46,6 +46,7 @@ class SynergyNet(nn.Module):
                  **backbone_kwargs):
         super().__init__()
         self.arch = arch
+        self.dtype = dtype
         self.backbone = make_backbone(arch, dtype=dtype, dropout=dropout,
                                       **backbone_kwargs)
         feat_dim = self.backbone.ParamHead_0.fc_pose.in_features
@@ -95,6 +96,16 @@ def init_synergy_(model: nn.Module, generator: torch.Generator
             m.running_mean.zero_()
             m.running_var.fill_(1.0)
     return model
+
+
+def init_synergy_variables(model: SynergyNet, generator: torch.Generator
+                           ) -> dict:
+    """:func:`init_synergy_` on ``model``, then its weights as the JAX
+    package's flax variable tree (``{"params", "batch_stats"}`` of numpy
+    arrays), the form that checkpoints and ``SynergyNet3DMM`` take."""
+    from synergynet_tpu_torch.convert import flax_from_state_dict
+    init_synergy_(model, generator)
+    return flax_from_state_dict(model.state_dict())
 
 
 def synergy_criterion(model: SynergyNet, images: torch.Tensor,

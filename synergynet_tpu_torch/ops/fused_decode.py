@@ -11,11 +11,14 @@ in the JAX package: ``w`` (3, Npad, 50) for x, y, z and means ``u``
 package), then launches ``csrc/fused_decode.cu`` on a CUDA tensor — or
 raises — and runs the plain twin :func:`decode_dense_fused_reference` on a
 CPU tensor. ``decode_dense_fused.launches`` counts kernel launches.
+:func:`decode_dense_fast` is the same decode on a basis built once per
+pack (:func:`get_decode_basis`).
 """
 
 from __future__ import annotations
 
 import ctypes
+import weakref
 from typing import NamedTuple, Tuple
 
 import numpy as np
@@ -153,3 +156,30 @@ def decode_dense_fused(param: torch.Tensor, basis: DecodeBasis,
 
 
 decode_dense_fused.launches = 0
+
+
+# pack.w_shp's id -> (a weak reference to it, its basis on its device). The
+# weak reference's callback drops the entry with the tensor, so an id
+# reused by a later pack never finds an old basis.
+_BASIS_CACHE: dict = {}
+
+
+def get_decode_basis(pack: ParamPack) -> DecodeBasis:
+    """The pack's coordinate-split basis on the pack's device, built once
+    per pack (keyed by its ``w_shp`` tensor) and reused after."""
+    key = id(pack.w_shp)
+    hit = _BASIS_CACHE.get(key)
+    if hit is not None and hit[0]() is pack.w_shp:
+        return hit[1]
+    basis = build_decode_basis(pack).to(pack.w_shp.device)
+    ref = weakref.ref(pack.w_shp, lambda _, k=key: _BASIS_CACHE.pop(k, None))
+    _BASIS_CACHE[key] = (ref, basis)
+    return basis
+
+
+def decode_dense_fast(param: torch.Tensor, pack: ParamPack) -> torch.Tensor:
+    """Whitened (B, 62) params -> dense vertices (B, 3, nver):
+    :func:`decode_dense_fused` on the pack's cached basis, so on a CUDA
+    tensor it launches the kernel (or raises) and on a CPU tensor it runs
+    the plain twin. ``param`` and ``pack`` share a device."""
+    return decode_dense_fused(param, get_decode_basis(pack), pack)

@@ -1,5 +1,5 @@
 """Serving pipeline: the packaged two-stage API, the fused frame engine,
-crops, mesh outputs, the overlay engine."""
+crops, mesh outputs, the overlay engine and the drawing helpers."""
 
 from synergynet_tpu_torch.pipeline.api import (  # noqa: F401
     MAX_FACES_PER_BATCH, FusedFrameEngine, SynergyNet3DMM, prepare_frame,
@@ -15,4 +15,7 @@ from synergynet_tpu_torch.pipeline.outputs import (  # noqa: F401
 )
 from synergynet_tpu_torch.pipeline.overlay_engine import (  # noqa: F401
     FusedOverlayEngine, render_lit_faces, render_lit_faces_adaptive,
+)
+from synergynet_tpu_torch.pipeline.draw import (  # noqa: F401
+    draw_landmarks, draw_axis, viz_bbox,
 )

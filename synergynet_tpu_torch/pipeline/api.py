@@ -33,21 +33,20 @@ from typing import List, Optional, Sequence, Tuple
 import numpy as np
 import torch
 
-from synergynet_tpu_torch.convert import (flax_from_state_dict,
-                                          synergy_state_dict)
-from synergynet_tpu_torch.core.checkpoint import (load_trained_variables,
-                                                  shipped_trained_path)
+from synergynet_tpu_torch.convert import synergy_state_dict
+from synergynet_tpu_torch.core.checkpoint import load_shipped_trained
 from synergynet_tpu_torch.core.device import resolve_device
 from synergynet_tpu_torch.detect.detector import (FaceBoxes, prepare_frame,
                                                   rank_and_keep)
 from synergynet_tpu_torch.mm3d.assets import N_LMK, ParamPack, load_param_pack
 from synergynet_tpu_torch.mm3d.codec import (decode_landmarks, full_fp32,
-                                             rescale_to_roi)
+                                             full_fp32_if, rescale_to_roi)
 from synergynet_tpu_torch.mm3d.crop import crop_rect, square_box
 from synergynet_tpu_torch.mm3d.pose import (pose_from_param,
                                             rescale_pose_to_roi)
 from synergynet_tpu_torch.nn.layers import cast_convs_
-from synergynet_tpu_torch.nn.synergy import SynergyNet, init_synergy_
+from synergynet_tpu_torch.nn.synergy import (SynergyNet,
+                                             init_synergy_variables)
 from synergynet_tpu_torch.ops.fused_decode import (build_decode_basis,
                                                    decode_dense_fused)
 from synergynet_tpu_torch.ops.resize import crop_resize_cv2
@@ -84,7 +83,9 @@ def preprocess_crops(img_bgr: np.ndarray, roi_boxes: Sequence[np.ndarray],
 class SynergyNet3DMM:
     """The regressor and 3DMM constants on ``device`` (the card unless
     the caller asks for the CPU; raises when there is no card). Construct
-    once; call :meth:`get_all_outputs` per image.
+    once; call :meth:`get_all_outputs` per image. The parameters bind
+    positionally as the JAX class's, ``(arch, variables, pack, detector,
+    dtype, seed)``, with ``device`` after them.
 
     ``variables``: the string ``"trained"`` (the shipped full-recipe
     weights, ``arch="mobilenet_v2"`` only, as in the JAX package), a flax
@@ -102,23 +103,24 @@ class SynergyNet3DMM:
     rects; built on first use on the same device when not given.
     """
 
-    def __init__(self, variables: dict | str | None = None,
-                 arch: str = "mobilenet_v2",
+    def __init__(self, arch: str = "mobilenet_v2",
+                 variables: dict | str | None = None,
                  pack: Optional[ParamPack] = None,
-                 dtype: torch.dtype = torch.float32, device="cuda",
-                 detector: Optional[FaceBoxes] = None, seed: int = 0):
+                 detector: Optional[FaceBoxes] = None,
+                 dtype: torch.dtype = torch.float32, seed: int = 0,
+                 device="cuda"):
         self.device = resolve_device(device)
         if isinstance(variables, str):
             if variables != "trained":
                 raise ValueError(f"unknown variables spec {variables!r} "
                                  "(only 'trained' is recognised)")
-            variables = load_trained_variables(shipped_trained_path(arch))
+            variables = load_shipped_trained(arch)
         self.dtype = dtype
         self.pack = pack if pack is not None else load_param_pack()
         model = SynergyNet(arch=arch, dtype=dtype)
         if variables is None:
-            init_synergy_(model, torch.Generator().manual_seed(seed))
-            variables = flax_from_state_dict(model.state_dict())
+            variables = init_synergy_variables(
+                model, torch.Generator().manual_seed(seed))
         else:
             model.load_state_dict(synergy_state_dict(variables))
         cast_convs_(model, dtype)
@@ -210,7 +212,9 @@ class SynergyNet3DMM:
 
 class FusedFrameEngine:
     """Frame(s) -> up to ``max_faces`` faces per frame with landmarks, dense
-    mesh and pose, all on the api's device."""
+    mesh and pose, all on the api's device. An f32 detector or regressor
+    runs in full f32, TF32 off, as the JAX package computes by default; a
+    bf16 one runs as it is."""
 
     def __init__(self, api: SynergyNet3DMM,
                  detector: Optional[FaceBoxes] = None, max_faces: int = 8):
@@ -227,8 +231,10 @@ class FusedFrameEngine:
                           ) -> Tuple[torch.Tensor, torch.Tensor]:
         """(B, CH/8, CW/8, 192) s2d frames + (B, 2) true extents ->
         (scores (B, A) with -1 at ruled-out anchors, boxes (B, A, 4) in
-        canvas pixels): :meth:`FaceBoxes.candidates`."""
-        return self.detector.candidates(frames_s2d, true_hws)
+        canvas pixels): :meth:`FaceBoxes.candidates`, TF32 off for an f32
+        detector."""
+        with full_fp32_if(self.detector.net.dtype):
+            return self.detector.candidates(frames_s2d, true_hws)
 
     def select_faces(self, scores: torch.Tensor, boxes: torch.Tensor
                      ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
@@ -244,11 +250,13 @@ class FusedFrameEngine:
 
     def regress(self, frames: torch.Tensor, rois: torch.Tensor
                 ) -> torch.Tensor:
-        """(B, CH, CW, 3) frames + (B, F, 4) rois -> param62 (B, F, 62)."""
+        """(B, CH, CW, 3) frames + (B, F, 4) rois -> param62 (B, F, 62),
+        TF32 off for an f32 regressor."""
         b, f = rois.shape[:2]
         crops = crop_resize_matmul(frames, rois, CROP)
         xn = ((crops - 127.5) / 128.0).reshape(b * f, CROP, CROP, 3)
-        param62, _ = self.api.model(xn)
+        with full_fp32_if(self.api.dtype):
+            param62, _ = self.api.model(xn)
         return param62.float().reshape(b, f, -1)
 
     def head(self, frames, frames_s2d, true_hws):

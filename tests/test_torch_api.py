@@ -76,7 +76,8 @@ def detectors():
 def apis(detectors):
     jdet, tdets = detectors
     return (JaxApi(variables="trained", detector=jdet),
-            SynergyNet3DMM("trained", device="cpu", detector=tdets[None]))
+            SynergyNet3DMM(variables="trained", device="cpu",
+                           detector=tdets[None]))
 
 
 def _noise(hw, seed):
@@ -299,19 +300,19 @@ def test_seeded_init_and_its_variables():
     """variables=None draws flax's init from the seed; the tree it keeps
     rebuilds the same model."""
     a = SynergyNet3DMM(device="cpu", seed=3)
-    b = SynergyNet3DMM(None, device="cpu", seed=3)
+    b = SynergyNet3DMM(variables=None, device="cpu", seed=3)
     c = SynergyNet3DMM(device="cpu", seed=4)
     crops = np.random.default_rng(0).integers(0, 256, (2, 120, 120, 3),
                                               np.uint8)
     rois = np.asarray([[0, 0, 120, 120]] * 2, np.float32)
     pa, pb, pc = (api.process_crops(crops, rois)[0] for api in (a, b, c))
     assert np.array_equal(pa, pb) and not np.allclose(pa, pc)
-    again = SynergyNet3DMM(a.variables, device="cpu")
+    again = SynergyNet3DMM(variables=a.variables, device="cpu")
     assert np.array_equal(again.process_crops(crops, rois)[0], pa)
 
 
 def test_detector_property_is_lazy_and_on_the_api_device():
-    api = SynergyNet3DMM("trained", device="cpu")
+    api = SynergyNet3DMM(variables="trained", device="cpu")
     assert api._detector is None
     det = api.detector
     assert det.device == api.device and api.detector is det

@@ -776,11 +776,11 @@ def test_imported_family_card_matches_cpu(cuda, arch, tmp_path):
     rects = [[40.0, 50.0, 140.0, 160.0, 0.99], [-20.5, 150.5, 60.5, 260.5],
              [250.0, -30.0, 340.0, 70.0]]
     before = decode_dense_fused.launches
-    got = SynergyNet3DMM(tree, arch=arch, pack=pack, device=cuda
-                         ).get_all_outputs(img, rects=rects)
+    got = SynergyNet3DMM(variables=tree, arch=arch, pack=pack,
+                         device=cuda).get_all_outputs(img, rects=rects)
     assert decode_dense_fused.launches > before
-    want = SynergyNet3DMM(tree, arch=arch, pack=pack, device="cpu"
-                          ).get_all_outputs(img, rects=rects)
+    want = SynergyNet3DMM(variables=tree, arch=arch, pack=pack,
+                          device="cpu").get_all_outputs(img, rects=rects)
     for g, w in zip(got[0] + got[1], want[0] + want[1]):
         np.testing.assert_allclose(g, w, rtol=1e-4, atol=1e-2)
 
@@ -1106,8 +1106,8 @@ def test_preprocess_crops_card_equals_cpu(cuda, interpolation):
 @pytest.fixture(scope="module")
 def apis_card_cpu(cuda):
     from synergynet_tpu_torch.pipeline import SynergyNet3DMM
-    return (SynergyNet3DMM("trained", device=cuda),
-            SynergyNet3DMM("trained", device="cpu"))
+    return (SynergyNet3DMM(variables="trained", device=cuda),
+            SynergyNet3DMM(variables="trained", device="cpu"))
 
 
 RECTS8 = [[60.0 + 130 * i, 80.0 + 60 * (i % 3), 180.0 + 130 * i,
@@ -1293,3 +1293,68 @@ def test_host_detector_launches_the_stem_kernel(cuda):
         want = fused_stem1_s2d8_reference(x.cpu(), stem.tap_weights().cpu(),
                                           stem.bias.detach().cpu())
     torch.testing.assert_close(got.cpu().float(), want.float(), **STEM_TOL)
+
+
+# -- C11: the f32 serving engine computes with TF32 off ----------------------------
+
+ENGINE_MESH = dict(rtol=1e-4, atol=1e-3)     # the dense decode's tolerance
+
+
+def _engine_faces(engine, img):
+    """``engine.process_batch`` on one frame -> (n faces, rois (n, 4),
+    dense meshes (n, 3, N)) as numpy."""
+    from synergynet_tpu_torch.detect.detector import prepare_frame
+    canvas, packed, hw, _ = prepare_frame(img, engine.detector.stem_r,
+                                          engine.api.device)
+    out = engine.process_batch(canvas[None], packed[None], hw[None])
+    n = int(out[1][0])
+    return n, out[2][0, :n].cpu().numpy(), out[5][0, :n].cpu().numpy()
+
+
+@pytest.fixture(scope="module")
+def f32_engines(cuda):
+    from synergynet_tpu_torch.pipeline import FusedFrameEngine, SynergyNet3DMM
+    return tuple(FusedFrameEngine(SynergyNet3DMM(variables="trained",
+                                                 device=d))
+                 for d in (cuda, "cpu"))
+
+
+@pytest.mark.gpu
+def test_f32_engine_card_matches_cpu(cuda, f32_engines):
+    """FusedFrameEngine(SynergyNet3DMM(variables="trained")), f32 with its
+    default f32 detector, on the card gives the CPU's faces on a 720x1088
+    frame whose candidate scores keep 1.48e-3 clear of 0.5 (phase 10's):
+    equal counts, rois within BOXES, meshes within the dense decode's
+    tolerance; the TF32 flags are as they were after the call."""
+    card, cpu = f32_engines
+    img = _frame((720, 1088), 5)
+    before = (torch.backends.cuda.matmul.allow_tf32,
+              torch.backends.cudnn.allow_tf32)
+    n, rois, dense = _engine_faces(card, img)
+    assert (torch.backends.cuda.matmul.allow_tf32,
+            torch.backends.cudnn.allow_tf32) == before
+    n_cpu, rois_cpu, dense_cpu = _engine_faces(cpu, img)
+    assert n == n_cpu > 0
+    np.testing.assert_allclose(rois, rois_cpu, **BOXES)
+    np.testing.assert_allclose(dense, dense_cpu, **ENGINE_MESH)
+
+
+@pytest.mark.gpu
+def test_f32_engine_tolerance_sees_one_tf32_pass(cuda, f32_engines,
+                                                 monkeypatch):
+    """The same comparison with the engine's guard removed and TF32 forced
+    on for cuBLAS and cuDNN (the fault C11 repaired) falls outside it: a
+    face count, a roi or a mesh differs beyond the tolerance."""
+    import contextlib
+
+    from synergynet_tpu_torch.pipeline import api as api_module
+    card, cpu = f32_engines
+    img = _frame((720, 1088), 5)
+    n_cpu, rois_cpu, dense_cpu = _engine_faces(cpu, img)
+    monkeypatch.setattr(api_module, "full_fp32_if",
+                        lambda dtype: contextlib.nullcontext())
+    monkeypatch.setattr(torch.backends.cuda.matmul, "allow_tf32", True)
+    monkeypatch.setattr(torch.backends.cudnn, "allow_tf32", True)
+    n, rois, dense = _engine_faces(card, img)
+    assert n != n_cpu or not (np.allclose(rois, rois_cpu, **BOXES) and
+                              np.allclose(dense, dense_cpu, **ENGINE_MESH))

@@ -221,7 +221,7 @@ def test_window_and_tiled_knobs_raise():
 def faces():
     """Three decoded BFM meshes on a 240x320 frame, the third overlapping
     the other two, and the topology."""
-    api = SynergyNet3DMM("trained", device="cpu")
+    api = SynergyNet3DMM(variables="trained", device="cpu")
     img = np.random.default_rng(0).integers(0, 256, (240, 320, 3), np.uint8)
     rects = [[40., 50., 140., 160.], [150., 60., 240., 150.],
              [100., 100., 200., 200.]]

@@ -166,8 +166,8 @@ def test_imported_tree_serves_as_jax(arch, tmp_path):
              [250.0, -30.0, 340.0, 70.0]]
     want = JaxApi(arch=arch, variables=jax.tree_util.tree_map(
         jnp.asarray, tree)).get_all_outputs(img, rects=rects)
-    got = SynergyNet3DMM(tree, arch=arch, device="cpu").get_all_outputs(
-        img, rects=rects)
+    got = SynergyNet3DMM(variables=tree, arch=arch,
+                         device="cpu").get_all_outputs(img, rects=rects)
     assert [len(x) for x in got] == [len(rects)] * 3
     for i in range(len(rects)):
         np.testing.assert_allclose(got[0][i], want[0][i], **CHAIN)
@@ -182,4 +182,4 @@ def test_trained_weights_stay_mobilenet_v2_only():
             if api is JaxApi:
                 api(arch="resnet50", variables="trained")
             else:
-                api("trained", arch="resnet50", device="cpu")
+                api(variables="trained", arch="resnet50", device="cpu")
