@@ -132,7 +132,24 @@ each fatal on failure:
    and draw images with cv2 and matplotlib, which the card's machine may
    not have, so this run does not call them: their work on the card is
    ``get_all_outputs`` and ``render_overlay``, which phase 10 drives and
-   holds.
+   holds;
+13. scale-out and detector training (``scaleout_phase``), each check
+   printing its backend and world size: a process group of one rank over
+   NCCL, where ``jit_train_step`` at the JAX default config (MobileNetV2
+   1.0, bf16, batch 1024) is held against ``make_train_step`` from the
+   same state (within ``CARD_VS_CPU_REL``; bit for bit printed) and both
+   are timed in turns (the mesh wrapper's cost), ``shard_fused_engine``
+   at 128 frames against ``process_batch``, and ``tp_dense_decode`` (B1,
+   its launches the ``kernels`` line's ``launches_scaleout`` with the
+   ranks') against ``decode_dense_fused``; ``dryrun_multichip(2)``: two
+   ranks sharing the card over gloo with CUDA tensors, each stage (the
+   sync-BN and the per-replica step, the TP decode with B1 on each of two
+   vertex slabs, sharded serving, a generative epoch) held against one
+   process; ``DetectorTrainer`` at 256x256, batch 8: one step card vs
+   CPU (f32: the losses within ``DET_LOSS_REL``; float64: the update
+   within ``DET_F64_REL``), 20 f32 steps with the loss falling, ms a step.
+   Times by ``StageTimer`` (CUDA events), the peak by
+   ``device_memory_stats``.
 
 Prints the kernels as one JSON line (each with its launches on its path,
 error against its twin, kernel, plain and library ms, and the least time
@@ -1884,6 +1901,277 @@ def ingest_eval_phase(torch, dev, card):
     return out
 
 
+DET_STEPS = 20
+DET_BATCH = 8
+# One DetectorTrainer step, card against CPU, from the same seeded weights.
+# f32: the losses within DET_LOSS_REL (one forward; cuDNN's f32 convs
+# differ from the CPU's by up to ~1e-5, and a random-init BatchNorm net's
+# gradient amplifies that to the whole size of some leaves' updates:
+# 1.08x at worst, measured on an NVIDIA H100 80GB HBM3 at 700 W). float64:
+# the update, the trace and the running statistics within DET_F64_REL of
+# each leaf's scale, which holds the step's math.
+DET_LOSS_REL = 1e-4
+DET_F64_REL = 1e-6
+
+
+def worst_flat_rel(got, want, sizes):
+    """worst_rel over the leaves of two flat buffers split by ``sizes``."""
+    names = [str(i) for i in range(len(sizes))]
+    return worst_rel(dict(zip(names, got.split(sizes))),
+                     dict(zip(names, want.split(sizes))))
+
+
+def scaleout_phase(torch, dev, card, eng, frames, frames_s2d, hws,
+                   backend="nccl"):
+    """Scale-out and detector training on the card (phase 13): the
+    mesh-bound step, sharded serving and the TP decode at world size 1
+    over NCCL; two ranks sharing the card over gloo with CUDA tensors
+    (``dryrun_multichip(2)``); DetectorTrainer card vs CPU. Returns the
+    numbers for the JSON line."""
+    import tempfile
+    import torch.distributed as dist
+    from synergynet_tpu_torch.core.config import Config
+    from synergynet_tpu_torch.core.mesh import make_mesh
+    from synergynet_tpu_torch.core.profiling import (StageTimer,
+                                                     device_memory_stats)
+    from synergynet_tpu_torch.detect import DetectorTrainer
+    from synergynet_tpu_torch.detect import make_synthetic_detection_batch
+    from synergynet_tpu_torch.detect.detector import random_init_variables
+    from synergynet_tpu_torch.mm3d import load_param_pack
+    from synergynet_tpu_torch.nn import SynergyNet
+    from synergynet_tpu_torch.ops.fused_decode import (build_decode_basis,
+                                                       decode_dense_fused)
+    from synergynet_tpu_torch.parallel import (shard_fused_engine,
+                                               tp_dense_decode,
+                                               warm_mesh_cliques)
+    from synergynet_tpu_torch.parallel.dryrun import (STATE_REL,
+                                                      dryrun_multichip)
+    from synergynet_tpu_torch.train import (create_train_state,
+                                            jit_train_step, lr_per_step,
+                                            make_optimizer, make_train_step)
+    t_phase = time.perf_counter()
+    out = {}
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats(dev)
+    timer = StageTimer(device=dev)
+
+    # -- 13a. world size 1 over NCCL ------------------------------------------
+    build = os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                         "build")
+    os.makedirs(build, exist_ok=True)
+    tmp = tempfile.mkdtemp(dir=build)
+    dist.init_process_group(backend,
+                            init_method=f"file://{tmp}/rendezvous",
+                            world_size=1, rank=0)
+    try:
+        backend, world = dist.get_backend(), dist.get_world_size()
+        mesh = make_mesh(device=dev)
+        warm_mesh_cliques(mesh)
+        where = f"{backend}, world size {world}, mesh {mesh.shape}"
+        cfg = Config()
+        t = cfg.train
+        pack = load_param_pack()
+        opt = make_optimizer(lr_per_step(t.base_lr, t.milestones, t.warmup,
+                                         TRAIN_STEPS),
+                             momentum=t.momentum, nesterov=t.nesterov,
+                             weight_decay=t.weight_decay)
+        g = np.random.default_rng(13)
+        imgs = torch.from_numpy(g.integers(0, 256, (TRAIN_BATCH, 120, 120,
+                                                    3), np.uint8)).to(dev)
+        tgts = torch.from_numpy(g.normal(0, 0.5, (TRAIN_BATCH, 62)).astype(
+            np.float32)).to(dev)
+        states, steps = [], {}
+        for name, make in (("make_train_step", lambda: make_train_step(
+                pack, opt, device=dev)), ("jit_train_step", lambda:
+                jit_train_step(pack, opt, mesh))):
+            model = SynergyNet(dropout=0.0, dtype=getattr(
+                torch, cfg.model.compute_dtype)).to(dev)
+            st = create_train_state(model, torch.Generator(
+                device=dev).manual_seed(0), opt)
+            steps[name] = (make(), st)
+            states.append(st)
+        with torch.no_grad():
+            for x, y in zip(states[0].tensors(), states[1].tensors()):
+                if not torch.equal(x, y):
+                    fail("phase 13: the two initial states differ")
+        for name, (step, st) in steps.items():
+            step(st, imgs, tgts)
+        torch.cuda.synchronize()
+        a, b = states
+        sizes = [p.numel() for p in a.model.parameters()]
+        bsizes = [x.numel() for x in a.model.buffers()]
+        errs = {"params": worst_flat_rel(b.params, a.params, sizes),
+                "trace": worst_flat_rel(b.trace, a.trace, sizes),
+                "stats": worst_flat_rel(b.stats, a.stats, bsizes)}
+        bitwise = all(torch.equal(x, y) for x, y in zip(a.tensors(),
+                                                         b.tensors()))
+        log(f"phase 13 [{where}]: jit_train_step vs make_train_step, one "
+            f"step from one state (MobileNetV2 1.0, "
+            f"{cfg.model.compute_dtype}, B={TRAIN_BATCH}): bit for bit "
+            f"{bitwise}; worst leaf " + ", ".join(
+                f"{k} {v[0]:.2e}" for k, v in errs.items())
+            + f" (tolerance {CARD_VS_CPU_REL} of each leaf's scale)")
+        if max(v[0] for v in errs.values()) > CARD_VS_CPU_REL:
+            fail("phase 13: jit_train_step disagrees with make_train_step")
+        for name, (step, st) in steps.items():     # warm, then in turns
+            step(st, imgs, tgts)
+        for _ in range(3):
+            for name, (step, st) in steps.items():
+                with timer.stage(name):
+                    step(st, imgs, tgts)
+        avg = timer.averages()
+        step_ms = {k: avg[k] * 1e3 for k in steps}
+        cost = step_ms["jit_train_step"] - step_ms["make_train_step"]
+        log(f"phase 13 [{where}]: step ms (CUDA events, mean of 3 in turns)"
+            f": make_train_step {step_ms['make_train_step']:.3f}, "
+            f"jit_train_step {step_ms['jit_train_step']:.3f}, the mesh "
+            f"wrapper {cost:+.3f} | {card}")
+        out["world1"] = {"backend": backend, "world": world,
+                         "step_bitwise": bitwise,
+                         "step_rel": {k: v[0] for k, v in errs.items()},
+                         "step_ms": step_ms}
+        del steps, states, a, b, st, model
+        torch.cuda.empty_cache()
+
+        # sharded serving at 128 frames against process_batch
+        run = shard_fused_engine(eng, mesh)
+        got = run(frames, frames_s2d, hws)
+        want = eng.process_batch(frames, frames_s2d, hws)
+        serve_equal = all(torch.equal(x, y) for x, y in zip(got, want))
+        if not serve_equal:
+            if not torch.equal(got[1], want[1]):
+                fail("phase 13: shard_fused_engine's face counts differ")
+            for x, y in zip(got[4:6], want[4:6]):
+                torch.testing.assert_close(x, y, rtol=RTOL, atol=ATOL)
+        with timer.stage("shard_fused_engine"):
+            run(frames, frames_s2d, hws)
+        with timer.stage("process_batch"):
+            eng.process_batch(frames, frames_s2d, hws)
+        avg = timer.averages()
+        log(f"phase 13 [{where}]: shard_fused_engine at {BATCH} frames vs "
+            f"process_batch: bit for bit {serve_equal}; "
+            f"{avg['shard_fused_engine'] * 1e3:.3f} vs "
+            f"{avg['process_batch'] * 1e3:.3f} ms (one call each) | {card}")
+        out["world1"]["serve_bitwise"] = serve_equal
+
+        # the TP decode: one slab (the whole padded basis) on kernel B1
+        p = torch.from_numpy(np.random.default_rng(14).normal(
+            0, 1, (FACES * BATCH, 62)).astype(np.float32)).to(dev)
+        decode_dense_fused.launches = 0
+        decode = tp_dense_decode(mesh, pack)
+        slab, checksum = decode(p)
+        torch.cuda.synchronize()
+        launches_w1 = decode_dense_fused.launches
+        basis = build_decode_basis(pack).to(dev)
+        whole = decode_dense_fused(p, basis, pack.to(dev))
+        nver = basis.nver
+        tp_equal = torch.equal(slab[:, :, :nver], whole)
+        torch.testing.assert_close(slab[:, :, :nver], whole, rtol=RTOL,
+                                   atol=ATOL)
+        log(f"phase 13 [{where}]: tp_dense_decode, {FACES * BATCH} faces, "
+            f"one slab of {slab.shape[2]} vertices: B1 launched "
+            f"{launches_w1} time(s); against decode_dense_fused bit for bit "
+            f"{tp_equal}, max_abs_err "
+            f"{(slab[:, :, :nver] - whole).abs().max().item():.3e}")
+        if launches_w1 == 0:
+            fail("phase 13: tp_dense_decode never launched kernel B1")
+        out["world1"]["tp_bitwise"] = tp_equal
+        del slab, whole, basis
+    finally:
+        dist.destroy_process_group()
+        shutil.rmtree(tmp, ignore_errors=True)
+
+    # -- 13b. two ranks sharing the card over gloo ----------------------------
+    with timer.stage("dryrun_multichip(2)"):
+        dr = dryrun_multichip(2, device=dev.type, backend="gloo",
+                              timeout=300,
+                              workdir=build)
+    if dr["backend"] != "gloo" or dr["world"] != 2:
+        fail(f"phase 13: dryrun ran over {dr['backend']} at {dr['world']}")
+    if min(dr["tp_launches"]) == 0:
+        fail("phase 13: a rank's vertex slab never launched kernel B1")
+    log(f"phase 13 [gloo, world size 2, {dev.type.upper()} tensors, mesh "
+        f"{dr['mesh']}]: "
+        f"dryrun_multichip(2) against one process: sync-BN step worst leaf "
+        + ", ".join(f"{k} {v:.2e}" for k, v in dr["sync_bn_rel"].items())
+        + "; per-replica step " + ", ".join(
+            f"{k} {v:.2e}" for k, v in dr["step_rel"].items())
+        + f"; TP decode (2 slabs, B1 launches {dr['tp_launches']}) "
+        f"max_abs_err {dr['tp_max_abs_err']:.3e} (bit for bit "
+        f"{dr['tp_max_abs_err'] == 0.0}), checksum "
+        f"{dr['tp_checksum_err']:.3e}; sharded serving "
+        f"{dr['serve_faces']} faces, max_abs_err {dr['serve_max_abs_err']:.3e}"
+        f"; generative epoch " + ", ".join(
+            f"{k} {v:.2e}" for k, v in dr["gen_rel"].items())
+        + f" (tolerance {STATE_REL}); "
+        f"{timer.averages()['dryrun_multichip(2)']:.1f} s | {card}")
+    out["two_ranks"] = dr
+
+    # -- 13c. DetectorTrainer, card vs CPU ------------------------------------
+    variables = random_init_variables(0)
+    batch = make_synthetic_detection_batch(np.random.default_rng(7),
+                                           DET_BATCH)
+    cpu = torch.device("cpu")
+    det = {}
+    for dtype in (torch.float32, torch.float64):
+        trainers = {d: DetectorTrainer(variables=variables, device=d,
+                                       dtype=dtype) for d in (dev, cpu)}
+        tc, tg = trainers[cpu], trainers[dev]
+        init = tc.state.params.clone()
+        losses = {d: tr.train_step(batch) for d, tr in trainers.items()}
+        sizes = [p.numel() for p in tc.net.parameters()]
+        bsizes = [x.numel() for x in tc.net.buffers()]
+        det[str(dtype).split(".")[1]] = {
+            "loss_rel": abs(losses[dev]["loss_total"] - losses[cpu][
+                "loss_total"]) / abs(losses[cpu]["loss_total"]),
+            "update": worst_flat_rel(tg.state.params.cpu() - init,
+                                     tc.state.params - init, sizes)[0],
+            "trace": worst_flat_rel(tg.state.trace.cpu(), tc.state.trace,
+                                    sizes)[0],
+            "stats": worst_flat_rel(tg.state.stats.cpu(), tc.state.stats,
+                                    bsizes)[0]}
+    f32, f64 = det["float32"], det["float64"]
+    log(f"phase 13 DetectorTrainer {DET_BATCH}x256x256, one step card vs "
+        f"CPU from the same seeded weights: f32 loss_total rel "
+        f"{f32['loss_rel']:.2e} (tolerance {DET_LOSS_REL}; update, trace, "
+        f"stats worst leaf {f32['update']:.2e}, {f32['trace']:.2e}, "
+        f"{f32['stats']:.2e}: f32 rounding amplified, not held); float64 "
+        f"update, trace, stats worst leaf {f64['update']:.2e}, "
+        f"{f64['trace']:.2e}, {f64['stats']:.2e} (tolerance {DET_F64_REL} "
+        "of each leaf's scale)")
+    if f32["loss_rel"] > DET_LOSS_REL or max(
+            f64[k] for k in ("update", "trace", "stats")) > DET_F64_REL:
+        fail("phase 13: DetectorTrainer on the card disagrees with the CPU")
+    tg = DetectorTrainer(variables=variables, device=dev)
+    rng = np.random.default_rng(0)
+    hist = []
+    for _ in range(DET_STEPS):
+        b = make_synthetic_detection_batch(rng, DET_BATCH)
+        with timer.stage("detector_step"):
+            hist.append(tg.step(*(torch.from_numpy(b[k]) for k in (
+                "images", "boxes", "valid")))["loss_total"])
+    hist = [float(x) for x in hist]
+    det_ms = timer.averages()["detector_step"] * 1e3
+    log(f"phase 13 DetectorTrainer on the card: {DET_STEPS} steps, loss "
+        f"{hist[0]:.4f} -> {hist[-1]:.4f} (mean of the first and last 5: "
+        f"{np.mean(hist[:5]):.4f} -> {np.mean(hist[-5:]):.4f}), "
+        f"{det_ms:.3f} ms a step (CUDA events, mean of {DET_STEPS}, host "
+        f"batch upload inside) | {card}")
+    if not (np.isfinite(hist).all() and np.mean(hist[-5:]) < np.mean(
+            hist[:5])):
+        fail("phase 13: DetectorTrainer's loss did not fall")
+    peak = device_memory_stats(dev).get("allocated_bytes.all.peak", 0)
+    secs = time.perf_counter() - t_phase
+    out["detector"] = {"card_vs_cpu": det, "step_ms": det_ms,
+                       "loss_first": hist[0], "loss_last": hist[-1]}
+    out.update(peak_gib=peak / 2 ** 30, seconds=secs,
+               launches_b1=launches_w1 + sum(dr["tp_launches"]))
+    log(f"phase 13 (scale-out and detector training): {secs:.1f} s, peak "
+        f"{peak / 2 ** 30:.2f} GiB in this process (device_memory_stats) | "
+        f"{card}")
+    return out
+
+
 def main():
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--profile", metavar="DIR",
@@ -2518,6 +2806,9 @@ def main():
     # -- 12. reference-data ingest, the evaluation CLI, the f32 engine --------
     ingest = ingest_eval_phase(torch, dev, card)
 
+    # -- 13. scale-out and detector training ----------------------------------
+    scaleout = scaleout_phase(torch, dev, card, eng, frames, frames_s2d, hws)
+
     log(f"chip_smoke: all phases in {time.perf_counter() - t_start:.1f} s")
 
     ms8, plain8, lib8, bound8, _, spread8, entry8 = kernel_stats[FACES]
@@ -2542,6 +2833,7 @@ def main():
         "launches": launches,
         "launches_api": api_launches["B1 fused_decode"],
         "launches_eval": ingest["launches_b1"],
+        "launches_scaleout": scaleout["launches_b1"],
         "max_abs_err": max_err, "ms": ms1k, "plain_ms": plain1k, "bound_ms": bound1k,
         "bound_by": by1k, "library_ms": lib1k,
         "library": "torch.matmul (B,50)x(50,3*Npad) f32, no rotation",
@@ -2623,7 +2915,7 @@ def main():
         "raster_ab": raster_turns, "training": training,
         "data_path": data_path, "api_host_render": api_path,
         "families": {k: v for k, v in fam.items() if k != "stem_f32"},
-        "ingest_eval": ingest}),
+        "ingest_eval": ingest, "scaleout": scaleout}),
         flush=True)
     print(card, flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -7,10 +7,15 @@ reference's ``main_train.py`` / ``train_script.sh``: mobilenet_v2, batch
 :func:`synergynet_tpu_torch.nn.available_backbones`. It runs
 on the card unless ``--platform cpu`` asks for the CPU. ``--resident``
 uploads the whole dataset to the device once and trains device-resident
-epochs (:func:`synergynet_tpu_torch.train.fit_resident`). The
-multi-process flags of the JAX CLI (``--coordinator``,
-``--num-processes``, ``--process-id``, ``--n-model`` > 1) are accepted
-and raise ``NotImplementedError``, naming their ROADMAP item.
+epochs (:func:`synergynet_tpu_torch.train.fit_resident`).
+
+A multi-process job starts one process per rank, each with the same
+``--coordinator`` (``host:port`` of rank 0, or a ``tcp://`` / ``file://``
+URL), ``--num-processes`` and its own ``--process-id``; ``--n-model``
+sets the mesh's model axis, the data axis taking the other ranks
+(``synergynet_tpu/cli/train.py:93-104``). The ranks join over NCCL on the
+card and over gloo with ``--platform cpu``; on the card rank r takes card
+``r % device_count``. Only rank 0 writes checkpoints.
 """
 
 from __future__ import annotations
@@ -47,25 +52,22 @@ def main(argv=None):
     p.add_argument("--test-initial", action="store_true")
     p.add_argument("--log-file", default="output.log")
     p.add_argument("--no-eval", action="store_true")
-    p.add_argument("--coordinator", default=None)
-    p.add_argument("--num-processes", type=int, default=None)
-    p.add_argument("--process-id", type=int, default=None)
-    p.add_argument("--n-model", type=int, default=1)
+    p.add_argument("--coordinator", default=None,
+                   help="host:port (or tcp:// / file:// URL) of rank 0 "
+                        "for a multi-process job")
+    p.add_argument("--num-processes", type=int, default=None,
+                   help="total processes in the job")
+    p.add_argument("--process-id", type=int, default=None,
+                   help="this process's rank")
+    p.add_argument("--n-model", type=int, default=1,
+                   help="model (tensor-parallel) axis size of the mesh; "
+                        "the data axis gets the remaining ranks")
     p.add_argument("--resident", action="store_true",
                    help="device-resident epochs: upload the whole dataset "
                         "to the device once, one metrics read per epoch")
     p.add_argument("--platform", default=None, choices=sorted(PLATFORMS),
                    help="device to train on (default: the CUDA card)")
     args = p.parse_args(argv)
-
-    for flag, set_ in (("--coordinator", args.coordinator is not None),
-                       ("--num-processes", args.num_processes is not None),
-                       ("--process-id", args.process_id is not None),
-                       ("--n-model > 1", args.n_model > 1)):
-        if set_:
-            raise NotImplementedError(
-                f"{flag} is not ported yet (ROADMAP.md, queue A, item A6: "
-                "bn_groups and multi-process training)")
 
     logging.basicConfig(
         format="[%(asctime)s] [p%(process)d] %(message)s",
@@ -100,9 +102,27 @@ def main(argv=None):
 
     logging.info("config:\n%s", cfg.to_json())
     device = PLATFORMS[args.platform or "cuda"]
+    from synergynet_tpu_torch.core.mesh import distributed
+    from synergynet_tpu_torch.parallel import init_distributed
+    init_distributed(args.coordinator, args.num_processes, args.process_id,
+                     backend="gloo" if device == "cpu" else "nccl")
+    try:
+        return _train(cfg, args, device)
+    finally:
+        if distributed():
+            import torch.distributed as dist
+            dist.destroy_process_group()
+
+
+def _train(cfg, args, device):
+    from synergynet_tpu_torch.core.mesh import make_mesh
+    mesh = make_mesh(n_model=args.n_model, device=device)
+    logging.info("mesh: %s over %d process(es), rank %d", mesh.shape,
+                 args.num_processes or 1, mesh.rank)
     from synergynet_tpu_torch.train import Trainer, make_synthetic_eval_hook
-    hook = None if args.no_eval else make_synthetic_eval_hook(device=device)
-    trainer = Trainer(cfg, eval_hook=hook, device=device)
+    hook = None if args.no_eval else make_synthetic_eval_hook(
+        device=mesh.device)
+    trainer = Trainer(cfg, eval_hook=hook, mesh=mesh)
     logging.info("training on %s", trainer.device)
     if not args.resident:
         return trainer.fit()

@@ -5,8 +5,8 @@ imports nothing of the JAX package): one nested dataclass tree covers
 model / train / data / eval / detect / render, every CLI builds from it,
 and it serializes to and from JSON, so a config written by either package
 loads in the other. ``model.compute_dtype`` names a torch dtype here
-(``getattr(torch, name)``); ``train.per_replica_bn`` is not ported yet
-and raises where it would take effect.
+(``getattr(torch, name)``); ``train.per_replica_bn`` normalizes each
+data row of the Trainer's mesh alone (``bn_groups`` = the data size).
 """
 
 from __future__ import annotations

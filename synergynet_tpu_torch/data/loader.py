@@ -1,7 +1,6 @@
 """Prefetching batch loader: threaded augment + batch assembly.
 
-Counterpart of ``synergynet_tpu/data/loader.py`` for one process (the
-reference's ``DataLoader(bs=1024, workers=8, pin_memory=True)``,
+Counterpart of ``synergynet_tpu/data/loader.py`` (the reference's ``DataLoader(bs=1024, workers=8, pin_memory=True)``,
 main_train.py:207-209):
 
 - a thread pool fetches and augments samples (the numpy colour math
@@ -15,7 +14,10 @@ main_train.py:207-209):
 - each epoch's order comes from ``SeedSequence([seed, epoch])`` and each
   sample's rng from ``SeedSequence([seed, epoch, index])``, as in the JAX
   loader, so both packages see the same batches, bit for bit, whatever the
-  thread scheduling.
+  thread scheduling;
+- ``process_index`` / ``process_count`` shard the dataset over the data
+  rows of a mesh: every row takes a strided slice of the same shuffled
+  order, and every row steps the same number of batches.
 """
 
 from __future__ import annotations
@@ -31,7 +33,11 @@ import numpy as np
 class PrefetchLoader:
     def __init__(self, dataset, batch_size: int, *, shuffle: bool = True,
                  drop_last: bool = True, num_workers: int = 8,
-                 prefetch: int = 2, seed: int = 0):
+                 prefetch: int = 2, seed: int = 0,
+                 process_index: int = 0, process_count: int = 1):
+        """``process_index`` / ``process_count``: this rank's data row and
+        the mesh's data size (not the rank and the world size: the model
+        columns of a row read the same rows)."""
         self.dataset = dataset
         self.batch_size = batch_size
         self.shuffle = shuffle
@@ -40,11 +46,19 @@ class PrefetchLoader:
         self.prefetch = prefetch
         self.seed = seed
         self.epoch = 0
+        self.process_index = process_index
+        self.process_count = max(1, process_count)
 
     def __len__(self) -> int:
-        n = len(self.dataset)
         if self.drop_last:
-            return n // self.batch_size
+            # Agreed by every data row: row p's strided shard holds
+            # ceil((n - p) / P) rows, at least floor(n / P), so every row
+            # steps to that bound. A row that stepped more would wait
+            # forever in the step's collectives.
+            return (len(self.dataset) // self.process_count) \
+                // self.batch_size
+        n = (len(self.dataset) - self.process_index + self.process_count
+             - 1) // self.process_count
         return (n + self.batch_size - 1) // self.batch_size
 
     def set_epoch(self, epoch: int) -> None:
@@ -61,6 +75,8 @@ class PrefetchLoader:
         if self.shuffle:
             np.random.default_rng(
                 np.random.SeedSequence([self.seed, self.epoch])).shuffle(order)
+        if self.process_count > 1:
+            order = order[self.process_index::self.process_count]
         nb = len(self)
         out_q: "queue.Queue" = queue.Queue(maxsize=self.prefetch)
         stop = threading.Event()
@@ -112,3 +128,12 @@ class PrefetchLoader:
                     out_q.get(timeout=0.1)
                 except queue.Empty:
                     pass
+
+
+def shard_batches(loader, mesh=None):
+    """Each batch of ``loader`` (this rank's rows) as tensors on the mesh
+    rank's device (:func:`~synergynet_tpu_torch.core.mesh.shard_batch`);
+    batches as they come without a mesh."""
+    from synergynet_tpu_torch.core.mesh import shard_batch
+    for batch in loader:
+        yield batch if mesh is None else shard_batch(mesh, batch)

@@ -18,8 +18,13 @@ Counterpart of ``synergynet_tpu/detect/net.py``'s ``FaceBoxesNet``:
 
 ``folded=True`` is the inference form with BatchNorm folded into the
 convs (:func:`fold_bn_variables`): a CRelu is one channel-doubled conv +
-ReLU, a ``BasicConv2d`` a conv with bias + ReLU. ``folded=False`` keeps
-the reference's ``conv`` + ``bn`` (+ ``cat[x, -x]`` in a CRelu) + ReLU.
+ReLU, a ``BasicConv2d`` a conv with bias + ReLU; it starts in eval mode
+and ``train()`` raises, as the JAX net raises on ``train=True``.
+``folded=False`` keeps the reference's ``conv`` + ``bn`` (+ ``cat[x, -x]``
+in a CRelu) + ReLU, and trains: in train mode its BatchNorms normalize
+with the batch's statistics and move their running statistics
+(:mod:`synergynet_tpu_torch.nn.batchnorm`, flax's), as
+:class:`~synergynet_tpu_torch.detect.trainer.DetectorTrainer` needs.
 Public tensors stay NHWC as in the JAX package; inside, activations are
 NCHW in ``channels_last`` memory. The numpy helpers at the end convert
 weight trees exactly as the JAX package does.
@@ -177,6 +182,7 @@ class FaceBoxesNet(nn.Module):
                  folded: bool = True, stem_r: int = 8):
         super().__init__()
         check_stem_mode(stem_mode)
+        self.folded = folded
         self.dtype = dtype
         self.stem_mode = stem_mode
         self.s2d8 = stem_s2d and stem_r == 8
@@ -202,6 +208,15 @@ class FaceBoxesNet(nn.Module):
             self.add_module(f"conf{i}", nn.Conv2d(cin, n * NUM_CLASSES, 3,
                                                   padding=1))
         self.to(dtype)
+        if folded:
+            self.training = False
+            for m in self.modules():
+                m.training = False
+
+    def train(self, mode: bool = True):
+        if mode and self.folded:
+            raise ValueError("folded FaceBoxesNet is inference-only")
+        return super().train(mode)
 
     def forward(self, x: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
         x = x.permute(0, 3, 1, 2).to(self.dtype).contiguous(

@@ -16,9 +16,20 @@ flax 0.12.3):
 
 ``scale`` and ``bias`` are parameters (``weight``, ``bias``); the running
 statistics are buffers (``running_mean``, ``running_var``).
+
+Synchronized over a data group (:func:`sync_group`), train mode
+normalizes with the statistics of the whole global batch, as the JAX
+package does under a mesh (``Config.train.per_replica_bn=False``): each
+rank sums its rows' x and x^2 in fp32 with its row count, one
+``all_reduce`` adds them over the group, and the same fast variance and
+running update follow. The collective is
+``torch.distributed.nn.functional.all_reduce``, so the gradient flows back
+through it. With no group the module computes as before, bit for bit.
 """
 
 from __future__ import annotations
+
+import contextlib
 
 import torch
 import torch.nn.functional as F
@@ -42,6 +53,7 @@ class BatchNorm(nn.Module):
         self.bias = nn.Parameter(torch.zeros(features))
         self.register_buffer("running_mean", torch.zeros(features))
         self.register_buffer("running_var", torch.ones(features))
+        self.group = None       # a process group: synchronized statistics
 
     def _shape(self, x: torch.Tensor):
         shape = [1] * x.dim()
@@ -58,8 +70,11 @@ class BatchNorm(nn.Module):
         cd = self.channel_dim % x.dim()
         axes = [d for d in range(x.dim()) if d != cd]
         xf = x.to(torch.promote_types(x.dtype, torch.float32))
-        mean = xf.mean(axes)
-        mean2 = (xf * xf).mean(axes)
+        if self.group is None:
+            mean = xf.mean(axes)
+            mean2 = (xf * xf).mean(axes)
+        else:
+            mean, mean2 = self._global_moments(xf, axes)
         var = torch.maximum(mean2 - mean * mean, torch.zeros_like(mean))
         with torch.no_grad():
             m = self.momentum
@@ -69,9 +84,33 @@ class BatchNorm(nn.Module):
                                    + (1 - m) * var.detach())
         return self._normalize(x, mean, var)
 
+    def _global_moments(self, xf, axes):
+        from torch.distributed.nn.functional import all_reduce
+        c = xf.shape[self.channel_dim]
+        count = torch.full((1,), xf.numel() // c, dtype=xf.dtype,
+                           device=xf.device)
+        sums = all_reduce(torch.cat([xf.sum(axes), (xf * xf).sum(axes),
+                                     count]), group=self.group)
+        return sums[:c] / sums[2 * c], sums[c:2 * c] / sums[2 * c]
+
     def _normalize(self, x, mean, var):
         shape = self._shape(x)
         mul = torch.rsqrt(var + self.eps) * self.weight
         y = (x - mean.reshape(shape)) * mul.reshape(shape) \
             + self.bias.reshape(shape)
         return y.to(x.dtype)
+
+
+@contextlib.contextmanager
+def sync_group(model: nn.Module, group):
+    """Within the block, every :class:`BatchNorm` of ``model`` synchronizes
+    its train-mode statistics over ``group`` (None: each on its own)."""
+    mods = [m for m in model.modules() if isinstance(m, BatchNorm)]
+    old = [m.group for m in mods]
+    for m in mods:
+        m.group = group
+    try:
+        yield
+    finally:
+        for m, g in zip(mods, old):
+            m.group = g

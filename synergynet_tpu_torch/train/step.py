@@ -22,6 +22,13 @@ The state keeps every parameter, its gradient, the trace and every
 BatchNorm statistic as views into four flat fp32 buffers, so the update
 and the skip are a dozen whole-buffer ops whatever the number of leaves,
 and autograd accumulates gradients straight into the flat buffer.
+
+:func:`jit_train_step` is the same step on one rank of a
+``(data, model)`` mesh (:mod:`synergynet_tpu_torch.core.mesh`): each rank
+takes its data row's rows of the global batch, BatchNorm normalizes with
+the global batch's statistics (or each rank's own, per-replica), the flat
+gradient is averaged over the data group with one ``all_reduce``, and the
+NaN skip decides on the reduced gradient, so every rank skips together.
 """
 
 from __future__ import annotations
@@ -31,12 +38,15 @@ from typing import Callable, Dict, Optional, Tuple
 
 import numpy as np
 import torch
+import torch.distributed as dist
 from torch import nn
 
 from synergynet_tpu_torch.convert import (flax_from_state_dict,
                                           state_dict_from_flax)
+from synergynet_tpu_torch.core import mesh as meshlib
 from synergynet_tpu_torch.core.device import resolve_device
 from synergynet_tpu_torch.mm3d.assets import ParamPack
+from synergynet_tpu_torch.nn.batchnorm import sync_group
 from synergynet_tpu_torch.nn.synergy import (LOSS_WEIGHTS, init_synergy_,
                                              synergy_criterion)
 
@@ -96,6 +106,11 @@ class TrainState:
     @property
     def device(self) -> torch.device:
         return self.params.device
+
+    def tensors(self):
+        """Every buffer of the state, for a broadcast
+        (:func:`~synergynet_tpu_torch.core.mesh.replicate`)."""
+        return [self.params, self.stats, self.trace, self.count, self.step]
 
     def _trace_views(self) -> Dict[str, torch.Tensor]:
         out, off = {}, 0
@@ -164,24 +179,92 @@ def make_train_step(pack: ParamPack, optimizer: SGD, bn_groups: int = 1,
     ``augment_seed``, which the caller draws apart from the dropout seed
     (the JAX step folds 7 into the step's key). ``metrics``: the five
     weighted terms, ``loss_total`` and ``skipped`` (1.0 when the step was
-    undone), all device tensors. ``accum_steps`` > 1 runs the batch as that many
-    microbatches in sequence, BatchNorm statistics chaining through them,
-    and steps on the mean of their gradients."""
-    if bn_groups > 1:
-        raise NotImplementedError(
-            "per-replica BatchNorm groups are not ported yet (ROADMAP.md, "
-            "queue A, item A6: bn_groups and multi-process training)")
+    undone), all device tensors. ``accum_steps`` > 1 runs the batch as that
+    many microbatches in sequence, BatchNorm statistics chaining through
+    them, and steps on the mean of their gradients.
+
+    ``bn_groups`` > 1: per-replica BatchNorm in one process, as the JAX
+    step's ``bn_groups`` (``step.py:158-183``) and the reference's
+    ``nn.DataParallel``: the batch splits into that many contiguous groups,
+    each normalized with its own statistics; the loss is the mean of the
+    group means; group 0's running statistics persist (DataParallel
+    broadcasts the master replica's buffers). A batch that does not divide
+    raises ``ValueError``, and so does ``accum_steps`` > 1 with it."""
+    return _make_step(pack, optimizer, bn_groups, accum_steps, device,
+                      augment, None)
+
+
+def jit_train_step(pack: ParamPack, optimizer: SGD, mesh,
+                   augment: Optional[Callable] = None, bn_groups: int = 1,
+                   accum_steps: int = 1, device=None) -> Callable:
+    """The train step on this rank of ``mesh``: the same ``step(state,
+    images, target62, generator=None, augment_seed=None)``, called with
+    the rank's own rows of the global batch (its data row's block) on
+    every rank of the mesh.
+
+    - ``bn_groups`` 1: BatchNorm normalizes with the global batch's
+      statistics, synchronized over the data group (the JAX default,
+      ``per_replica_bn=False``). A multiple of the data size: each rank
+      normalizes its own rows, in ``bn_groups / n_data`` groups, and data
+      row 0's running statistics are broadcast over the data group, as
+      ``nn.DataParallel`` and the JAX docstring (``step.py:79-89``) say.
+    - The flat gradient is averaged over the data group (one
+      ``all_reduce``); so are the loss metrics, which then describe the
+      global batch.
+    - The NaN skip decides on the reduced gradient: every rank skips
+      together. Model columns see the same rows and hold the same state.
+
+    ``device`` defaults to the mesh's. Outside a process group (a 1x1
+    mesh) this is :func:`make_train_step`, bit for bit. Under the mesh,
+    ``accum_steps`` microbatch ``i`` is every rank's ``i``-th slice of its
+    rows."""
+    return _make_step(pack, optimizer, bn_groups, accum_steps,
+                      mesh.device if device is None else device, augment,
+                      mesh)
+
+
+def _make_step(pack, optimizer, bn_groups, accum_steps, device, augment,
+               mesh):
+    if accum_steps > 1 and bn_groups > 1:
+        raise ValueError("accum_steps and bn_groups are mutually exclusive")
     dev = resolve_device(device)
+    n_data = mesh.shape[meshlib.DATA_AXIS] if mesh is not None else 1
+    data_group = mesh.data_group if mesh is not None else None
+    if bn_groups == 1:
+        # One data row has nothing to synchronize: its batch is global.
+        local_groups = 1
+        bn_group = data_group if n_data > 1 else None
+    elif bn_groups % n_data == 0:
+        local_groups, bn_group = bn_groups // n_data, None
+    else:
+        raise ValueError(f"bn_groups={bn_groups} must be 1 or a multiple of "
+                         f"the mesh's data size ({n_data})")
     # The criterion decodes landmarks only: leave the dense basis behind.
     pack_dev = pack._replace(u=pack.u[:0], w_shp=pack.w_shp[:0],
                              w_exp=pack.w_exp[:0]).to(dev)
     wd, mom = optimizer.weight_decay, optimizer.momentum
+    parts = max(accum_steps, local_groups)
+    what = "BN groups" if local_groups > 1 else "microbatches"
 
     def criterion(state, images, target62, generator):
         total, losses = synergy_criterion(state.model, images, target62,
                                           pack_dev, generator)
         total.backward()
         return total.detach(), {k: v.detach() for k, v in losses.items()}
+
+    def reduce_over_data(state, total, losses):
+        """Average the gradient and the metrics over the data group; with
+        per-replica statistics, take data row 0's."""
+        dist.all_reduce(state.grads, group=data_group)
+        state.grads.div_(n_data)
+        keys = sorted(losses)
+        vec = torch.stack([total] + [losses[k] for k in keys])
+        dist.all_reduce(vec, group=data_group)
+        vec = vec / n_data
+        if bn_groups > 1:
+            dist.broadcast(state.stats, src=mesh.data_ranks()[0],
+                           group=data_group)
+        return vec[0], dict(zip(keys, vec[1:]))
 
     def train_step(state: TrainState, images: torch.Tensor,
                    target62: torch.Tensor,
@@ -199,28 +282,36 @@ def make_train_step(pack: ParamPack, optimizer: SGD, bn_groups: int = 1,
             images = (augment(images, augment_seed) - 127.5) / 128.0
         elif images.dtype == torch.uint8:
             images = (images.float() - 127.5) / 128.0
+        b = images.shape[0]
+        if b % parts:
+            raise ValueError(f"batch {b} not divisible into {parts} {what}")
         stats_before = state.stats.clone()
         state.grads.zero_()
-        if accum_steps == 1:
-            total, losses = criterion(state, images, target62, generator)
-        else:
-            b = images.shape[0]
-            if b % accum_steps:
-                raise ValueError(f"batch {b} not divisible into "
-                                 f"{accum_steps} microbatches")
-            mb = b // accum_steps
-            total = torch.zeros((), device=dev)
-            losses = {k: torch.zeros((), device=dev) for k in LOSS_WEIGHTS}
-            for i in range(accum_steps):
-                sl = slice(i * mb, (i + 1) * mb)
-                t_, l_ = criterion(state, images[sl], target62[sl],
-                                   generator)
-                total = total + t_
-                losses = {k: losses[k] + l_[k] for k in losses}
-            inv = 1.0 / accum_steps
-            state.grads.mul_(inv)
-            total = total * inv
-            losses = {k: v * inv for k, v in losses.items()}
+        with sync_group(state.model, bn_group):
+            if parts == 1:
+                total, losses = criterion(state, images, target62,
+                                          generator)
+            else:
+                mb = b // parts
+                total = torch.zeros((), device=dev)
+                losses = {k: torch.zeros((), device=dev)
+                          for k in LOSS_WEIGHTS}
+                for i in range(parts):
+                    sl = slice(i * mb, (i + 1) * mb)
+                    t_, l_ = criterion(state, images[sl], target62[sl],
+                                       generator)
+                    if i == 0 and local_groups > 1:
+                        stats_group0 = state.stats.clone()
+                    total = total + t_
+                    losses = {k: losses[k] + l_[k] for k in losses}
+                inv = 1.0 / parts
+                state.grads.mul_(inv)
+                total = total * inv
+                losses = {k: v * inv for k, v in losses.items()}
+                if local_groups > 1:
+                    state.stats.copy_(stats_group0)
+        if data_group is not None:
+            total, losses = reduce_over_data(state, total, losses)
 
         with torch.no_grad():
             g, p, t = state.grads, state.params, state.trace

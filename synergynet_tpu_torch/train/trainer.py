@@ -1,8 +1,9 @@
 """The Trainer: epochs, meters, logging, checkpoints, in-train eval.
 
 Counterpart of ``synergynet_tpu/train/trainer.py`` (reference
-main_train.py:103-239) on one device, the card unless the caller asks for
-the CPU:
+main_train.py:103-239) on one rank of a ``(data, model)`` mesh (by default
+the 1x1 mesh of one process), on the card unless the caller asks for the
+CPU:
 
 - the train step of :mod:`synergynet_tpu_torch.train.step` (loss, grads,
   SGD and the NaN skip on the device);
@@ -12,7 +13,14 @@ the CPU:
   back on the card;
 - checkpoints every ``save_val_freq`` epochs and at the end, in the JAX
   package's format, with resume and an emergency save on failure;
-- an optional validation hook (:func:`make_synthetic_eval_hook`).
+- an optional validation hook (:func:`make_synthetic_eval_hook`);
+- over a mesh of several processes (``trainer.py:85-170``): each data row
+  loads its strided shard of the dataset and feeds ``batch_size /
+  n_data`` rows a step to :func:`~synergynet_tpu_torch.train.step.
+  jit_train_step`, BatchNorm is global or, with ``per_replica_bn``, each
+  rank's own; the mesh's cliques are warmed first, the state is
+  broadcast from rank 0 (also after ``resume``) and only rank 0 writes
+  checkpoints.
 
 Without a 300W-LP filelist the Trainer trains on the synthetic dataset
 (``data.appearance``: dots or shaded), streamed per index above 100,000
@@ -21,7 +29,8 @@ ships uint8 crops untouched and the step augments them on the device
 (:func:`build_augment`). The head's dropout draws from a generator seeded
 from ``(seed, epoch, step)``, as the JAX step folds its key
 (``trainer.py:181``, ``step.py:108``), and the augmentation from
-``(seed, epoch, step, 7)``. :mod:`synergynet_tpu_torch.train.resident`
+``(seed, epoch, step, 7)``; data rows after the first add their row to
+both. :mod:`synergynet_tpu_torch.train.resident`
 drives the same state through device-resident epochs.
 """
 
@@ -36,21 +45,22 @@ from typing import Callable, Optional
 import numpy as np
 import torch
 
+from synergynet_tpu_torch.core import mesh as meshlib
 from synergynet_tpu_torch.core.checkpoint import (checkpoint_metadata,
                                                   restore_checkpoint,
                                                   save_checkpoint)
 from synergynet_tpu_torch.core.config import Config
-from synergynet_tpu_torch.core.device import resolve_device
 from synergynet_tpu_torch.data import (ArrayDataset, FileListDataset,
                                        GeneratedCropDataset, PrefetchLoader,
                                        TrainTransform, make_crops_with_params)
 from synergynet_tpu_torch.data.device_augment import device_augment
 from synergynet_tpu_torch.mm3d import load_param_pack
 from synergynet_tpu_torch.nn import SynergyNet
+from synergynet_tpu_torch.parallel import warm_mesh_cliques
 from synergynet_tpu_torch.train.meters import AverageMeter, MeterBank
 from synergynet_tpu_torch.train.schedule import lr_per_step
 from synergynet_tpu_torch.train.step import (create_train_state,
-                                             make_optimizer, make_train_step)
+                                             jit_train_step, make_optimizer)
 
 log = logging.getLogger("synergynet_tpu_torch.train")
 
@@ -88,31 +98,41 @@ def build_augment(cfg: Config) -> Optional[Callable]:
                              occlusion_prob=d.occlusion_prob)
 
 
-def dropout_seed(seed: int, epoch: int, step: int) -> int:
+def _seed(words) -> int:
+    return int(np.random.SeedSequence(words).generate_state(1)[0])
+
+
+def dropout_seed(seed: int, epoch: int, step: int, row: int = 0) -> int:
     """The dropout generator's seed for global step ``step`` (0-based) of
-    ``epoch``."""
-    return int(np.random.SeedSequence([seed, epoch, step]).generate_state(
-        1)[0])
+    ``epoch`` on data row ``row`` of a mesh."""
+    return _seed([seed, epoch, step] + ([0, row] if row else []))
 
 
-def augment_seed(seed: int, epoch: int, step: int) -> int:
-    """The augmentation's seed for global step ``step`` of ``epoch``: a
-    stream apart from the dropout's, as the JAX step folds 7 in."""
-    return int(np.random.SeedSequence([seed, epoch, step, 7]
-                                      ).generate_state(1)[0])
+def augment_seed(seed: int, epoch: int, step: int, row: int = 0) -> int:
+    """The augmentation's seed for global step ``step`` of ``epoch`` on data
+    row ``row``: a stream apart from the dropout's, as the JAX step folds 7
+    in."""
+    return _seed([seed, epoch, step, 7] + ([row] if row else []))
 
 
 class Trainer:
+    """``mesh``: this rank's place in a multi-process job
+    (:func:`~synergynet_tpu_torch.core.mesh.make_mesh`); its device is the
+    Trainer's. Without one, the 1x1 mesh on ``device``."""
+
     def __init__(self, cfg: Optional[Config] = None,
-                 eval_hook: Optional[Callable] = None, device="cuda"):
+                 eval_hook: Optional[Callable] = None, device="cuda",
+                 mesh=None):
         self.cfg = cfg or Config()
         t = self.cfg.train
-        self.device = resolve_device(device)
-        if t.per_replica_bn:
-            raise NotImplementedError(
-                "per-replica BatchNorm (train.per_replica_bn) is not ported "
-                "yet (ROADMAP.md, queue A, item A6: bn_groups and "
-                "multi-process training)")
+        self.mesh = mesh if mesh is not None else meshlib.make_mesh(
+            device=device)
+        self.device = self.mesh.device
+        n_data = self.mesh.shape[meshlib.DATA_AXIS]
+        if t.batch_size % n_data:
+            raise ValueError(f"global batch {t.batch_size} must divide over "
+                             f"the mesh's {n_data} data rows")
+        warm_mesh_cliques(self.mesh)
         self.pack = load_param_pack()
         self.model = SynergyNet(
             arch=self.cfg.model.arch,
@@ -120,8 +140,9 @@ class Trainer:
         ).to(self.device)
         self.dataset = build_dataset(self.cfg, self.device)
         self.loader = PrefetchLoader(
-            self.dataset, t.batch_size, shuffle=True, drop_last=True,
-            num_workers=t.num_workers, seed=t.seed)
+            self.dataset, t.batch_size // n_data, shuffle=True,
+            drop_last=True, num_workers=t.num_workers, seed=t.seed,
+            process_index=self.mesh.data_index, process_count=n_data)
         self.steps_per_epoch = max(len(self.loader), 1)
         self.lr_fn = lr_per_step(t.base_lr, t.milestones, t.warmup,
                                  self.steps_per_epoch)
@@ -131,10 +152,12 @@ class Trainer:
         init = torch.Generator(device=self.device).manual_seed(t.seed)
         self.state = create_train_state(self.model, init, self.optimizer)
         self.augment = build_augment(self.cfg)
-        self.step_fn = make_train_step(self.pack, self.optimizer,
-                                       accum_steps=t.accum_steps,
-                                       device=self.device,
-                                       augment=self.augment)
+        self.bn_groups = n_data if t.per_replica_bn else 1
+        self.step_fn = jit_train_step(self.pack, self.optimizer, self.mesh,
+                                      augment=self.augment,
+                                      bn_groups=self.bn_groups,
+                                      accum_steps=t.accum_steps)
+        meshlib.replicate(self.mesh, self.state)
         self.dropout = torch.Generator(device=self.device)
         self.eval_hook = eval_hook
         self.start_epoch = 1
@@ -146,7 +169,10 @@ class Trainer:
         return os.path.join(self.cfg.train.snapshot_dir,
                             f"synergynet_epoch_{epoch}.npz")
 
-    def save(self, epoch: int) -> str:
+    def save(self, epoch: int) -> Optional[str]:
+        """Write the epoch's checkpoint (rank 0 only; None elsewhere)."""
+        if self.mesh.rank != 0:
+            return None
         path = self.ckpt_path(epoch)
         save_checkpoint(path, self.state.tree(), step=int(self.state.step),
                         metadata={"epoch": epoch,
@@ -155,7 +181,9 @@ class Trainer:
         return path
 
     def emergency_save(self, last_epoch: int) -> None:
-        """Persist the live state so a crashed run can resume."""
+        """Persist the live state so a crashed run can resume (rank 0)."""
+        if self.mesh.rank != 0:
+            return
         path = os.path.join(self.cfg.train.snapshot_dir,
                             "synergynet_emergency.npz")
         try:
@@ -170,6 +198,7 @@ class Trainer:
 
     def resume(self, path: str) -> None:
         self.state.load_tree(restore_checkpoint(path, self.state.tree()))
+        meshlib.replicate(self.mesh, self.state)
         self.start_epoch = int(checkpoint_metadata(path).get("epoch", 0)) + 1
         log.info("Resumed from %s (epoch %d)", path, self.start_epoch - 1)
 
@@ -179,7 +208,9 @@ class Trainer:
         without ``data.device_augment``."""
         if self.augment is None:
             return None
-        return augment_seed(self.cfg.train.seed, epoch, step)
+        row = self.mesh.data_index
+        return augment_seed(self.cfg.train.seed, epoch, step,
+                            *((row,) if row else ()))
 
     def _to_device(self, array: np.ndarray) -> torch.Tensor:
         x = torch.from_numpy(array)
@@ -209,8 +240,8 @@ class Trainer:
         end = time.time()
         for i, (images, params) in enumerate(self.loader):
             data_time.update(time.time() - end)
-            self.dropout.manual_seed(dropout_seed(t.seed, epoch,
-                                                  start_step + i))
+            self.dropout.manual_seed(dropout_seed(
+                t.seed, epoch, start_step + i, self.mesh.data_index))
             self.state, metrics = self.step_fn(
                 self.state, self._to_device(images),
                 self._to_device(params.astype(np.float32)), self.dropout,

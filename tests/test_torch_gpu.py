@@ -1358,3 +1358,129 @@ def test_f32_engine_tolerance_sees_one_tf32_pass(cuda, f32_engines,
     n, rois, dense = _engine_faces(card, img)
     assert n != n_cpu or not (np.allclose(rois, rois_cpu, **BOXES) and
                               np.allclose(dense, dense_cpu, **ENGINE_MESH))
+
+
+# -- scale-out and detector training -------------------------------------------
+
+def tp_rank(n_faces: int) -> dict:
+    """A rank of a 1 x world mesh on card 0: its vertex slab through B1."""
+    from synergynet_tpu_torch.core.mesh import make_mesh
+    from synergynet_tpu_torch.parallel import (tp_dense_decode,
+                                               warm_mesh_cliques)
+    mesh = make_mesh(n_data=1, n_model=2)
+    warm_mesh_cliques(mesh)
+    p = torch.tensor(np.random.default_rng(3).normal(
+        0, 1, (n_faces, 62)).astype(np.float32), device=mesh.device)
+    before = decode_dense_fused.launches
+    decode = tp_dense_decode(mesh, load_param_pack())
+    slab, checksum = decode(p)
+    return {"slab": slab.cpu(), "checksum": checksum.cpu(),
+            "range": decode.vertex_range,
+            "launches": decode_dense_fused.launches - before}
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("n_faces", [8, 1024])
+def test_tp_dense_decode_slabs_equal_the_whole_decode(cuda, full, tmp_path,
+                                                      n_faces):
+    """Two ranks sharing the card over gloo, each launching B1 on its half
+    of the padded basis: the slabs side by side are the whole decode, bit
+    for bit (each vertex's arithmetic is its own); the checksum is the sum
+    over both slabs."""
+    from synergynet_tpu_torch.parallel.launch import run_ranks
+    pack, basis = full
+    ranks = run_ranks(f"{__name__}:tp_rank", 2, str(tmp_path),
+                      {"n_faces": n_faces}, backend="gloo", timeout=120)
+    p = torch.tensor(np.random.default_rng(3).normal(
+        0, 1, (n_faces, 62)).astype(np.float32), device=cuda)
+    whole = decode_dense_fused(p, basis, pack).cpu()
+    slabs = torch.cat([r["slab"] for r in ranks], dim=2)
+    assert [r["range"] for r in ranks] == [(0, 26624), (26624, 53248)]
+    assert all(r["launches"] == 1 for r in ranks)
+    assert torch.equal(slabs[:, :, :whole.shape[2]], whole)
+    assert torch.equal(ranks[0]["checksum"], ranks[1]["checksum"])
+    torch.testing.assert_close(ranks[0]["checksum"], slabs.sum(dim=2),
+                               rtol=1e-5, atol=1e-2)
+
+
+@pytest.mark.gpu
+def test_nccl_world_of_one_step_equals_the_plain_step(cuda, tmp_path):
+    """``jit_train_step`` on a 1x1 mesh inside a one-rank NCCL group (the
+    gradient and metrics all_reduced through NCCL) against
+    ``make_train_step`` from the same state, full width, fp32 with TF32
+    off: within 1e-5 of each leaf's scale (cuDNN's backward may sum in
+    another order from call to call)."""
+    import torch.distributed as dist
+    from synergynet_tpu_torch.core.mesh import make_mesh
+    from synergynet_tpu_torch.nn import SynergyNet
+    from synergynet_tpu_torch.train import (create_train_state,
+                                            jit_train_step, make_optimizer,
+                                            make_train_step)
+    opt = make_optimizer(lambda c: 0.01, weight_decay=5e-4)
+    pack = load_param_pack()
+    rng = np.random.default_rng(0)
+    img = torch.tensor(rng.integers(0, 256, (32, 120, 120, 3), np.uint8),
+                       device=cuda)
+    tgt = torch.tensor(rng.normal(0, 0.5, (32, 62)).astype(np.float32),
+                       device=cuda)
+    dist.init_process_group("nccl", init_method=f"file://{tmp_path}/rdv",
+                            world_size=1, rank=0)
+    try:
+        mesh = make_mesh(device=cuda)
+        assert dist.get_backend() == "nccl" and mesh.data_group is not None
+        states = []
+        with full_fp32():
+            for step in (make_train_step(pack, opt, device=cuda),
+                         jit_train_step(pack, opt, mesh)):
+                st = create_train_state(SynergyNet(dropout=0.0).to(cuda),
+                                        torch.Generator(cuda).manual_seed(0),
+                                        opt)
+                _, m = step(st, img, tgt)
+                states.append((st, float(m["loss_total"])))
+    finally:
+        dist.destroy_process_group()
+    (a, la), (b, lb) = states
+    assert la == lb
+    for x, y in zip(a.tensors(), b.tensors()):
+        scale = max(float(y.abs().max()), 1e-30)
+        assert float((x - y).abs().max()) <= 1e-5 * scale
+
+
+@pytest.mark.gpu
+def test_detector_trainer_card_matches_cpu(cuda):
+    """One DetectorTrainer step (256x256, batch 8, TF32 off) on the card
+    and on the CPU from the same seeded weights. f32: the losses within
+    1e-4 (a random-init BatchNorm net's gradient amplifies cuDNN's f32
+    rounding to the size of some leaves' updates, so those are not held).
+    float64: the update, trace and running statistics within 1e-6 of each
+    leaf's scale. Then 10 f32 card steps lower the loss."""
+    from synergynet_tpu_torch.detect import (DetectorTrainer,
+                                             make_synthetic_detection_batch)
+    from synergynet_tpu_torch.detect.detector import random_init_variables
+    v = random_init_variables(0)
+    batch = make_synthetic_detection_batch(np.random.default_rng(7), 8)
+    for dtype in (torch.float32, torch.float64):
+        tg = DetectorTrainer(variables=v, device=cuda, dtype=dtype)
+        tc = DetectorTrainer(variables=v, device="cpu", dtype=dtype)
+        init = tc.state.params.clone()
+        lg, lc = tg.train_step(batch), tc.train_step(batch)
+        for k in lc:
+            assert abs(lg[k] - lc[k]) <= 1e-4 * abs(lc[k]), k
+        if dtype == torch.float32:
+            continue
+        sizes = [p.numel() for p in tc.net.parameters()]
+        bsizes = [b.numel() for b in tc.net.buffers()]
+        for got, want, sz in (
+                (tg.state.params.cpu() - init, tc.state.params - init, sizes),
+                (tg.state.trace.cpu(), tc.state.trace, sizes),
+                (tg.state.stats.cpu(), tc.state.stats, bsizes)):
+            leaves = list(zip(got.split(sz), want.split(sz)))
+            top = max(float(w.abs().max()) for _, w in leaves)
+            for g, w in leaves:
+                scale = max(float(w.abs().max()), 1e-2 * top)
+                assert float((g - w).abs().max()) <= 1e-6 * scale
+    tg = DetectorTrainer(variables=v, device=cuda)
+    hist = tg.fit_synthetic(steps=10, batch=8, seed=1)
+    losses = [h["loss_total"] for h in hist]
+    assert np.isfinite(losses).all() and np.mean(losses[-3:]) < np.mean(
+        losses[:3])

@@ -11,7 +11,7 @@
   parameters, and the port's name lists and checkpoint loader take it;
 - the name parity: every public name that a ``synergynet_tpu`` subpackage
   ``__init__`` exports is exported by the port's counterpart, except the
-  names listed below as queued in ``ROADMAP.md`` or left out by design.
+  names listed below as left out by design.
 """
 
 import ast
@@ -39,27 +39,14 @@ torch.set_num_threads(2)
 
 DENSE = dict(rtol=1e-4, atol=1e-3)      # tests/test_ops.py:20
 
-# Names the port lacks on purpose. Each is queued in ROADMAP.md or left out
-# by design there; a name missing from the port and not listed here fails
-# the parity test.
+# Names the port lacks on purpose, each left out by design (ROADMAP.md); a
+# name missing from the port and not listed here fails the parity test.
 NOT_PORTED = {
-    # ROADMAP queue A, item 11 (scale-out): the mesh and sharding layer,
-    # replaced by torch.distributed when that item lands.
-    "parallel": "*",
-    "core": {"DATA_AXIS", "MODEL_AXIS", "make_mesh", "batch_sharding",
-             "replicated", "vertex_sharding", "shard_batch", "replicate",
-             # item 11: core/profiling.py's names, on CUDA events
-             "trace", "annotate", "StageTimer", "measure",
-             "device_memory_stats",
-             # by design: the TPU compile-cache fingerprint
-             "enable_compile_cache"},
-    "data": {"shard_batches"},                       # item 11
-    "train": {"jit_train_step", "make_epoch_program",  # item 11: mesh-
-              "make_generative_epoch_program",         # sharded programs
-              "shard_resident_arrays", "shard_resident_params"},
-    # item 11: detect/trainer.py and detect/train_utils.py
-    "detect": {"DetectorTrainer", "make_synthetic_detection_batch", "match",
-               "multibox_loss", "jaccard", "encode", "center_to_corner"},
+    # by design: jax.sharding's types; the port's shardings are
+    # core.mesh.Sharding descriptors over a torch.distributed mesh
+    "parallel": {"NamedSharding", "P"},
+    # by design: the TPU compile-cache fingerprint
+    "core": {"enable_compile_cache"},
     # by design: the TPU binning and replication machinery and the
     # fragment window of the host z-buffer fallback
     "render": {"replication_for", "window_for"},

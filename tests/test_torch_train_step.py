@@ -1,6 +1,6 @@
 """The port's training step against the JAX package's ``make_train_step``:
-1 and 3 SGD steps, the NaN skip, ``accum_steps=2``, the uint8 path and the
-schedule, from the same JAX-initialised state on the same seeded batches.
+1 and 3 SGD steps, the NaN skip, ``accum_steps=2``, ``bn_groups=2``, the
+uint8 path and the schedule, from the same JAX-initialised state on the same seeded batches.
 
 Both sides run the full SynergyNet criterion with the head's dropout at 0
 (the two packages cannot draw the same masks; the JAX model is built with
@@ -136,7 +136,7 @@ def _nudged(batches):
                  img.dtype), tgt) for img, tgt in batches]
 
 
-def _jax_run(jax_model, dtype, batches, accum, nan_at):
+def _jax_run(jax_model, dtype, batches, accum, nan_at, bn_groups=1):
     jd = getattr(jnp, dtype)
     jopt, _ = _optimizers()
     jm = jax_model(jd)
@@ -148,7 +148,8 @@ def _jax_run(jax_model, dtype, batches, accum, nan_at):
     init = jax.device_get({"params": jstate.params,
                            "batch_stats": jstate.batch_stats})
     jfn = jax.jit(jstep.make_train_step(jm, jax_load_pack(), jopt,
-                                        accum_steps=accum))
+                                        accum_steps=accum,
+                                        bn_groups=bn_groups))
     runs = []
     for bs in (batches, _nudged(batches)):
         st, met = jstate, []
@@ -163,7 +164,7 @@ def _jax_run(jax_model, dtype, batches, accum, nan_at):
     return init, runs
 
 
-def _run(jax_model, dtype, batches, accum=1, nan_at=None):
+def _run(jax_model, dtype, batches, accum=1, nan_at=None, bn_groups=1):
     """-> (JAX state, port state, JAX metrics, port metrics, initial
     variables, JAX state on the nudged batches)."""
     if dtype == "float64":
@@ -171,9 +172,11 @@ def _run(jax_model, dtype, batches, accum=1, nan_at=None):
                     img.astype(np.float64), tgt.astype(np.float64))
                    for img, tgt in batches]
         with jax.enable_x64(True):
-            init, runs = _jax_run(jax_model, dtype, batches, accum, nan_at)
+            init, runs = _jax_run(jax_model, dtype, batches, accum, nan_at,
+                                  bn_groups)
     else:
-        init, runs = _jax_run(jax_model, dtype, batches, accum, nan_at)
+        init, runs = _jax_run(jax_model, dtype, batches, accum, nan_at,
+                              bn_groups)
     (jstate, jmet), (jnudge, _) = runs
     _, topt = _optimizers()
     tdt = getattr(torch, dtype)
@@ -185,7 +188,8 @@ def _run(jax_model, dtype, batches, accum=1, nan_at=None):
     pack = load_param_pack()
     if dtype == "float64":
         pack = _f64_pack(pack)
-    tfn = make_train_step(pack, topt, accum_steps=accum, device="cpu")
+    tfn = make_train_step(pack, topt, accum_steps=accum, device="cpu",
+                          bn_groups=bn_groups)
     tmet = []
     for i, (img, tgt) in enumerate(batches):
         if i == nan_at:
@@ -312,7 +316,15 @@ def test_schedule_matches_jax():
         assert abs(float(te(e)) - float(je(e))) <= 1e-6 * float(je(e))
 
 
-def test_bn_groups_is_not_ported_yet():
+def test_bn_groups_2_matches_jax(jax_model):
+    """Per-replica BatchNorm in one process: two groups of 4, each
+    normalized alone, the loss the mean of the group means and group 0's
+    running statistics kept, as the JAX step's ``bn_groups=2``."""
+    jstate, tstate, jmet, tmet, init, jn = _run(jax_model, "float32",
+                                                _batches(1), bn_groups=2)
+    _check(jstate, tstate, init, "float32", 1, jn)
+    _check_metrics(jmet, tmet)
     _, topt = _optimizers()
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        make_train_step(load_param_pack(), topt, bn_groups=2, device="cpu")
+    with pytest.raises(ValueError, match="mutually exclusive"):
+        make_train_step(load_param_pack(), topt, bn_groups=2, accum_steps=2,
+                        device="cpu")

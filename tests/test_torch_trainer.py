@@ -2,10 +2,16 @@
 on 64 synthetic crops at full width (MobileNetV2 1.0, bf16, the JAX
 default config cut to a small dataset and batch), resume, the emergency
 save, a port checkpoint restored by the JAX ``restore_checkpoint``, the
-config's JSON round trip with the JAX package's, and the CLI."""
+config's JSON round trip with the JAX package's, and the CLI, in one
+process and as a job of two processes joined over gloo (each rank its own
+``python -m synergynet_tpu_torch.cli.train``, one intra-op thread, the
+rendezvous a file, killed after 120 s)."""
 
 import json
 import logging
+import os
+import subprocess
+import sys
 
 import jax
 import numpy as np
@@ -142,10 +148,15 @@ def test_config_json_round_trips_with_jax(tmp_path):
     assert Config.from_json(JaxConfig().to_json()) == Config()
 
 
-def test_not_ported_options_raise(tmp_path):
-    cfg = _cfg(tmp_path, per_replica_bn=True)
-    with pytest.raises(NotImplementedError, match="bn_groups"):
-        Trainer(cfg, device="cpu")
+def test_per_replica_bn_sets_the_bn_groups(tmp_path):
+    """``per_replica_bn`` normalizes each data row alone: on the one-process
+    1x1 mesh that is one group, the global batch's."""
+    for per_replica in (True, False):
+        tr = Trainer(_cfg(tmp_path, per_replica_bn=per_replica),
+                     device="cpu")
+        assert tr.mesh.shape == {"data": 1, "model": 1}
+        assert tr.bn_groups == 1 and tr.loader.process_count == 1
+        assert tr.loader.batch_size == 16 and len(tr.loader) == 4
 
 
 def test_cli_trains_with_no_eval(tmp_path):
@@ -165,13 +176,56 @@ def test_cli_trains_with_no_eval(tmp_path):
     assert "training on cpu" in (tmp_path / "train.log").read_text()
 
 
-@pytest.mark.parametrize("flags", [["--coordinator", "localhost:1234"],
-                                   ["--num-processes", "2"],
-                                   ["--process-id", "1"],
-                                   ["--n-model", "2"]])
-def test_cli_refuses_what_is_not_ported(flags):
-    with pytest.raises(NotImplementedError, match="ROADMAP.*A6"):
-        cli.main(flags + ["--platform", "cpu"])
+@pytest.fixture(scope="module")
+def two_process_cli(tmp_path_factory):
+    """``--num-processes 2 --n-model 2 --platform cpu``, one process per
+    ``--process-id``, both writing to one snapshot directory."""
+    tmp = tmp_path_factory.mktemp("cli2")
+    root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    env = dict(os.environ, OMP_NUM_THREADS="1", PYTHONPATH=root)
+    procs = []
+    try:
+        for r in range(2):
+            procs.append(subprocess.Popen(
+                [sys.executable, "-m", "synergynet_tpu_torch.cli.train",
+                 "--platform", "cpu", "--no-eval", "--synthetic-size", "32",
+                 "--batch-size", "16", "--epochs", "1", "--workers", "1",
+                 "--snapshot-dir", str(tmp / "ck"),
+                 "--log-file", str(tmp / f"train{r}.log"),
+                 "--coordinator", f"file://{tmp}/rendezvous",
+                 "--num-processes", "2", "--process-id", str(r),
+                 "--n-model", "2"],
+                stdout=subprocess.PIPE, stderr=subprocess.STDOUT, env=env))
+        outs = [p.communicate(timeout=120)[0].decode() for p in procs]
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    assert [p.returncode for p in procs] == [0, 0], outs
+    return tmp, [(tmp / f"train{r}.log").read_text() for r in range(2)]
+
+
+@pytest.mark.parametrize("flag", ["--coordinator", "--num-processes",
+                                  "--process-id", "--n-model"])
+def test_cli_two_process_run(two_process_cli, flag):
+    """One check per multi-process flag of a working two-process run."""
+    tmp, logs = two_process_cli
+    if flag == "--coordinator":          # both ranks met at the rendezvous
+        assert all("over 2 process(es)" in log for log in logs)
+    elif flag == "--num-processes":      # both trained the epoch's 2 steps
+        assert all("[1][0/2]" in log for log in logs)
+    elif flag == "--process-id":         # each its own rank; rank 0 saves
+        assert "rank 0" in logs[0] and "rank 1" in logs[1]
+        assert os.listdir(tmp / "ck") == ["synergynet_epoch_1.npz"]
+        assert "Save checkpoint" in logs[0]
+        assert "Save checkpoint" not in logs[1]
+    else:                                # a 1x2 mesh: columns share rows
+        assert all("{'data': 1, 'model': 2}" in log for log in logs)
+        loss = [[ln.split("loss_total: ")[1].split()[0]
+                 for ln in log.splitlines() if "loss_total: " in ln]
+                for log in logs]
+        assert loss[0] == loss[1] and loss[0]
 
 
 def test_cli_resident_trains(tmp_path):
