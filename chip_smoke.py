@@ -10,8 +10,8 @@ each fatal on failure:
 1. the card: ``nvidia-smi`` name and power limit;
 2. build every kernel of the serving, overlay, fused-stem and deferred
    paths from ``synergynet_tpu_torch/csrc`` (nvcc, sm_90a, one nvcc per
-   source, all started together) and print the build seconds and ptxas
-   resource lines;
+   source, all started together), greedy NMS's N1 included, and print the
+   build seconds and ptxas resource lines;
 3. each kernel against its plain PyTorch twin on the card, at its path's
    shapes, with kernel and plain times (CUDA events, L2 flushed between
    launches, as the path finds it cold):
@@ -39,7 +39,9 @@ each fatal on failure:
    finite values, landmarks equal to the dense mesh at the keypoint
    vertices, and the dense mesh against the plain twin on the path's own
    param62; every kernel's launch count over these calls (and only these)
-   must be > 0. Then the same calls and checks on a second engine whose
+   must be > 0, N1's too. On the card each call replays its batch size's
+   captured program, whose replays credit the launches recorded at
+   capture. Then the same calls and checks on a second engine whose
    detector runs the fused stem (``stem_mode="pallas"``), with the stem
    kernel's launch count > 0, and its agreement with the first engine
    printed (equal face counts, largest roi difference);
@@ -150,8 +152,28 @@ each fatal on failure:
    within ``DET_F64_REL``), 20 f32 steps with the loss falling, ms a step.
    Times by ``StageTimer`` (CUDA events), the peak by
    ``device_memory_stats``.
+14. captured programs and kernel N1 (``programs_phase``, run after phase
+   6): ``process_batch``'s replay against its eager body
+   (``process_batch_eager``) at 1 and 128 frames for both stems (face
+   scores, counts and rois equal; the meshes bit for bit, or within rtol
+   1e-4 / atol 1e-3, and which held is printed); one replay of every
+   captured program under ``set_sync_debug_mode("error")``; one call's
+   outputs unchanged by the next; N1 against the fixpoint twin bit for bit
+   on the path's own candidates at 1 and 128 frames, a 2,048-long
+   suppression chain, a crowd, padding duplicates, duplicates and IoU ties
+   at 0.3 in f32 (``tests/nms_cases.py``); N1's time (median of 20,
+   L2 flushed) against the twin's and its bound (the walk's steps over the
+   SM clock, the bytes over 3.35 TB/s); ``select_faces``' split (sort, N1,
+   the rest); the overlay through the graphs equal to the eager overlay at
+   720x1088, 480x640 and 1080x1920; ms per call graph and eager in turns
+   at 1 and 128 frames for both stems and ms per overlay frame; copy-in,
+   replay and clone-out costs and each program's pool bytes; and one
+   ``torch.profiler`` pass over a 128-frame replay and an overlay frame,
+   whose kernel launches must equal the credited counters (with the
+   replays' device busy time and idle share).
 
-Prints the kernels as one JSON line (each with its launches on its path,
+Prints the kernels as one JSON line (B1-B4 and N1, each with its
+launches on its path,
 error against its twin, kernel, plain and library ms, and the least time
 the card could take, from this run's shapes; each kernel's ``ms`` is the
 median of 20 runs on the device clock, with ``ms_min`` / ``ms_max`` and
@@ -179,7 +201,7 @@ OVERLAY_FRAMES = ((720, 1088), (480, 640), (1080, 1920))
 RTOL, ATOL = 1e-4, 1e-3     # the dense decode's tolerance (f32)
 STEM_TOL = dict(rtol=1.6e-2, atol=1e-5)     # bf16's own tolerance
 DEVICE = "cuda:0"
-KERNELS = ("fused_decode", "raster_tiled", "stem_s2d8")
+KERNELS = ("fused_decode", "raster_tiled", "stem_s2d8", "nms_greedy")
 # Published H100 SXM peaks (dense): HBM bytes/s, bf16 tensor-core and f32
 # (outside the tensor cores) FLOP/s, and TF32 tensor-core FLOP/s (NVIDIA's
 # H100 SXM data sheet, dense TF32).
@@ -1832,9 +1854,12 @@ def ingest_eval_phase(torch, dev, card):
         (torch.backends.cuda.matmul.allow_tf32,
          torch.backends.cudnn.allow_tf32) = flags_before
 
+    # A fresh engine captures its program under the patch (``eng`` replays
+    # the program it captured with the guard).
     real = unguarded()
     try:
-        n_t, rois_t, dense_t = engine_faces(torch, eng, img)
+        eng_t = FusedFrameEngine(eng.api, detector=eng.detector)
+        n_t, rois_t, dense_t = engine_faces(torch, eng_t, img)
     finally:
         guarded(real)
     tf32 = {"faces": n_t}
@@ -1862,9 +1887,10 @@ def ingest_eval_phase(torch, dev, card):
         max_faces=FACES)
     turns = {"f32": [], "f32_tf32_on": []}
     for which in ("f32", "f32_tf32_on", "f32_tf32_on", "f32"):
+        e = eng_t if which == "f32_tf32_on" else eng
         real = unguarded() if which == "f32_tf32_on" else None
         try:
-            turns[which].append(time_ms(lambda: eng.process_batch(*args1),
+            turns[which].append(time_ms(lambda: e.process_batch(*args1),
                                         10, torch))
         finally:
             if real is not None:
@@ -1891,7 +1917,7 @@ def ingest_eval_phase(torch, dev, card):
         f"{ms32:.3f} ms {turns['f32']}, f32 without the guard, TF32 forced "
         f"on {ms_on:.3f} ms {turns['f32_tf32_on']}, the repair's cost "
         f"{ms32 - ms_on:+.3f} ms; bf16 engine {ms16:.3f} ms | {card}")
-    del eng, cpu, eng16, api16
+    del eng, eng_t, cpu, eng16, api16
     torch.cuda.empty_cache()
     shutil.rmtree(tmp)                  # ~280 MB of written reference files
     secs = time.perf_counter() - t_phase
@@ -2172,6 +2198,364 @@ def scaleout_phase(torch, dev, card, eng, frames, frames_s2d, hws,
     return out
 
 
+# -- phase 14: captured programs and kernel N1 -------------------------------
+
+OVERLAY_REPS = 10
+# Kernel-name fragments in a profiler trace, per launch counter.
+TRACE_NAMES = {"B1 fused_decode": "decode_kernel",
+               "N1 nms_greedy": "nms_walk_kernel",
+               "B4 stem_s2d8": "stem_kernel",
+               "B2 raster_tiled": "resolve_mesh_kernel"}
+
+
+def sm_clock_mhz():
+    """The card's top SM clock (``nvidia-smi clocks.max.sm``), MHz."""
+    out = subprocess.run(
+        ["nvidia-smi", "-i", "0", "--query-gpu=clocks.max.sm",
+         "--format=csv,noheader,nounits"], capture_output=True, text=True,
+        check=True, timeout=60)
+    return float(out.stdout.strip())
+
+
+def n1_split(top):
+    """N1's two kernels' device ms per call from ``profile_calls``'
+    ``top`` list: the suppression bits and the walk."""
+    return {part: sum(ms for name, ms in top if f"nms_{part}_kernel" in name)
+            for part in ("bits", "walk")}
+
+
+def trace_kernel_counts(path, names):
+    """Kernel launches per name fragment in a Chrome trace."""
+    with open(path) as f:
+        trace = json.load(f)
+    events = trace["traceEvents"] if isinstance(trace, dict) else trace
+    kernels = [e["name"] for e in events
+               if e.get("ph") == "X" and e.get("cat") == "kernel"]
+    return {k: sum(frag in n for n in kernels) for k, frag in names.items()}
+
+
+def programs_phase(torch, dev, card, eng, eng_p, ov, frames, frames_s2d, hws,
+                   imgs):
+    """The captured programs and kernel N1 on the card (phase 14): graph
+    against eager, no hidden sync, fresh outputs, N1 against its twin and
+    its time and bound, the overlay through the graphs, end-to-end times
+    graph and eager in turns, copy-in / clone-out / replay costs, pool
+    bytes, and one profiler pass whose kernel counts the credited counters
+    must match. Returns the numbers for the JSON line."""
+    from synergynet_tpu_torch.core.profiling import profile_calls
+    from synergynet_tpu_torch.detect.detector import (NMS_THRESHOLD,
+                                                      NMS_TOP_K, prepare_frame)
+    from synergynet_tpu_torch.detect.nms import (greedy_nms_mask,
+                                                 greedy_nms_mask_reference)
+    from synergynet_tpu_torch.detect.stem_fused import fused_stem1_s2d8
+    from synergynet_tpu_torch.ops.fused_decode import decode_dense_fused
+    from synergynet_tpu_torch.ops.resize import _resize_linear
+    from synergynet_tpu_torch.pipeline import unpack_face_outputs
+    from synergynet_tpu_torch.render import rasterize_mesh
+    from tests.nms_cases import THRESHOLD, nms_case
+    t_phase = time.perf_counter()
+    out = {}
+    engines = {"xla": eng, "fused": eng_p}
+    sel = ("face_scores", "n_faces", "rois")
+    mesh = ("param62", "lmk", "dense", "angles", "t3d")
+
+    # -- 14a. graph against eager at B=1 and B=128, both stems ---------------
+    agree = {}
+    with torch.inference_mode():
+        for name, e in engines.items():
+            for b in (1, BATCH):
+                a = (frames[:b], frames_s2d[:b], hws[:b])
+                got = e.process_batch(*a)
+                want = e.process_batch_eager(*a)
+                for k, g, w in zip(sel, got[:3], want[:3]):
+                    if not torch.equal(g, w):
+                        fail(f"phase 14 {name} B={b}: graph {k} differs from "
+                             "the eager body's")
+                bitwise = all(torch.equal(g, w)
+                              for g, w in zip(got[3:], want[3:]))
+                if not bitwise:
+                    for k, g, w in zip(mesh, got[3:], want[3:]):
+                        torch.testing.assert_close(g, w, rtol=RTOL,
+                                                   atol=ATOL)
+                agree[f"{name}_b{b}"] = "bit for bit" if bitwise else (
+                    f"within rtol {RTOL} / atol {ATOL}")
+                del got, want
+    log(f"phase 14 graph vs eager: selection (face_scores, n_faces, rois) "
+        f"equal at B=1 and B={BATCH} for both stems; param62, lmk, dense, "
+        f"angles, t3d: {agree}")
+    out["graph_vs_eager"] = agree
+
+    # -- 14b. fresh outputs ---------------------------------------------------
+    with torch.inference_mode():
+        first = eng.process_batch(frames[:1], frames_s2d[:1], hws[:1])
+        kept = [x.clone() for x in first]
+        second = eng.process_batch(frames[1:2], frames_s2d[1:2], hws[1:2])
+        torch.cuda.synchronize()
+        if not all(torch.equal(x, y) for x, y in zip(first, kept)):
+            fail("phase 14: a call's outputs changed at the next call")
+        if torch.equal(first[3], second[3]):
+            fail("phase 14: two frames gave the same param62")
+        del first, kept, second
+
+    # -- 14c. no hidden sync: one replay of every program ---------------------
+    caches = {"xla": eng.programs, "fused": eng_p.programs,
+              "overlay": ov.programs}
+    n_programs = 0
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        with torch.inference_mode():
+            for cache in caches.values():
+                for prog in cache.programs.values():
+                    prog([x.clone() for x in prog.inputs])
+                    n_programs += 1
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    torch.cuda.synchronize()
+    log(f"phase 14 sync-debug 'error': one replay (copy in, replay, clone "
+        f"out) of each of {n_programs} programs, no synchronising call")
+    out["sync_clean_programs"] = n_programs
+
+    # -- 14d. N1 against its twin, bit for bit --------------------------------
+    def path_candidates(b):
+        with torch.inference_mode():
+            s, bx = eng.detect_candidates(frames_s2d[:b], hws[:b])
+            top, idx = torch.sort(s, dim=-1, descending=True, stable=True)
+            top, idx = top[:, :NMS_TOP_K], idx[:, :NMS_TOP_K]
+            tb = torch.gather(bx, 1, idx[..., None].expand(-1, -1, 4))
+            return tb.contiguous(), top > 0.0
+
+    cands = {b: path_candidates(b) for b in (1, BATCH)}
+    cases = {f"path B={BATCH}": cands[BATCH], "path B=1": cands[1]}
+    for name in ("chain", "crowd", "padding", "duplicates", "ties"):
+        bx, v = nms_case(name)
+        cases[name] = (torch.tensor(bx, device=dev),
+                       torch.tensor(v, device=dev))
+    n1_cases = {}
+    for name, (tb, tv) in cases.items():
+        got = greedy_nms_mask(tb, tv, THRESHOLD)
+        want = greedy_nms_mask_reference(tb, tv, THRESHOLD)
+        bad = int((got != want).sum())
+        if bad:
+            fail(f"phase 14 N1 {name}: {bad} keep flags differ from the twin")
+        n1_cases[name] = {"frames": tb.shape[0], "k": tb.shape[1],
+                          "kept": int(got.sum())}
+    log(f"phase 14 N1 = twin bit for bit on {n1_cases}")
+    out["n1_cases"] = n1_cases
+
+    # -- 14e. N1's time, its twin's and its bound -----------------------------
+    clock = sm_clock_mhz()
+    flush = torch.empty(256 * 2 ** 20, dtype=torch.uint8, device=dev)
+    n1 = {}
+    for b, (tb, tv) in cands.items():
+        spread = time_spread(lambda: greedy_nms_mask(tb, tv, NMS_THRESHOLD),
+                             20, torch, flush.zero_)
+        plain = time_ms(lambda: greedy_nms_mask_reference(
+            tb, tv, NMS_THRESHOLD), 3 if b > 1 else 10, torch, flush.zero_)
+        k = tb.shape[1]
+        keep = greedy_nms_mask(tb, tv, NMS_THRESHOLD)
+        # Operations: the walk's dependent steps (last valid box + 1 in the
+        # longest frame) at one SM cycle each; and the IoUs that the
+        # reference's loop (cpu_nms.pyx) evaluates, each kept box against
+        # the valid boxes after it, 15 f32 operations each in the twin's
+        # order. Bytes: boxes and valid read once, keep written once.
+        steps = int((torch.arange(1, k + 1, device=dev) * tv).amax())
+        after = tv.flip(-1).cumsum(-1).flip(-1) - tv.long()
+        ious = int((after * keep).sum())
+        t_walk = steps / (clock * 1e3)
+        t_iou = ious * 15 / F32_FLOPS * 1e3
+        nbytes = b * k * (16 + 1 + 1)
+        t_bytes = nbytes / HBM_BPS * 1e3
+        n1[b] = {"ms": spread[1], "ms_min": spread[0], "ms_max": spread[2],
+                 "plain_ms": plain, "bound_ms": max(t_walk, t_iou, t_bytes),
+                 "bound_by": "bytes" if t_bytes > max(t_walk, t_iou)
+                 else "operations",
+                 "bound_walk_ms": t_walk, "bound_iou_ms": t_iou,
+                 "bound_bytes_ms": t_bytes, "walk_steps": steps,
+                 "ious": ious, "kept": int(keep.sum())}
+        log(f"phase 14 N1 B={b} (K={k}): kernel min/median/max "
+            f"{spread[0]:.4f} / {spread[1]:.4f} / {spread[2]:.4f} ms over 20 "
+            f"(L2 flushed) | twin {plain:.4f} ms | bound "
+            f"{n1[b]['bound_ms']:.4f} ms ({n1[b]['bound_by']}: {steps} walk "
+            f"steps at {clock:.0f} MHz = {t_walk:.4f} ms; {ious} IoUs at "
+            f"f32 peak = {t_iou:.4f} ms; {nbytes / 1e6:.1f} MB = "
+            f"{t_bytes:.4f} ms) | {n1[b]['bound_ms'] / spread[1]:.3f} of "
+            f"bound | {n1[b]['kept']} kept | {card}")
+    del flush
+    out["n1"] = {str(b): v for b, v in n1.items()}
+
+    # select_faces split at B=1 and B=128: the top-k sort, N1, the rest.
+    split = {}
+    with torch.inference_mode():
+        for b in (1, BATCH):
+            s, bx = eng.detect_candidates(frames_s2d[:b], hws[:b])
+            tb, tv = cands[b]
+            whole = time_ms(lambda: eng.select_faces(s, bx), 10, torch)
+            sort = time_ms(lambda: torch.sort(s, dim=-1, descending=True,
+                                              stable=True), 10, torch)
+            nms = time_ms(lambda: greedy_nms_mask(tb, tv, NMS_THRESHOLD), 10,
+                          torch)
+            split[str(b)] = {"select_faces": whole, "sort": sort, "n1": nms,
+                             "rest": whole - sort - nms}
+            log(f"phase 14 select_faces B={b}: {whole:.3f} ms (top-k sort "
+                f"{sort:.3f}, N1 entry {nms:.3f}, the rest "
+                f"{whole - sort - nms:.3f}; CUDA events, mean of 10) | {card}")
+    out["select_split_ms"] = split
+
+    # -- 14f. the overlay through the graphs equals the eager overlay ---------
+    def eager_overlay(img):
+        canvas, packed, true_hw, scale = prepare_frame(img, 8, dev)
+        o = eng.process_batch_eager(canvas[None], packed[None],
+                                    true_hw[None])
+        n = int(o[1][0])
+        overlay, _ = ov.render(canvas.clamp(0, 255).to(torch.uint8),
+                               o[5][0], n)
+        hs, ws = true_hw.tolist()
+        overlay = overlay[:hs, :ws]
+        if scale != 1.0:
+            overlay = _resize_linear(overlay, *img.shape[:2]).to(torch.uint8)
+        faces = unpack_face_outputs(n, *(x[0].cpu().numpy() for x in (
+            o[4], o[5], o[6], o[7])), scale)
+        return faces, overlay.cpu().numpy()
+
+    with torch.inference_mode():
+        for hw, img in imgs.items():
+            pts, _, _, got = ov(img)
+            (pts_e, _, _), want = eager_overlay(img)
+            if len(pts) != len(pts_e) or not np.array_equal(got, want):
+                fail(f"phase 14 overlay {hw}: the graphs' overlay differs "
+                     "from the eager overlay")
+    log(f"phase 14 overlay at {list(imgs)}: graphs = eager bit for bit")
+
+    # -- 14g. end-to-end times, graph and eager in turns ----------------------
+    e2e = {}
+    with torch.inference_mode():
+        for name, e in engines.items():
+            for b in (1, BATCH):
+                a = (frames[:b], frames_s2d[:b], hws[:b])
+                n = 10 if b == 1 else 5
+                runs = {"graph": [], "eager": []}
+                for which in ("graph", "eager", "eager", "graph"):
+                    fn = e.process_batch if which == "graph" else \
+                        e.process_batch_eager
+                    runs[which].append(time_ms(lambda: fn(*a), n, torch))
+                g, x = (float(np.mean(runs[k])) for k in ("graph", "eager"))
+                e2e[f"{name}_b{b}"] = {"graph_ms": g, "eager_ms": x,
+                                       "graph_runs": runs["graph"],
+                                       "eager_runs": runs["eager"],
+                                       "graph_faces_per_s": b * FACES / g
+                                       * 1e3}
+                log(f"phase 14 end-to-end {name} stem B={b}: graph {g:.3f} "
+                    f"ms/call {runs['graph']}, eager {x:.3f} ms/call "
+                    f"{runs['eager']} (CUDA events, mean of {n}, turns "
+                    f"g/e/e/g); graph {b * FACES / g * 1e3:.1f} faces/s | "
+                    f"{card}")
+        img = imgs[CANVAS]
+        ov_runs = {"graph": [], "eager": []}
+        for which in ("graph", "eager", "eager", "graph"):
+            fn = ov if which == "graph" else eager_overlay
+            for _ in range(2):
+                fn(img)
+            t0 = time.perf_counter()
+            for _ in range(OVERLAY_REPS):
+                fn(img)
+            ov_runs[which].append((time.perf_counter() - t0) * 1e3
+                                  / OVERLAY_REPS)
+    ov_g, ov_e = (float(np.mean(ov_runs[k])) for k in ("graph", "eager"))
+    log(f"phase 14 overlay {CANVAS[0]}x{CANVAS[1]}: graphs {ov_g:.3f} ms per "
+        f"frame {ov_runs['graph']}, eager {ov_e:.3f} {ov_runs['eager']} "
+        f"(host clock, numpy in and out, mean of {OVERLAY_REPS}, turns "
+        f"g/e/e/g) | {card}")
+    out["e2e"] = e2e
+    out["overlay_ms"] = {"graph": ov_g, "eager": ov_e, "runs": ov_runs}
+
+    # -- 14h. copy-in, replay, clone-out; pool bytes --------------------------
+    costs, pools = {}, {}
+    with torch.inference_mode():
+        for cname, cache in caches.items():
+            for (key, sig), prog in cache.programs.items():
+                label = f"{cname} {key} {sig[0][0]}"
+                pools[label] = prog.pool_bytes
+                if cname == "overlay" or sig[0][0][0] not in (1, BATCH):
+                    continue
+                # Distinct sources: a tensor copied onto itself is a no-op.
+                ins = [x.clone() for x in prog.inputs]
+                costs[label] = {
+                    "copy_in": time_ms(lambda: [s.copy_(x) for s, x in zip(
+                        prog.inputs, ins)], 10, torch),
+                    "replay": time_ms(prog.graph.replay, 10, torch),
+                    "clone_out": time_ms(lambda: [o.clone() for o in
+                                                  prog.outputs], 10, torch)}
+    log("phase 14 program costs, ms (CUDA events, mean of 10): "
+        + "; ".join(f"{k}: " + ", ".join(f"{n} {v:.4f}" for n, v in c.items())
+                    for k, c in costs.items()) + f" | {card}")
+    log("phase 14 pool bytes (reserved by each capture): " + "; ".join(
+        f"{k} {v / 2 ** 20:.1f} MiB" for k, v in pools.items()))
+    out["program_costs_ms"] = costs
+    out["pool_bytes"] = pools
+
+    # -- 14i. one profiler pass: trace counts against credited counters -------
+    prof_dir = os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                            "build", "chip_smoke_programs")
+    os.makedirs(prof_dir, exist_ok=True)
+    counters = {"B1 fused_decode": (decode_dense_fused, "launches"),
+                "N1 nms_greedy": (greedy_nms_mask, "launches"),
+                "B4 stem_s2d8": (fused_stem1_s2d8, "launches"),
+                "B2 raster_tiled": (rasterize_mesh, "launches")}
+    a = (frames, frames_s2d, hws)
+    checks = {}
+    with torch.inference_mode():
+        for label, fn in (
+                (f"fused stem B={BATCH} replay", lambda: eng_p.process_batch(
+                    *a)),
+                (f"overlay {CANVAS[0]}x{CANVAS[1]}",
+                 lambda: ov(imgs[CANVAS]))):
+            fn()
+            torch.cuda.synchronize()
+            before = {k: getattr(h, at) for k, (h, at) in counters.items()}
+            path = os.path.join(prof_dir, f"trace_{len(checks)}.json")
+            prof = profile_calls(fn, 1, path, top=1000)
+            # profile_calls warms up once, then runs once under the profiler.
+            credited = {k: (getattr(h, at) - before[k]) // 2
+                        for k, (h, at) in counters.items()}
+            seen = trace_kernel_counts(path, TRACE_NAMES)
+            if seen != credited:
+                fail(f"phase 14 {label}: trace kernel counts {seen} differ "
+                     f"from the credited counters {credited}")
+            checks[label] = {"trace": seen, "credited": credited,
+                             "busy_ms": prof["busy_ms"],
+                             "wall_ms": prof["wall_ms"],
+                             "idle_share": prof["idle_share"],
+                             "device_ops": prof["ops"],
+                             "n1_device_ms": n1_split(prof["top"])}
+            log(f"phase 14 profiler, {label}: kernel launches in the trace "
+                f"{seen} = credited {credited}; device busy "
+                f"{prof['busy_ms']:.3f} of {prof['wall_ms']:.3f} ms, idle "
+                f"share {prof['idle_share']:.3f}, {prof['ops']:.0f} device "
+                f"ops; N1 device ms {checks[label]['n1_device_ms']} | {card}")
+        for b in (1, BATCH):
+            ab = (frames[:b], frames_s2d[:b], hws[:b])
+            p = profile_calls(lambda: eng.process_batch(*ab), 3, os.path.join(
+                prof_dir, f"trace_xla_b{b}.json"), top=1000)
+            checks[f"xla B={b} replay, 3 calls"] = {
+                "busy_ms": p["busy_ms"], "wall_ms": p["wall_ms"],
+                "idle_share": p["idle_share"], "device_ops": p["ops"],
+                "n1_device_ms": n1_split(p["top"]),
+                "top": p["top"][:8]}
+            log(f"phase 14 profiler, XLA stem B={b} replay: device busy "
+                f"{p['busy_ms']:.3f} of {p['wall_ms']:.3f} ms per call, idle "
+                f"share {p['idle_share']:.3f}, {p['ops']:.1f} device ops per "
+                f"call; N1 device ms {n1_split(p['top'])}; leading ops "
+                + ", ".join(f"{n[:40]} {ms:.3f}" for n, ms in p["top"][:5])
+                + f" | {card}")
+    out["profile"] = checks
+    shutil.rmtree(prof_dir, ignore_errors=True)
+    secs = time.perf_counter() - t_phase
+    out["seconds"] = secs
+    log(f"phase 14 (captured programs and kernel N1): {secs:.1f} s")
+    return out
+
+
 def main():
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--profile", metavar="DIR",
@@ -2195,6 +2579,7 @@ def main():
     from synergynet_tpu_torch.detect import FaceBoxes
     from synergynet_tpu_torch.detect.detector import random_init_variables
     from synergynet_tpu_torch.detect.net import space_to_depth
+    from synergynet_tpu_torch.detect.nms import greedy_nms_mask
     from synergynet_tpu_torch.detect.stem_fused import (
         fused_stem1_s2d8, fused_stem1_s2d8_reference)
     from synergynet_tpu_torch.mm3d import rescale_to_roi
@@ -2475,8 +2860,12 @@ def main():
     torch.cuda.synchronize()
 
     # Launches count over the path's own calls: __call__ twice, then
-    # process_batch; the checks and the timing below are not counted.
+    # process_batch; the checks and the timing below are not counted. Each
+    # call replays its batch size's captured program (the first call of a
+    # size captures it), and the replay credits the launches recorded at
+    # capture.
     decode_dense_fused.launches = 0
+    greedy_nms_mask.launches = 0
     t0 = time.perf_counter()
     frames_np = {hw: np.random.default_rng(1).integers(0, 256, (*hw, 3),
                                                        np.uint8)
@@ -2493,10 +2882,13 @@ def main():
     out = eng.process_batch(frames, frames_s2d, hws)
     torch.cuda.synchronize()
     launches = decode_dense_fused.launches
-    log(f"main path: fused_decode launched {launches} times "
-        f"(__call__ x2, process_batch x1)")
+    n1_launches = greedy_nms_mask.launches
+    log(f"main path: fused_decode launched {launches} times, nms_greedy "
+        f"{n1_launches} times (__call__ x2, process_batch x1)")
     if launches <= 0:
         fail("the serving path never launched the fused_decode kernel")
+    if n1_launches <= 0:
+        fail("the serving path never launched the nms_greedy kernel")
     peak_gb = torch.cuda.max_memory_allocated() / 2 ** 30
     scores, n_faces, rois, p62, lmk, dense, angles, t3d = out
     want_shapes = [(BATCH, FACES), (BATCH,), (BATCH, FACES, 4),
@@ -2742,6 +3134,11 @@ def main():
         f"ms | {card}")
     raster_turns = raster_ab(args.parent, card) if args.parent else None
 
+    # -- 14. captured programs and kernel N1 ----------------------------------
+    programs = programs_phase(torch, dev, card, eng, eng_p, ov, frames,
+                              frames_s2d, hws, imgs)
+    n1 = programs["n1"]
+
     # -- 7. device profile (opt-in) -------------------------------------------
     if args.profile:
         from synergynet_tpu_torch.core.profiling import profile_calls
@@ -2906,7 +3303,32 @@ def main():
         "bound_fma_ms": sf[str(BATCH)]["bound_fma_ms"],
         "bound_fma_ms_b1": sf["1"]["bound_fma_ms"],
         "stall_shares": sf[str(BATCH)]["stall_shares"],
-        "stall_shares_b1": sf["1"]["stall_shares"]}],
+        "stall_shares_b1": sf["1"]["stall_shares"]}, {
+        "name": "nms_greedy", "route": "cuda",
+        "source": "synergynet_tpu_torch/csrc/nms_greedy.cu",
+        "replaces": "synergynet_tpu/detect/nms.py:69",
+        "note": "not a TPU kernel: the counterpart of greedy_nms_mask's "
+        "lax.while_loop, which XLA compiles; N1 lets a CUDA graph capture "
+        "greedy NMS",
+        "launches": n1_launches, "max_abs_err": 0.0,
+        "ms": n1[str(BATCH)]["ms"], "plain_ms": n1[str(BATCH)]["plain_ms"],
+        "bound_ms": n1[str(BATCH)]["bound_ms"],
+        "bound_by": n1[str(BATCH)]["bound_by"], "library_ms": None,
+        "timing": spread_timing.split("; ms_entry")[0]
+        + "; plain_ms: the fixpoint twin, mean of 3 (B=1: 10); bound_ms: "
+        "the largest of the walk's dependent steps (last valid box + 1 in "
+        "the longest frame) at one SM cycle each, the reference loop's IoUs "
+        "(each kept box against the valid boxes after it) at 15 f32 "
+        "operations each over 67 TFLOP/s, and the bytes (boxes and valid "
+        "in, keep out) over 3.35 TB/s",
+        "ms_min": n1[str(BATCH)]["ms_min"], "ms_max": n1[str(BATCH)]["ms_max"],
+        "bound_walk_ms": n1[str(BATCH)]["bound_walk_ms"],
+        "bound_iou_ms": n1[str(BATCH)]["bound_iou_ms"],
+        "bound_bytes_ms": n1[str(BATCH)]["bound_bytes_ms"],
+        "frames": BATCH, "k": 2048, "ms_b1": n1["1"]["ms"],
+        "plain_ms_b1": n1["1"]["plain_ms"],
+        "bound_ms_b1": n1["1"]["bound_ms"],
+        "bound_by_b1": n1["1"]["bound_by"]}],
         "e2e_faces_per_s": {str(b): v[1] for b, v in e2e.items()},
         "e2e_ms": {str(b): v[0] for b, v in e2e.items()},
         "e2e_fused_stem_ms": {str(b): v[0] for b, v in e2e_p.items()},
@@ -2915,7 +3337,8 @@ def main():
         "raster_ab": raster_turns, "training": training,
         "data_path": data_path, "api_host_render": api_path,
         "families": {k: v for k, v in fam.items() if k != "stem_f32"},
-        "ingest_eval": ingest, "scaleout": scaleout}),
+        "ingest_eval": ingest, "scaleout": scaleout,
+        "programs": programs}),
         flush=True)
     print(card, flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -18,3 +18,21 @@ def resolve_device(device) -> torch.device:
     if dev.type == "cuda" and dev.index is None:
         dev = torch.device("cuda", torch.cuda.current_device())
     return dev
+
+
+# (values, dtype, device) -> the tensor on that device.
+_CONSTANTS: dict = {}
+
+
+def device_constant(values, dtype: torch.dtype, device) -> torch.Tensor:
+    """``torch.tensor(values, dtype=dtype, device=device)``, made once per
+    (values, dtype, device) and reused: a tensor made on the host is a
+    blocking copy to the card, which a call that a CUDA graph captures must
+    not make. ``values`` is a number or a tuple of numbers; the result must
+    not be written to."""
+    key = (values, dtype, torch.device(device))
+    hit = _CONSTANTS.get(key)
+    if hit is None:
+        hit = _CONSTANTS.setdefault(
+            key, torch.tensor(values, dtype=dtype, device=device))
+    return hit

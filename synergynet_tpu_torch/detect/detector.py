@@ -277,6 +277,10 @@ class FaceBoxes:
                                     device=self.device)
         self.mean = torch.tensor(np.tile(BGR_MEAN, self.stem_r ** 2),
                                  dtype=torch.float32, device=self.device)
+        # The canvas scale of the decoded boxes, made here once: a tensor
+        # made per call would be a blocking copy inside a captured program.
+        self.box_scale = torch.tensor([w, h, w, h], dtype=torch.float32,
+                                      device=self.device)
 
     def candidates(self, frames_s2d: torch.Tensor, true_hws: torch.Tensor
                    ) -> Tuple[torch.Tensor, torch.Tensor]:
@@ -284,11 +288,9 @@ class FaceBoxes:
         extents -> (scores (B, A) with -1 at ruled-out anchors: below
         ``CONFIDENCE_THRESHOLD`` or centred in the canvas padding; boxes
         (B, A, 4) in canvas pixels, unclipped)."""
-        ch, cw = CANVAS
         loc, conf = self.net(frames_s2d - self.mean)
         scores = torch.softmax(conf, dim=-1)[..., 1]
-        boxes = decode_boxes(loc, self.anchors) * torch.tensor(
-            [cw, ch, cw, ch], dtype=torch.float32, device=loc.device)
+        boxes = decode_boxes(loc, self.anchors) * self.box_scale
         th = true_hws[:, 0:1].float()
         tw = true_hws[:, 1:2].float()
         cx = (boxes[..., 0] + boxes[..., 2]) / 2

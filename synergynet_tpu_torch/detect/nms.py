@@ -7,24 +7,34 @@ Counterpart of ``synergynet_tpu/detect/nms.py``: ``greedy_nms_mask``
 sorted by score, box i is kept iff it is valid and no kept valid box j < i has
 IoU >= threshold. The JAX package reaches that mask as the fixpoint of
 ``keep <- valid & ~(A @ keep > 0)``, ``A[i, j] = (iou >= t) & (j < i) &
-valid[j]``, one matrix-vector product per step; the fixpoint is unique and
-equal to the sequential greedy result, and it is reached after (longest
-suppression chain + 1) steps.
+valid[j]``, one matrix-vector product per step under a ``lax.while_loop``;
+the fixpoint is unique and equal to the sequential greedy result, and it is
+reached after (longest suppression chain + 1) steps.
 
-Here the same iteration runs on a bit-packed A: each row is K/32 words of
-32 suppression bits, so a step is one AND over (..., K, K/32) words and a
-row reduction — at K = 2048 and 128 frames, 134 MB instead of the 2 GB an
-fp32 A would take. Eager PyTorch pays a host sync to test for the
-fixpoint, so the test runs every ``_CHECK_EVERY`` steps; extra steps past
-the fixpoint change nothing.
+:func:`greedy_nms_mask` launches kernel N1 (``csrc/nms_greedy.cu``) on a
+CUDA tensor, or raises: the suppression bits, then one in-order walk per
+frame on the device, with no host read, so a CUDA graph can capture it.
+On a CPU tensor it runs the plain twin :func:`greedy_nms_mask_reference`:
+the fixpoint on a bit-packed A, each row K/32 words of 32 suppression
+bits, so a step is one AND over (..., K, K/32) words and a row reduction
+(at K = 2048 and 128 frames, 134 MB instead of the 2 GB an fp32 A would
+take). Eager PyTorch pays a host sync to test for the fixpoint, so the
+test runs every ``_CHECK_EVERY`` steps; extra steps past the fixpoint
+change nothing. :func:`greedy_nms_walk_reference` is N1's own algorithm in
+plain PyTorch (:func:`suppression_rows`, then the walk), which the tests
+hold against both. ``greedy_nms_mask.launches`` counts N1's launches.
 """
 
 from __future__ import annotations
+
+import ctypes
 
 import numpy as np
 import torch
 
 from synergynet_tpu_torch.core.device import resolve_device
+from synergynet_tpu_torch.ops.cuda_build import (check_tensor,
+                                                 kernel_entry, require_sm90)
 
 _WORD = 32
 # Frames per block of the (frames, K, K) IoU temporaries in greedy_nms_mask.
@@ -32,6 +42,11 @@ _IOU_FRAMES = 8
 # Fixpoint steps between host syncs (random-init detector frames settle in
 # <= 16 steps).
 _CHECK_EVERY = 8
+# Kernel N1: 64-bit suppression words, and the largest K its walk's shared
+# memory (8 * ceil(K / 64) + 2 * K bytes) takes without an opt-in.
+N1_WORD = 64
+N1_MAX_K = 16384
+N1_MAX_FRAMES = 65535
 
 
 def pairwise_iou(boxes: torch.Tensor) -> torch.Tensor:
@@ -56,13 +71,10 @@ def _pack_bits(mask: torch.Tensor) -> torch.Tensor:
     return (words << shifts).sum(-1)
 
 
-def greedy_nms_mask(boxes: torch.Tensor, valid: torch.Tensor,
-                    iou_threshold: float = 0.3) -> torch.Tensor:
-    """Keep-mask of greedy NMS over score-sorted ``boxes`` (..., K, 4).
-
-    ``valid`` (..., K) bool marks real (non-padding) candidates; padding is
-    never kept and never suppresses. Leading dims are independent frames.
-    """
+def greedy_nms_mask_reference(boxes: torch.Tensor, valid: torch.Tensor,
+                              iou_threshold: float = 0.3) -> torch.Tensor:
+    """The plain twin of kernel N1, on any device: the bit-packed fixpoint
+    (module docstring). Same contract as :func:`greedy_nms_mask`."""
     lead, k = boxes.shape[:-2], boxes.shape[-2]
     boxes = boxes.reshape(-1, k, 4)
     valid = valid.reshape(-1, k)
@@ -87,6 +99,104 @@ def greedy_nms_mask(boxes: torch.Tensor, valid: torch.Tensor,
         if done:
             break
     return keep.reshape(*lead, k)
+
+
+def suppression_rows(boxes: torch.Tensor, valid: torch.Tensor,
+                     iou_threshold: float = 0.3) -> torch.Tensor:
+    """N1's first kernel in plain PyTorch: (F, K, 4) boxes + (F, K) valid
+    -> (F, K, ceil(K / 64)) int64 words, row r holding bit c % 64 of word
+    c // 64 for every column c > r with IoU(r, c) >= threshold, for valid r:
+    the boxes that r suppresses once kept, the transpose of the fixpoint's
+    A. (The kernel leaves invalid rows and words left of the diagonal
+    unwritten; its walk never reads them. Here they are zero.)"""
+    f, k = valid.shape
+    nw = -(-k // N1_WORD)
+    upper = torch.triu(torch.ones((k, k), dtype=torch.bool,
+                                  device=boxes.device), 1)         # c > r
+    bits = (pairwise_iou(boxes) >= iou_threshold) & upper & valid[:, :, None]
+    bits = torch.nn.functional.pad(bits, (0, nw * N1_WORD - k))
+    shifts = torch.arange(N1_WORD, device=boxes.device, dtype=torch.int64)
+    # Distinct bits: the sum is their OR (bit 63 wraps to the sign).
+    return (bits.reshape(f, k, nw, N1_WORD).to(torch.int64) << shifts).sum(-1)
+
+
+def greedy_nms_walk_reference(boxes: torch.Tensor, valid: torch.Tensor,
+                              iou_threshold: float = 0.3) -> torch.Tensor:
+    """N1's algorithm in plain PyTorch, for the tests: (F, K, 4) boxes and
+    (F, K) valid -> (F, K) keep. :func:`suppression_rows`, then per frame
+    the walk over i = 0 .. K-1 with a removed-bitmask of ceil(K / 64)
+    words: a valid box that is not removed is kept and ORs its row into
+    the mask. K host steps; not a serving path."""
+    f, k = valid.shape
+    rows = suppression_rows(boxes, valid, iou_threshold)
+    removed = torch.zeros((f, rows.shape[-1]), dtype=torch.int64,
+                          device=boxes.device)
+    keep = torch.zeros((f, k), dtype=torch.bool, device=boxes.device)
+    for i in range(k):
+        w, b = divmod(i, N1_WORD)
+        alive = valid[:, i] & (((removed[:, w] >> b) & 1) == 0)
+        keep[:, i] = alive
+        removed |= torch.where(alive[:, None], rows[:, i],
+                               torch.zeros_like(rows[:, i]))
+    return keep
+
+
+def _launch(boxes: torch.Tensor, valid: torch.Tensor,
+            iou_threshold: float) -> torch.Tensor:
+    """Check what N1 takes, allocate its scratch and output, launch on the
+    current stream. Raises on anything else; never falls back. No host
+    read and no synchronisation: safe under a CUDA graph capture."""
+    dev = boxes.device
+    f, k = valid.shape
+    check_tensor("boxes", boxes, (torch.float32,), (f, k, 4), dev)
+    check_tensor("valid", valid, (torch.bool,), (f, k), dev)
+    if k > N1_MAX_K:
+        raise ValueError(f"{k} candidates: kernel N1 takes at most "
+                         f"{N1_MAX_K}")
+    if f > N1_MAX_FRAMES:
+        raise ValueError(f"{f} frames: kernel N1 takes at most "
+                         f"{N1_MAX_FRAMES}")
+    require_sm90(dev, "greedy-NMS")
+    fn = kernel_entry("nms_greedy", "synergy_nms_greedy",
+                      [ctypes.c_void_p] * 4 + [ctypes.c_int] * 2
+                      + [ctypes.c_float, ctypes.c_void_p])
+    keep = torch.empty((f, k), dtype=torch.bool, device=dev)
+    if keep.numel() == 0:
+        return keep
+    sup = torch.empty((f, k, -(-k // N1_WORD)), dtype=torch.int64,
+                      device=dev)
+    with torch.cuda.device(dev):
+        rc = fn(boxes.data_ptr(), valid.data_ptr(), sup.data_ptr(),
+                keep.data_ptr(), f, k, float(iou_threshold),
+                torch.cuda.current_stream(dev).cuda_stream)
+    if rc != 0:
+        raise RuntimeError(f"greedy-NMS kernel launch failed: CUDA error "
+                           f"{rc}")
+    greedy_nms_mask.launches += 1
+    return keep
+
+
+def greedy_nms_mask(boxes: torch.Tensor, valid: torch.Tensor,
+                    iou_threshold: float = 0.3) -> torch.Tensor:
+    """Keep-mask of greedy NMS over score-sorted ``boxes`` (..., K, 4).
+
+    ``valid`` (..., K) bool marks real (non-padding) candidates; padding is
+    never kept and never suppresses. Leading dims are independent frames.
+    On a CUDA tensor kernel N1 (f32 boxes, K <= ``N1_MAX_K``, or an
+    error); on a CPU tensor the plain twin
+    :func:`greedy_nms_mask_reference`.
+    """
+    lead, k = boxes.shape[:-2], boxes.shape[-2]
+    if boxes.device.type == "cuda":
+        keep = _launch(boxes.reshape(-1, k, 4), valid.reshape(-1, k),
+                       iou_threshold)
+        return keep.reshape(*lead, k)
+    if boxes.device.type == "cpu":
+        return greedy_nms_mask_reference(boxes, valid, iou_threshold)
+    raise ValueError(f"no greedy NMS for device {boxes.device}")
+
+
+greedy_nms_mask.launches = 0
 
 
 def nms_indices(dets, iou_threshold: float = 0.3, device="cuda"):

@@ -21,9 +21,14 @@ Counterpart of ``synergynet_tpu/pipeline/api.py``:
   ``process_batch`` runs the head batched over B frames and the decode tail
   once on the flat B x max_faces rows; ``__call__`` is the one-frame form.
 
-The JAX package compiles each of these into one program; here they run
-eagerly on the device, and only the NMS fixpoint test and the face counts
-synchronise with the host.
+The JAX package compiles the engine into one program per batch size. On a
+card, ``process_batch`` replays a CUDA graph of its eager body
+(:meth:`FusedFrameEngine.process_batch_eager`), captured on the first call
+of each batch size (:mod:`synergynet_tpu_torch.pipeline.program`); greedy
+NMS runs kernel N1 on the device, so nothing inside reads the host.
+``__call__`` replays the one-frame program and then reads the face count,
+as the JAX package's ``__call__`` reads its outputs. On the CPU the eager
+body runs.
 """
 
 from __future__ import annotations
@@ -52,6 +57,7 @@ from synergynet_tpu_torch.ops.fused_decode import (build_decode_basis,
 from synergynet_tpu_torch.ops.resize import crop_resize_cv2
 from synergynet_tpu_torch.pipeline.device_crop import (crop_resize_matmul,
                                                        square_rois)
+from synergynet_tpu_torch.pipeline.program import ProgramCache
 
 CROP = 120
 MAX_FACES_PER_BATCH = 16
@@ -214,7 +220,8 @@ class FusedFrameEngine:
     """Frame(s) -> up to ``max_faces`` faces per frame with landmarks, dense
     mesh and pose, all on the api's device. An f32 detector or regressor
     runs in full f32, TF32 off, as the JAX package computes by default; a
-    bf16 one runs as it is."""
+    bf16 one runs as it is. On a card, :meth:`process_batch` replays one
+    captured program per batch size (``programs``)."""
 
     def __init__(self, api: SynergyNet3DMM,
                  detector: Optional[FaceBoxes] = None, max_faces: int = 8):
@@ -225,6 +232,7 @@ class FusedFrameEngine:
                              f"{api.device}")
         self.max_faces = max_faces
         self._det_mean = self.detector.mean
+        self.programs = ProgramCache(api.device)
 
     def detect_candidates(self, frames_s2d: torch.Tensor,
                           true_hws: torch.Tensor
@@ -274,12 +282,10 @@ class FusedFrameEngine:
         return self.api.decode(param62, rois)
 
     @torch.inference_mode()
-    def process_batch(self, frames: torch.Tensor, frames_s2d: torch.Tensor,
-                      true_hws: torch.Tensor):
-        """Batched serving: (B, 720, 1088, 3) f32 frames, their s2d packing
-        and (B, 2) true extents -> (face_scores, n_faces, rois, param62,
-        lmk, dense, angles, t3d), each with leading dims (B, max_faces)
-        (n_faces: (B,)). The decode tail runs once on the B*max_faces rows."""
+    def process_batch_eager(self, frames: torch.Tensor,
+                            frames_s2d: torch.Tensor, true_hws: torch.Tensor):
+        """The eager body of :meth:`process_batch`, op by op on the frames'
+        device: what a card's program captures and what the CPU runs."""
         face_scores, n_faces, rois, param62 = self.head(frames, frames_s2d,
                                                         true_hws)
         b, f = rois.shape[:2]
@@ -287,6 +293,22 @@ class FusedFrameEngine:
         lmk, dense, angles, t3d = (x.reshape(b, f, *x.shape[1:])
                                    for x in outs)
         return (face_scores, n_faces, rois, param62, lmk, dense, angles, t3d)
+
+    @torch.inference_mode()
+    def process_batch(self, frames: torch.Tensor, frames_s2d: torch.Tensor,
+                      true_hws: torch.Tensor):
+        """Batched serving: (B, 720, 1088, 3) f32 frames, their s2d packing
+        and (B, 2) true extents -> (face_scores, n_faces, rois, param62,
+        lmk, dense, angles, t3d), each with leading dims (B, max_faces)
+        (n_faces: (B,)). The decode tail runs once on the B*max_faces rows.
+        Frames on a card replay the captured program of their batch size
+        (captured on its first call; fresh output tensors each call);
+        frames on the CPU run :meth:`process_batch_eager`."""
+        if frames.device.type == "cuda":
+            return self.programs.run("process_batch",
+                                     self.process_batch_eager, frames,
+                                     frames_s2d, true_hws)
+        return self.process_batch_eager(frames, frames_s2d, true_hws)
 
     def __call__(self, img_bgr: np.ndarray) -> Tuple[List, List, List]:
         """One BGR uint8 frame -> reference-format (pts_res, vertices_lst,

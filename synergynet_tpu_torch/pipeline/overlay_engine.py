@@ -13,8 +13,11 @@ between faces, where the reference's later faces simply overdraw earlier
 ones; the two agree whenever faces do not overlap.
 
 The JAX package compiles this into one program and picks the face bucket
-with ``lax.switch``; here it runs eagerly on the device and the bucket is
-chosen on the host from the face count.
+with ``lax.switch``. On a card the port replays two captured programs
+(:mod:`synergynet_tpu_torch.pipeline.program`): the engine's one-frame
+program, then, after one host read of the face count, the render program of
+the power-of-two face bucket that holds it, captured per bucket. On the CPU
+it runs eagerly.
 """
 
 from __future__ import annotations
@@ -27,6 +30,7 @@ import torch
 from synergynet_tpu_torch.detect.detector import prepare_frame
 from synergynet_tpu_torch.ops.resize import _resize_linear
 from synergynet_tpu_torch.pipeline.api import unpack_face_outputs
+from synergynet_tpu_torch.pipeline.program import ProgramCache
 from synergynet_tpu_torch.render.lighting import (OVERLAY_LIGHT_CFG,
                                                   compute_vertex_light)
 from synergynet_tpu_torch.render.normals import (get_normal_rings,
@@ -77,8 +81,11 @@ def render_lit_faces(frame_u8: torch.Tensor, verts: torch.Tensor,
     """
     h, w = frame_u8.shape[:2]
     verts, light = light_faces(verts, valid, tris_face, rings, light_cfg)
+    # The light keeps the meshes' (F, 3, N) layout, so at one face the
+    # flat (N, 3) views are strided: the kernel takes contiguous rows.
     zbuf, color = rasterize_buffers_tiled(
-        verts.reshape(-1, 3), tris_all, light.reshape(-1, 3), h=h, w=w)
+        verts.reshape(-1, 3).contiguous(), tris_all,
+        light.reshape(-1, 3).contiguous(), h=h, w=w)
     return composite(frame_u8, zbuf, color, alpha)
 
 
@@ -104,18 +111,39 @@ def render_lit_faces_adaptive(frame_u8: torch.Tensor, verts: torch.Tensor,
     n = min(int(n_valid), verts.shape[0])
     if n <= 0:
         return frame_u8, frame_u8
-    fb = next(b for b in _face_buckets(verts.shape[0]) if b >= n)
+    return render_lit_faces_bucket(frame_u8, verts, n,
+                                   face_bucket(n, verts.shape[0]), tris_face,
+                                   tris_all, rings, alpha=alpha,
+                                   light_cfg=light_cfg)
+
+
+def face_bucket(n: int, f: int) -> int:
+    """The smallest power-of-two bucket of ``f`` faces (or ``f``) that
+    holds ``n`` >= 1 faces."""
+    return next(b for b in _face_buckets(f) if b >= n)
+
+
+def render_lit_faces_bucket(frame_u8: torch.Tensor, verts: torch.Tensor,
+                            n_valid, bucket: int, tris_face: torch.Tensor,
+                            tris_all: torch.Tensor, rings: torch.Tensor, *,
+                            alpha: float = 0.6,
+                            light_cfg: Optional[dict] = None
+                            ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """:func:`render_lit_faces` over the first ``bucket`` faces of
+    ``verts``, the first ``n_valid`` of them real: an int, or a 0-dim
+    tensor on the device, so the render reads nothing from the host."""
     t = tris_face.shape[0]
-    valid = torch.arange(fb, device=verts.device) < n
-    return render_lit_faces(frame_u8, verts[:fb], valid, tris_face,
-                            tris_all[:fb * t], rings, alpha=alpha,
+    valid = torch.arange(bucket, device=verts.device) < n_valid
+    return render_lit_faces(frame_u8, verts[:bucket], valid, tris_face,
+                            tris_all[:bucket * t], rings, alpha=alpha,
                             light_cfg=light_cfg)
 
 
 class FusedOverlayEngine:
     """Wrap a :class:`FusedFrameEngine`; calls return the reference-format
     outputs plus the rendered overlay, all computed on the engine's
-    device."""
+    device. On a card the render replays one captured program per face
+    bucket (``programs``)."""
 
     def __init__(self, engine, alpha: float = 0.6,
                  light_cfg: Optional[dict] = None):
@@ -135,6 +163,7 @@ class FusedOverlayEngine:
             (tris[None] + (np.arange(f, dtype=np.int32) * nver)[:, None, None]
              ).reshape(-1, 3)).to(dev)
         self.rings = one_ring_table(tris, nver).long().to(dev)
+        self.programs = ProgramCache(dev)
 
     def render(self, frame_u8: torch.Tensor, dense: torch.Tensor,
                n_faces: int) -> Tuple[torch.Tensor, torch.Tensor]:
@@ -145,22 +174,45 @@ class FusedOverlayEngine:
             self.tris_all, self.rings, alpha=self.alpha,
             light_cfg=self.light_cfg)
 
+    def render_bucket(self, canvas: torch.Tensor, dense: torch.Tensor,
+                      n_faces: torch.Tensor, bucket: int) -> torch.Tensor:
+        """The render of the first ``bucket`` faces, with no host read:
+        (CH, CW, 3) f32 canvas + (F, 3, N) canvas-space dense meshes + the
+        0-dim face count on the device (1 <= count <= bucket) -> the
+        (CH, CW, 3) uint8 overlay; what a card's render program captures.
+        Equal bit for bit to :meth:`render` at the same count."""
+        overlay, _ = render_lit_faces_bucket(
+            canvas.clamp(0, 255).to(torch.uint8), dense.transpose(1, 2),
+            n_faces, bucket, self.tris_face, self.tris_all, self.rings,
+            alpha=self.alpha, light_cfg=self.light_cfg)
+        return overlay
+
     @torch.inference_mode()
     def __call__(self, img_bgr: np.ndarray):
         """One BGR uint8 frame -> (pts_res, vertices_lst, poses,
         overlay_bgr): the first three exactly as ``FusedFrameEngine``'s, the
         overlay uint8 at the input's resolution. Oversized inputs render on
         the <=720x1088 canvas and scale back with ``_resize_linear``,
-        which equals the JAX package's ``cv2.resize`` bit for bit."""
+        which equals the JAX package's ``cv2.resize`` bit for bit. On a
+        card: the engine's one-frame program, one read of the face count,
+        then the render program of its bucket (none at zero faces)."""
         eng = self.engine
         h, w = img_bgr.shape[:2]
         canvas, packed, true_hw, scale = prepare_frame(
             img_bgr, eng.detector.stem_r, eng.api.device)
         out = eng.process_batch(canvas[None], packed[None], true_hw[None])
-        _, n, _, _, lmk, dense, angles, t3d = (x[0] for x in out)
-        n = int(n)
-        overlay, _ = self.render(canvas.clamp(0, 255).to(torch.uint8),
-                                 dense, n)
+        _, n_t, _, _, lmk, dense, angles, t3d = (x[0] for x in out)
+        n = int(n_t)
+        if n <= 0:
+            overlay = canvas.clamp(0, 255).to(torch.uint8)
+        elif canvas.device.type == "cuda":
+            fb = face_bucket(n, dense.shape[0])
+            overlay, = self.programs.run(
+                ("render", fb), lambda c, d, k: (self.render_bucket(
+                    c, d, k, fb),), canvas, dense, n_t)
+        else:
+            overlay = self.render_bucket(canvas, dense, n_t,
+                                         face_bucket(n, dense.shape[0]))
         hs, ws = true_hw.tolist()
         ov = overlay[:hs, :ws]
         if scale != 1.0:

@@ -26,7 +26,7 @@ from typing import Optional
 import numpy as np
 import torch
 
-from synergynet_tpu_torch.core.device import resolve_device
+from synergynet_tpu_torch.core.device import device_constant, resolve_device
 from synergynet_tpu_torch.render.normals import (get_normal_rings,
                                                  one_ring_table)
 from synergynet_tpu_torch.render.raster import (as_tensor, blend_uint8,
@@ -79,12 +79,11 @@ def compute_vertex_light(vertices: torch.Tensor, normal: torch.Tensor, *,
                          ) -> torch.Tensor:
     """Per-vertex RGB light (..., V, 3) in [0, 1] (reference
     lighting.py:37-63)."""
-    kw = dict(dtype=torch.float32, device=vertices.device)
-    light = torch.zeros(vertices.shape, **kw)
-    ca = torch.tensor(color_ambient, **kw)
-    cd = torch.tensor(color_directional, **kw)
-    lp = torch.tensor(light_pos, **kw)
-    vp = torch.tensor(view_pos, **kw)
+    dev = vertices.device
+    light = torch.zeros(vertices.shape, dtype=torch.float32, device=dev)
+    ca, cd, lp, vp = (device_constant(tuple(v), torch.float32, dev)
+                      for v in (color_ambient, color_directional, light_pos,
+                                view_pos))
 
     if intensity_ambient > 0:
         light = light + intensity_ambient * ca

@@ -13,6 +13,8 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from synergynet_tpu_torch.core.device import device_constant
+
 DEPTH_INIT = -1e8    # reference Sim3DR/Sim3DR.py:25
 
 
@@ -26,7 +28,7 @@ def blend_uint8(bg_u8: torch.Tensor, zbuf: torch.Tensor, color: torch.Tensor,
     convert): torch's own float -> uint8 cast wraps, so the sum is cleaned
     and clamped to [0, 255] before it truncates."""
     mask = (zbuf > DEPTH_INIT)[..., None]
-    a = torch.tensor(alpha, dtype=torch.float32, device=bg_u8.device)
+    a = device_constant(float(alpha), torch.float32, bg_u8.device)
     blended = (1.0 - a) * bg_u8.float() + (a * 255.0) * color.float()
     blended = torch.nan_to_num(blended, nan=0.0).clamp(0.0, 255.0)
     out = torch.where(mask, blended.to(torch.uint8), bg_u8)

@@ -1355,6 +1355,9 @@ def test_f32_engine_tolerance_sees_one_tf32_pass(cuda, f32_engines,
                         lambda dtype: contextlib.nullcontext())
     monkeypatch.setattr(torch.backends.cuda.matmul, "allow_tf32", True)
     monkeypatch.setattr(torch.backends.cudnn, "allow_tf32", True)
+    # A fresh engine captures its program under the patch (the fixture's
+    # engine replays the program it captured with the guard).
+    card = api_module.FusedFrameEngine(card.api, detector=card.detector)
     n, rois, dense = _engine_faces(card, img)
     assert n != n_cpu or not (np.allclose(rois, rois_cpu, **BOXES) and
                               np.allclose(dense, dense_cpu, **ENGINE_MESH))
@@ -1484,3 +1487,240 @@ def test_detector_trainer_card_matches_cpu(cuda):
     losses = [h["loss_total"] for h in hist]
     assert np.isfinite(losses).all() and np.mean(losses[-3:]) < np.mean(
         losses[:3])
+
+
+# -- kernel N1 (greedy NMS) and the captured programs ------------------------
+
+def _nms_inputs(cuda, case, k=2048, seed=0):
+    from tests.nms_cases import nms_case
+    boxes, valid = nms_case(case, k=k, seed=seed)
+    return torch.tensor(boxes, device=cuda), torch.tensor(valid, device=cuda)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("case", ["random", "crowd", "padding", "duplicates",
+                                  "chain", "ties", "frames", "ragged"])
+def test_nms_kernel_matches_plain_twin(cuda, case):
+    """N1 equals the fixpoint twin bit for bit, on the card and on the
+    CPU; one launch a call."""
+    from synergynet_tpu_torch.detect.nms import (greedy_nms_mask,
+                                                 greedy_nms_mask_reference)
+    boxes, valid = _nms_inputs(cuda, case)
+    before = greedy_nms_mask.launches
+    got = greedy_nms_mask(boxes, valid, 0.3)
+    torch.cuda.synchronize()
+    assert greedy_nms_mask.launches == before + 1
+    assert got.dtype == torch.bool and got.shape == valid.shape
+    assert torch.equal(got, greedy_nms_mask_reference(boxes, valid, 0.3))
+    assert torch.equal(got.cpu(), greedy_nms_mask_reference(
+        boxes.cpu(), valid.cpu(), 0.3))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("b", [1, 128])
+def test_nms_kernel_matches_plain_twin_on_frames(cuda, b):
+    """B frames of 2,048 crowded candidates, each with its own valid count,
+    and a 2,048-long chain in the first frame."""
+    from synergynet_tpu_torch.detect.nms import (greedy_nms_mask,
+                                                 greedy_nms_mask_reference)
+    from tests.nms_cases import chain_boxes, random_boxes
+    rng = np.random.default_rng(b)
+    boxes = np.stack([random_boxes(rng, 2048, span=160.0) for _ in range(b)])
+    boxes[0] = chain_boxes(2048)
+    valid = np.arange(2048)[None] < rng.integers(0, 2049, (b, 1))
+    valid[0] = True
+    tb, tv = torch.tensor(boxes, device=cuda), torch.tensor(valid, device=cuda)
+    got = greedy_nms_mask(tb, tv, 0.3)
+    want = greedy_nms_mask_reference(tb, tv, 0.3)
+    assert torch.equal(got, want)
+    assert torch.equal(got[0].cpu(), torch.arange(2048) % 3 == 0)
+
+
+@pytest.mark.gpu
+def test_nms_kernel_rejects_what_it_does_not_take(cuda):
+    from synergynet_tpu_torch.detect.nms import N1_MAX_K, greedy_nms_mask
+    boxes, valid = _nms_inputs(cuda, "ragged")
+    with pytest.raises(TypeError):
+        greedy_nms_mask(boxes.double(), valid)
+    with pytest.raises(TypeError):
+        greedy_nms_mask(boxes.half(), valid)
+    with pytest.raises(ValueError):
+        greedy_nms_mask(boxes, valid.cpu())
+    with pytest.raises(ValueError):
+        greedy_nms_mask(boxes[:, :50], valid)
+    big = N1_MAX_K + 1
+    with pytest.raises(ValueError, match="at most"):
+        greedy_nms_mask(torch.zeros((1, big, 4), device=cuda),
+                        torch.ones((1, big), dtype=torch.bool, device=cuda))
+    # At the cap it runs.
+    keep = greedy_nms_mask(torch.zeros((1, N1_MAX_K, 4), device=cuda),
+                           torch.ones((1, N1_MAX_K), dtype=torch.bool,
+                                      device=cuda))
+    assert int(keep.sum()) == 1
+
+
+def _engines_under_test(cuda):
+    from synergynet_tpu_torch.detect import FaceBoxes
+    from synergynet_tpu_torch.detect.detector import random_init_variables
+    from synergynet_tpu_torch.pipeline import FusedFrameEngine, SynergyNet3DMM
+    api = SynergyNet3DMM(variables="trained", dtype=torch.bfloat16,
+                         device=cuda)
+    v = random_init_variables(0)
+    out = {"xla": FusedFrameEngine(api, detector=FaceBoxes(
+               v, dtype=torch.bfloat16, device=cuda), max_faces=8),
+           "fused": FusedFrameEngine(api, detector=FaceBoxes(
+               v, dtype=torch.bfloat16, device=cuda, stem_mode="pallas"),
+               max_faces=8),
+           "f32": FusedFrameEngine(SynergyNet3DMM(variables="trained",
+                                                  device=cuda))}
+    return out
+
+
+@pytest.fixture(scope="module")
+def graph_engines(cuda):
+    return _engines_under_test(cuda)
+
+
+def _batch(cuda, b, seed):
+    from synergynet_tpu_torch.detect.net import space_to_depth
+    g = torch.Generator(device=cuda).manual_seed(seed)
+    frames = torch.randint(0, 256, (b, 720, 1088, 3), generator=g,
+                           device=cuda).float()
+    hws = torch.tensor([[720, 1088], [600, 900]] * b, dtype=torch.int32,
+                       device=cuda)[:b]
+    return frames, space_to_depth(frames, 8).contiguous(), hws
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("which", ["xla", "fused", "f32"])
+@pytest.mark.parametrize("b", [1, 4])
+def test_graph_replay_equals_eager_body(cuda, graph_engines, which, b):
+    """process_batch on the card replays its batch size's captured program:
+    its outputs equal the eager body's bit for bit, and the launch
+    counters credit one call's launches per replay."""
+    from synergynet_tpu_torch.detect.nms import greedy_nms_mask
+    from synergynet_tpu_torch.detect.stem_fused import fused_stem1_s2d8
+    eng = graph_engines[which]
+    args = _batch(cuda, b, seed=b)
+    want = eng.process_batch_eager(*args)
+    before = (decode_dense_fused.launches, greedy_nms_mask.launches,
+              fused_stem1_s2d8.launches)
+    got = eng.process_batch(*args)
+    torch.cuda.synchronize()
+    assert any(k[1][0][0] == (b, 720, 1088, 3)
+               for k in eng.programs.programs)
+    after = (decode_dense_fused.launches, greedy_nms_mask.launches,
+             fused_stem1_s2d8.launches)
+    assert after == (before[0] + 1, before[1] + 1,
+                     before[2] + (which == "fused"))
+    assert int(got[1].sum()) > 0
+    for g, w in zip(got, want):
+        assert g.dtype == w.dtype and torch.equal(g, w)
+    again = eng.process_batch(*args)
+    assert decode_dense_fused.launches == after[0] + 1
+    for g, w in zip(again, want):
+        assert torch.equal(g, w)
+
+
+@pytest.mark.gpu
+def test_graph_outputs_survive_the_next_call(cuda, graph_engines):
+    eng = graph_engines["xla"]
+    a, b = _batch(cuda, 1, seed=11), _batch(cuda, 1, seed=12)
+    first = eng.process_batch(*a)
+    kept = [x.clone() for x in first]
+    second = eng.process_batch(*b)
+    torch.cuda.synchronize()
+    assert not torch.equal(first[3], second[3])
+    for x, y in zip(first, kept):
+        assert torch.equal(x, y)
+
+
+@pytest.mark.gpu
+def test_graph_replay_makes_no_host_sync(cuda, graph_engines):
+    """A replay (copy in, replay, clone out) and the eager body, with
+    greedy NMS on N1, pass under sync-debug "error"."""
+    eng = graph_engines["fused"]
+    args = _batch(cuda, 2, seed=3)
+    eng.process_batch(*args)                 # set-up outside the check
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        got = eng.process_batch(*args)
+        eager = eng.process_batch_eager(*args)
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    for g, w in zip(got, eager):
+        assert torch.equal(g, w)
+
+
+@pytest.mark.gpu
+def test_graph_threads_get_their_own_frames(cuda, graph_engines):
+    """Eight threads calling process_batch at once, with a short switch
+    interval, serialize on the program's static buffers: each gets its own
+    frames' results."""
+    import sys
+    import threading
+    eng = graph_engines["xla"]
+    batches = [_batch(cuda, 1, seed=20 + i) for i in range(8)]
+    wants = [eng.process_batch_eager(*a) for a in batches]
+    eng.process_batch(*batches[0])
+    torch.cuda.synchronize()
+    results, errors = {}, []
+
+    def worker(i):
+        try:
+            for r in range(5):
+                results[(i, r)] = eng.process_batch(*batches[i])
+            torch.cuda.synchronize()
+        except Exception as e:          # reported below
+            errors.append(e)
+
+    interval = sys.getswitchinterval()
+    sys.setswitchinterval(1e-6)
+    try:
+        threads = [threading.Thread(target=worker, args=(i,))
+                   for i in range(8)]
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join(timeout=300)
+    finally:
+        sys.setswitchinterval(interval)
+    assert not any(t.is_alive() for t in threads)
+    assert not errors and len(results) == 40
+    for (i, _), out in results.items():
+        for g, w in zip(out, wants[i]):
+            assert torch.equal(g, w)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("hw", [(720, 1088), (480, 640), (1080, 1920)])
+def test_overlay_through_graphs_equals_eager_overlay(cuda, graph_engines, hw):
+    """FusedOverlayEngine on the card (the engine's one-frame program, then
+    its face bucket's render program) equals the eager overlay bit for
+    bit; one B2 launch a call."""
+    from synergynet_tpu_torch.detect.detector import prepare_frame
+    from synergynet_tpu_torch.ops.resize import _resize_linear
+    from synergynet_tpu_torch.pipeline import FusedOverlayEngine
+    from synergynet_tpu_torch.render import rasterize_mesh
+    eng = graph_engines["xla"]
+    ov = FusedOverlayEngine(eng)
+    img = _frame(hw, 2)
+    before = rasterize_mesh.launches
+    pts, verts, poses, overlay = ov(img)
+    assert rasterize_mesh.launches == before + 1
+    assert ov.programs.programs
+    canvas, packed, true_hw, scale = prepare_frame(img, 8, cuda)
+    with torch.inference_mode():
+        out = eng.process_batch_eager(canvas[None], packed[None],
+                                      true_hw[None])
+        n = int(out[1][0])
+        want, _ = ov.render(canvas.clamp(0, 255).to(torch.uint8),
+                            out[5][0], n)
+        want = want[:int(true_hw[0]), :int(true_hw[1])]
+        if scale != 1.0:
+            want = _resize_linear(want, *hw).to(torch.uint8)
+    assert n == len(pts) > 0
+    assert np.array_equal(overlay, want.cpu().numpy())
+    again = ov(img)[3]
+    assert np.array_equal(again, overlay)
