@@ -63,7 +63,8 @@ each fatal on failure:
    with ``--parent DIR`` (a checkout of an earlier commit) the same-work
    A/B of the raster entry points: the parent's and this tree's, mesh in
    and buffers out, in turns (parent, this, this, parent), each turn
-   ``chip_smoke.py --raster-worker`` in a process of its own;
+   ``chip_smoke.py --raster-worker`` in a process of its own (and, after
+   phase 14, the same for greedy NMS: ``--nms-worker``);
 7. with ``--profile DIR`` only: ``process_batch`` at 1 and 128 frames and
    one overlay frame under ``torch.profiler`` -- device busy time, idle
    share, device ops per call, the leading ops and the raster's fill, walk
@@ -159,11 +160,17 @@ each fatal on failure:
    1e-4 / atol 1e-3, and which held is printed); one replay of every
    captured program under ``set_sync_debug_mode("error")``; one call's
    outputs unchanged by the next; N1 against the fixpoint twin bit for bit
-   on the path's own candidates at 1 and 128 frames, a 2,048-long
-   suppression chain, a crowd, padding duplicates, duplicates and IoU ties
-   at 0.3 in f32 (``tests/nms_cases.py``); N1's time (median of 20,
-   L2 flushed) against the twin's and its bound (the walk's steps over the
-   SM clock, the bytes over 3.35 TB/s); ``select_faces``' split (sort, N1,
+   on the path's own candidates at 1 and 128 frames and on every case of
+   ``tests/nms_cases.py`` (a 2,048-long suppression chain, a crowd,
+   padding duplicates, duplicates, IoU ties at 0.3 in f32, 64-box tile
+   edges, invalid tiles, K = 2,112); N1's time (median of 20, L2
+   flushed; also behind a ~10 ms spin, and warm) and its bits / walk
+   device ms under ``torch.profiler`` (cold and warm) against the twin's
+   time and its bound (the walk's steps over the SM clock, the bytes over
+   3.35 TB/s); with ``--parent DIR`` the same N1 times of the parent's
+   ``greedy_nms_mask`` and this tree's on these candidates, in turns
+   (parent, this, this, parent), each ``chip_smoke.py --nms-worker`` in a
+   process of its own; ``select_faces``' split (sort, N1,
    the rest); the overlay through the graphs equal to the eager overlay at
    720x1088, 480x640 and 1080x1920; ms per call graph and eager in turns
    at 1 and 128 frames for both stems and ms per overlay frame; copy-in,
@@ -409,32 +416,39 @@ def raster_worker(pkg_dir):
     print("raster_worker " + json.dumps(out), flush=True)
 
 
-def raster_ab(parent_dir, card):
-    """The same-work A/B in turns (parent, this tree, this tree, parent),
-    each turn :func:`raster_worker` in a process of its own. -> {"parent":
-    [turn, turn], "change": [turn, turn]}."""
+def ab_turns(parent_dir, worker, describe, card):
+    """A same-work A/B in turns (parent, this tree, this tree, parent),
+    each turn ``chip_smoke.py --<worker> DIR`` in a process of its own,
+    which prints one line ``<worker> {json}``; ``describe(turn)`` makes its
+    log text. -> {"parent": [turn, turn], "change": [turn, turn]}."""
     here = os.path.dirname(os.path.abspath(__file__))
+    tag = worker.replace("-", "_") + " "
     turns = {"parent": [], "change": []}
     for who in ("parent", "change", "change", "parent"):
         pkg = parent_dir if who == "parent" else here
         proc = subprocess.run(
-            [sys.executable, os.path.abspath(__file__), "--raster-worker",
-             pkg], capture_output=True, text=True, timeout=600)
-        line = [ln for ln in proc.stdout.splitlines()
-                if ln.startswith("raster_worker ")]
+            [sys.executable, os.path.abspath(__file__), f"--{worker}", pkg],
+            capture_output=True, text=True, timeout=600)
+        line = [ln for ln in proc.stdout.splitlines() if ln.startswith(tag)]
         if proc.returncode != 0 or not line:
-            fail(f"raster A/B turn on {pkg} failed (exit {proc.returncode})"
+            fail(f"{worker} A/B turn on {pkg} failed (exit {proc.returncode})"
                  f":\n{proc.stdout[-3000:]}\n{proc.stderr[-3000:]}")
-        turn = json.loads(line[-1][len("raster_worker "):])
+        turn = json.loads(line[-1][len(tag):])
         turns[who].append(turn)
-        log(f"raster A/B {who} ({turn['form']}): " + "; ".join(
+        log(f"{describe(turn, who)} | {card}")
+    return turns
+
+
+def raster_ab(parent_dir, card):
+    """The raster entry points' same-work A/B (:func:`raster_worker`)."""
+    return ab_turns(parent_dir, "raster-worker", lambda turn, who: (
+        f"raster A/B {who} ({turn['form']}): " + "; ".join(
             f"{k} {turn[k]['ms']:.4f} ms ({turn[k]['ms_min']:.4f}-"
             f"{turn[k]['ms_max']:.4f}) on the device clock, entry "
             f"{turn[k]['ms_entry']:.4f} ms, launches "
             + ", ".join(f"{n} {ms:.4f}" for n, ms in
                         turn[k]["device_ms"].items())
-            for k in ("payload", "ids")) + f" | {card}")
-    return turns
+            for k in ("payload", "ids"))), card)
 
 
 def stress_meshes(rng, h, w):
@@ -2203,7 +2217,7 @@ def scaleout_phase(torch, dev, card, eng, frames, frames_s2d, hws,
 OVERLAY_REPS = 10
 # Kernel-name fragments in a profiler trace, per launch counter.
 TRACE_NAMES = {"B1 fused_decode": "decode_kernel",
-               "N1 nms_greedy": "nms_walk_kernel",
+               "N1 nms_greedy": "nms_tile_walk_kernel",
                "B4 stem_s2d8": "stem_kernel",
                "B2 raster_tiled": "resolve_mesh_kernel"}
 
@@ -2219,9 +2233,81 @@ def sm_clock_mhz():
 
 def n1_split(top):
     """N1's two kernels' device ms per call from ``profile_calls``'
-    ``top`` list: the suppression bits and the walk."""
-    return {part: sum(ms for name, ms in top if f"nms_{part}_kernel" in name)
+    ``top`` list: the suppression bits and the walk (``nms_tile_*`` since
+    the tiled redesign, ``nms_bits_kernel`` / ``nms_walk_kernel`` before
+    it, as an earlier commit's turn of the A/B names them)."""
+    return {part: sum(ms for name, ms in top
+                      if "nms_" in name and f"{part}_kernel" in name)
             for part in ("bits", "walk")}
+
+
+N1_AB_INPUTS = os.path.join("build", "chip_smoke_n1_inputs.pt")
+
+
+def n1_times(torch, greedy_nms_mask, tb, tv, thr, flush, trace_dir, tag):
+    """N1's entry on (tb, tv): device ms (min, median, max of 20 L2-flushed
+    runs), the median warm (no flush), and the bits / walk device ms per
+    call under ``torch.profiler``, cold (flushed before each call) and
+    warm."""
+    from synergynet_tpu_torch.core.profiling import profile_calls
+    fn = lambda: greedy_nms_mask(tb, tv, thr)   # noqa: E731
+
+    def cold():
+        flush()
+        fn()
+
+    spread = time_spread(fn, 20, torch, flush)
+    warm = time_spread(fn, 20, torch, lambda: None)
+    split = {}
+    for name, g in (("cold", cold), ("warm", fn)):
+        prof = profile_calls(g, 5, os.path.join(
+            trace_dir, f"n1_{tag}_{name}.json"), top=1000)
+        split[name] = n1_split(prof["top"])
+    return {"ms": spread[1], "ms_min": spread[0], "ms_max": spread[2],
+            "ms_warm": warm[1], "split_cold": split["cold"],
+            "split_warm": split["warm"]}
+
+
+def nms_worker(pkg_dir):
+    """One turn of N1's same-work A/B: import the package at ``pkg_dir``
+    (this checkout, or a parent's), run its ``greedy_nms_mask`` on the
+    phase-14 candidates saved at ``N1_AB_INPUTS`` (B=1 and B=128 frames of
+    2,048), check the keep masks against the saved twin's, and print one
+    JSON line of :func:`n1_times` per batch."""
+    here = os.path.dirname(os.path.abspath(__file__))
+    sys.path.insert(0, os.path.abspath(pkg_dir))
+    import torch
+    from synergynet_tpu_torch.detect import nms
+    if not torch.cuda.is_available():
+        fail("torch.cuda.is_available() is false: this smoke run needs a card")
+    dev = torch.device(DEVICE)
+    saved = torch.load(os.path.join(here, N1_AB_INPUTS))
+    flush_buf = torch.empty(256 * 2 ** 20, dtype=torch.uint8, device=dev)
+    trace_dir = os.path.join(os.path.abspath(pkg_dir), "build")
+    os.makedirs(trace_dir, exist_ok=True)
+    out = {"package": os.path.abspath(nms.__file__)}
+    with torch.inference_mode():
+        for b, (tb, tv, want) in saved["inputs"].items():
+            tb, tv = tb.to(dev), tv.to(dev)
+            got = nms.greedy_nms_mask(tb, tv, saved["threshold"])
+            if not torch.equal(got.cpu(), want):
+                fail(f"N1 A/B turn on {pkg_dir}: B={b} differs from the twin")
+            out[str(b)] = n1_times(torch, nms.greedy_nms_mask, tb, tv,
+                                   saved["threshold"], flush_buf.zero_,
+                                   trace_dir, f"b{b}")
+    print("nms_worker " + json.dumps(out), flush=True)
+
+
+def nms_ab(parent_dir, card):
+    """N1's same-work A/B (:func:`nms_worker`)."""
+    return ab_turns(parent_dir, "nms-worker", lambda turn, who: (
+        f"N1 A/B {who}: " + "; ".join(
+            f"B={b} {t['ms']:.4f} ms ({t['ms_min']:.4f}-{t['ms_max']:.4f}) "
+            f"L2 flushed on the device clock, {t['ms_warm']:.4f} warm; "
+            f"profiler bits / walk cold {t['split_cold']['bits']:.4f} / "
+            f"{t['split_cold']['walk']:.4f}, warm "
+            f"{t['split_warm']['bits']:.4f} / {t['split_warm']['walk']:.4f}"
+            for b, t in turn.items() if b != "package")), card)
 
 
 def trace_kernel_counts(path, names):
@@ -2252,7 +2338,7 @@ def programs_phase(torch, dev, card, eng, eng_p, ov, frames, frames_s2d, hws,
     from synergynet_tpu_torch.ops.resize import _resize_linear
     from synergynet_tpu_torch.pipeline import unpack_face_outputs
     from synergynet_tpu_torch.render import rasterize_mesh
-    from tests.nms_cases import THRESHOLD, nms_case
+    from tests.nms_cases import CASES, THRESHOLD, nms_case
     t_phase = time.perf_counter()
     out = {}
     engines = {"xla": eng, "fused": eng_p}
@@ -2327,7 +2413,7 @@ def programs_phase(torch, dev, card, eng, eng_p, ov, frames, frames_s2d, hws,
 
     cands = {b: path_candidates(b) for b in (1, BATCH)}
     cases = {f"path B={BATCH}": cands[BATCH], "path B=1": cands[1]}
-    for name in ("chain", "crowd", "padding", "duplicates", "ties"):
+    for name in CASES:
         bx, v = nms_case(name)
         cases[name] = (torch.tensor(bx, device=dev),
                        torch.tensor(v, device=dev))
@@ -2342,14 +2428,24 @@ def programs_phase(torch, dev, card, eng, eng_p, ov, frames, frames_s2d, hws,
                           "kept": int(got.sum())}
     log(f"phase 14 N1 = twin bit for bit on {n1_cases}")
     out["n1_cases"] = n1_cases
+    # The path's candidates and the twin's masks, for the --parent A/B.
+    here = os.path.dirname(os.path.abspath(__file__))
+    os.makedirs(os.path.join(here, "build"), exist_ok=True)
+    torch.save({"threshold": NMS_THRESHOLD, "inputs": {
+        b: (tb.cpu(), tv.cpu(),
+            greedy_nms_mask_reference(tb, tv, NMS_THRESHOLD).cpu())
+        for b, (tb, tv) in cands.items()}},
+        os.path.join(here, N1_AB_INPUTS))
 
     # -- 14e. N1's time, its twin's and its bound -----------------------------
     clock = sm_clock_mhz()
     flush = torch.empty(256 * 2 ** 20, dtype=torch.uint8, device=dev)
+    prof_dir = os.path.join(here, "build", "chip_smoke_programs")
+    os.makedirs(prof_dir, exist_ok=True)
     n1 = {}
     for b, (tb, tv) in cands.items():
-        spread = time_spread(lambda: greedy_nms_mask(tb, tv, NMS_THRESHOLD),
-                             20, torch, flush.zero_)
+        t = n1_times(torch, greedy_nms_mask, tb, tv, NMS_THRESHOLD,
+                     flush.zero_, prof_dir, f"b{b}")
         plain = time_ms(lambda: greedy_nms_mask_reference(
             tb, tv, NMS_THRESHOLD), 3 if b > 1 else 10, torch, flush.zero_)
         k = tb.shape[1]
@@ -2366,21 +2462,25 @@ def programs_phase(torch, dev, card, eng, eng_p, ov, frames, frames_s2d, hws,
         t_iou = ious * 15 / F32_FLOPS * 1e3
         nbytes = b * k * (16 + 1 + 1)
         t_bytes = nbytes / HBM_BPS * 1e3
-        n1[b] = {"ms": spread[1], "ms_min": spread[0], "ms_max": spread[2],
-                 "plain_ms": plain, "bound_ms": max(t_walk, t_iou, t_bytes),
-                 "bound_by": "bytes" if t_bytes > max(t_walk, t_iou)
-                 else "operations",
-                 "bound_walk_ms": t_walk, "bound_iou_ms": t_iou,
-                 "bound_bytes_ms": t_bytes, "walk_steps": steps,
-                 "ious": ious, "kept": int(keep.sum())}
+        n1[b] = dict(t, plain_ms=plain,
+                     bound_ms=max(t_walk, t_iou, t_bytes),
+                     bound_by="bytes" if t_bytes > max(t_walk, t_iou)
+                     else "operations",
+                     bound_walk_ms=t_walk, bound_iou_ms=t_iou,
+                     bound_bytes_ms=t_bytes, walk_steps=steps, ious=ious,
+                     kept=int(keep.sum()))
         log(f"phase 14 N1 B={b} (K={k}): kernel min/median/max "
-            f"{spread[0]:.4f} / {spread[1]:.4f} / {spread[2]:.4f} ms over 20 "
-            f"(L2 flushed) | twin {plain:.4f} ms | bound "
-            f"{n1[b]['bound_ms']:.4f} ms ({n1[b]['bound_by']}: {steps} walk "
-            f"steps at {clock:.0f} MHz = {t_walk:.4f} ms; {ious} IoUs at "
-            f"f32 peak = {t_iou:.4f} ms; {nbytes / 1e6:.1f} MB = "
-            f"{t_bytes:.4f} ms) | {n1[b]['bound_ms'] / spread[1]:.3f} of "
-            f"bound | {n1[b]['kept']} kept | {card}")
+            f"{t['ms_min']:.4f} / {t['ms']:.4f} / {t['ms_max']:.4f} ms over "
+            f"20 (L2 flushed; {t['ms_warm']:.4f} warm; profiler bits / walk "
+            f"cold {t['split_cold']['bits']:.4f} / "
+            f"{t['split_cold']['walk']:.4f}, warm "
+            f"{t['split_warm']['bits']:.4f} / {t['split_warm']['walk']:.4f})"
+            f" | twin {plain:.4f} ms | bound {n1[b]['bound_ms']:.4f} ms "
+            f"({n1[b]['bound_by']}: {steps} walk steps at {clock:.0f} MHz = "
+            f"{t_walk:.4f} ms; {ious} IoUs at f32 peak = {t_iou:.4f} ms; "
+            f"{nbytes / 1e6:.1f} MB = {t_bytes:.4f} ms) | "
+            f"{n1[b]['bound_ms'] / t['ms']:.3f} of bound | {n1[b]['kept']} "
+            f"kept | {card}")
     del flush
     out["n1"] = {str(b): v for b, v in n1.items()}
 
@@ -2495,9 +2595,6 @@ def programs_phase(torch, dev, card, eng, eng_p, ov, frames, frames_s2d, hws,
     out["pool_bytes"] = pools
 
     # -- 14i. one profiler pass: trace counts against credited counters -------
-    prof_dir = os.path.join(os.path.dirname(os.path.abspath(__file__)),
-                            "build", "chip_smoke_programs")
-    os.makedirs(prof_dir, exist_ok=True)
     counters = {"B1 fused_decode": (decode_dense_fused, "launches"),
                 "N1 nms_greedy": (greedy_nms_mask, "launches"),
                 "B4 stem_s2d8": (fused_stem1_s2d8, "launches"),
@@ -2563,11 +2660,16 @@ def main():
                     "traces go to DIR")
     ap.add_argument("--parent", metavar="DIR",
                     help="a checkout of the parent commit: time its raster "
-                    "entry points against this tree's, in turns")
+                    "entry points and its greedy NMS against this tree's, "
+                    "in turns")
     ap.add_argument("--raster-worker", metavar="DIR", help=argparse.SUPPRESS)
+    ap.add_argument("--nms-worker", metavar="DIR", help=argparse.SUPPRESS)
     args = ap.parse_args()
     if args.raster_worker:
         raster_worker(args.raster_worker)
+        return
+    if args.nms_worker:
+        nms_worker(args.nms_worker)
         return
     t_start = time.perf_counter()
 
@@ -3138,6 +3240,7 @@ def main():
     programs = programs_phase(torch, dev, card, eng, eng_p, ov, frames,
                               frames_s2d, hws, imgs)
     n1 = programs["n1"]
+    n1_turns = nms_ab(args.parent, card) if args.parent else None
 
     # -- 7. device profile (opt-in) -------------------------------------------
     if args.profile:
@@ -3315,6 +3418,8 @@ def main():
         "bound_ms": n1[str(BATCH)]["bound_ms"],
         "bound_by": n1[str(BATCH)]["bound_by"], "library_ms": None,
         "timing": spread_timing.split("; ms_entry")[0]
+        + "; split_ms: the bits and walk kernels' device ms per call under "
+        "torch.profiler, L2 flushed before each call"
         + "; plain_ms: the fixpoint twin, mean of 3 (B=1: 10); bound_ms: "
         "the largest of the walk's dependent steps (last valid box + 1 in "
         "the longest frame) at one SM cycle each, the reference loop's IoUs "
@@ -3326,6 +3431,9 @@ def main():
         "bound_iou_ms": n1[str(BATCH)]["bound_iou_ms"],
         "bound_bytes_ms": n1[str(BATCH)]["bound_bytes_ms"],
         "frames": BATCH, "k": 2048, "ms_b1": n1["1"]["ms"],
+        "ms_min_b1": n1["1"]["ms_min"], "ms_max_b1": n1["1"]["ms_max"],
+        "split_ms": n1[str(BATCH)]["split_cold"],
+        "split_ms_b1": n1["1"]["split_cold"],
         "plain_ms_b1": n1["1"]["plain_ms"],
         "bound_ms_b1": n1["1"]["bound_ms"],
         "bound_by_b1": n1["1"]["bound_by"]}],
@@ -3334,7 +3442,7 @@ def main():
         "e2e_fused_stem_ms": {str(b): v[0] for b, v in e2e_p.items()},
         "stages_ms": stages, "overlay_ms": overlay_ms,
         "overlay_stages_ms": ov_stages, "raster_path_ms": raster_ms,
-        "raster_ab": raster_turns, "training": training,
+        "raster_ab": raster_turns, "n1_ab": n1_turns, "training": training,
         "data_path": data_path, "api_host_render": api_path,
         "families": {k: v for k, v in fam.items() if k != "stem_f32"},
         "ingest_eval": ingest, "scaleout": scaleout,

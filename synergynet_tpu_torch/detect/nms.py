@@ -12,8 +12,9 @@ the fixpoint is unique and equal to the sequential greedy result, and it is
 reached after (longest suppression chain + 1) steps.
 
 :func:`greedy_nms_mask` launches kernel N1 (``csrc/nms_greedy.cu``) on a
-CUDA tensor, or raises: the suppression bits, then one in-order walk per
-frame on the device, with no host read, so a CUDA graph can capture it.
+CUDA tensor, or raises: the suppression bits of 64-box tiles, then one
+tiled in-order walk per frame on the device, with no host read, so a CUDA
+graph can capture it.
 On a CPU tensor it runs the plain twin :func:`greedy_nms_mask_reference`:
 the fixpoint on a bit-packed A, each row K/32 words of 32 suppression
 bits, so a step is one AND over (..., K, K/32) words and a row reduction
@@ -21,8 +22,10 @@ bits, so a step is one AND over (..., K, K/32) words and a row reduction
 take). Eager PyTorch pays a host sync to test for the fixpoint, so the
 test runs every ``_CHECK_EVERY`` steps; extra steps past the fixpoint
 change nothing. :func:`greedy_nms_walk_reference` is N1's own algorithm in
-plain PyTorch (:func:`suppression_rows`, then the walk), which the tests
-hold against both. ``greedy_nms_mask.launches`` counts N1's launches.
+plain PyTorch (:func:`suppression_rows` with N1's IoU test
+:func:`iou_at_least`, in N1's layout :func:`n1_word_index`, then the tiled
+walk), which the tests hold against both. ``greedy_nms_mask.launches``
+counts N1's launches.
 """
 
 from __future__ import annotations
@@ -42,9 +45,10 @@ _IOU_FRAMES = 8
 # Fixpoint steps between host syncs (random-init detector frames settle in
 # <= 16 steps).
 _CHECK_EVERY = 8
-# Kernel N1: 64-bit suppression words, and the largest K its walk's shared
-# memory (8 * ceil(K / 64) + 2 * K bytes) takes without an opt-in.
+# Kernel N1: tiles of 64 boxes and 64-bit suppression words, staged by its
+# walk in chunks of up to 32 words a row (csrc/nms_greedy.cu).
 N1_WORD = 64
+N1_CHUNK = 32
 N1_MAX_K = 16384
 N1_MAX_FRAMES = 65535
 
@@ -101,44 +105,145 @@ def greedy_nms_mask_reference(boxes: torch.Tensor, valid: torch.Tensor,
     return keep.reshape(*lead, k)
 
 
+def n1_layout(k: int):
+    """(T, words a frame) of N1's suppression words at K = ``k``: T =
+    ceil(K / 64) tiles, 64 T (T + 1) / 2 words of scratch a frame (the
+    triangle of tiles t and words t <= w < T)."""
+    nt = -(-k // N1_WORD)
+    return nt, N1_WORD * nt * (nt + 1) // 2
+
+
+def iou_at_least(a: torch.Tensor, b: torch.Tensor,
+                 iou_threshold: float = 0.3) -> torch.Tensor:
+    """N1's IoU test in plain PyTorch (``csrc/nms_greedy.cu``, "The IoU
+    test"): corner boxes ``a`` (..., 4) and ``b`` (..., 4) f32, broadcast
+    against each other -> bool, which equals ``IoU(a, b) >= threshold`` as
+    :func:`pairwise_iou` computes it. Pairs of plain boxes (coordinates
+    finite, |c| <= 2^60) at a threshold in [2^-126, 1] try the fast path:
+    NaN-dropping min / max, and no division where ``p = thr * union`` is
+    at least 2^-80 and ``inter`` is at least ``hi`` (true) or at most
+    ``lo`` (false), the products of ``p`` with 1 +/- 2^-20; every other
+    pair takes the twin's operations, the general path."""
+    f32 = torch.float32
+    thr = torch.tensor(iou_threshold, dtype=f32)
+    ax1, ay1, ax2, ay2 = a.unbind(-1)
+    bx1, by1, bx2, by2 = b.unbind(-1)
+    area_a = (ax2 - ax1 + 1.0) * (ay2 - ay1 + 1.0)
+    area_b = (bx2 - bx1 + 1.0) * (by2 - by1 + 1.0)
+    # The general path: pairwise_iou's operations, NaN-propagating.
+    w = torch.clamp(torch.minimum(ax2, bx2) - torch.maximum(ax1, bx1) + 1.0,
+                    min=0.0)
+    h = torch.clamp(torch.minimum(ay2, by2) - torch.maximum(ay1, by1) + 1.0,
+                    min=0.0)
+    inter = w * h
+    general = inter / (area_a + area_b - inter) >= thr
+    # The fast path, as the kernel computes it.
+    zero = torch.tensor(0.0, dtype=f32)
+    w = torch.fmax(torch.fmin(ax2, bx2) - torch.fmax(ax1, bx1) + 1.0, zero)
+    h = torch.fmax(torch.fmin(ay2, by2) - torch.fmax(ay1, by1) + 1.0, zero)
+    inter = w * h
+    p = thr * (area_a + area_b - inter)
+    above = inter >= p * torch.tensor(1.0 + 2.0 ** -20, dtype=f32)
+    below = inter <= p * torch.tensor(1.0 - 2.0 ** -20, dtype=f32)
+    settled = (p >= torch.tensor(2.0 ** -80, dtype=f32)) & (above | below)
+    thr32 = float(np.float32(iou_threshold))
+    plain = (a.abs() <= 2.0 ** 60).all(-1) & (b.abs() <= 2.0 ** 60).all(-1)
+    if not 2.0 ** -126 <= thr32 <= 1.0:
+        plain = torch.zeros_like(plain)
+    return torch.where(plain & settled, above, general)
+
+
+def n1_word_index(valid: torch.Tensor) -> torch.Tensor:
+    """(F, T, 64, T) position in N1's scratch (:func:`n1_layout`) of row i
+    of tile t, word w, for F frames' (F, K) valid flags: tile t starts at
+    64 (t T - t (t - 1) / 2) and holds W = LT - t + 1 words a row (LT the
+    tile of the frame's last valid box), in chunks of up to 32 words, each
+    chunk 64 rows x its width, row-major. Words the kernel does not write
+    (w < t, w > LT) get the frame's word count, one past its last word."""
+    f, k = valid.shape
+    nt, cap = n1_layout(k)
+    dev = valid.device
+    last = (valid * torch.arange(1, k + 1, device=dev)).amax(-1) - 1
+    lt = torch.div(last, N1_WORD, rounding_mode="floor")[:, None, None, None]
+    t = torch.arange(nt, device=dev)[:, None, None]
+    i = torch.arange(N1_WORD, device=dev)[None, :, None]
+    w = torch.arange(nt, device=dev)[None, None, :]
+    rel = (w - t).clamp(min=0)
+    j = torch.div(rel, N1_CHUNK, rounding_mode="floor")
+    width = torch.clamp(lt - t + 1 - j * N1_CHUNK, max=N1_CHUNK)
+    base = N1_WORD * (t * nt - t * (t - 1) // 2)
+    idx = base + N1_WORD * N1_CHUNK * j + i * width + rel - j * N1_CHUNK
+    written = (w >= t) & (w <= lt)
+    return torch.where(written, idx, cap).expand(f, nt, N1_WORD, nt)
+
+
 def suppression_rows(boxes: torch.Tensor, valid: torch.Tensor,
                      iou_threshold: float = 0.3) -> torch.Tensor:
     """N1's first kernel in plain PyTorch: (F, K, 4) boxes + (F, K) valid
-    -> (F, K, ceil(K / 64)) int64 words, row r holding bit c % 64 of word
-    c // 64 for every column c > r with IoU(r, c) >= threshold, for valid r:
+    -> (F, 64 T (T + 1) / 2) int64 words in N1's layout
+    (:func:`n1_word_index`). Row r's word w holds bit c % 64 for every
+    column c > r in word w with :func:`iou_at_least` (r, c), for valid r:
     the boxes that r suppresses once kept, the transpose of the fixpoint's
-    A. (The kernel leaves invalid rows and words left of the diagonal
-    unwritten; its walk never reads them. Here they are zero.)"""
+    A. Invalid rows are zero words, as the kernel writes them; words it
+    does not write are zero here."""
     f, k = valid.shape
-    nw = -(-k // N1_WORD)
-    upper = torch.triu(torch.ones((k, k), dtype=torch.bool,
-                                  device=boxes.device), 1)         # c > r
-    bits = (pairwise_iou(boxes) >= iou_threshold) & upper & valid[:, :, None]
-    bits = torch.nn.functional.pad(bits, (0, nw * N1_WORD - k))
-    shifts = torch.arange(N1_WORD, device=boxes.device, dtype=torch.int64)
-    # Distinct bits: the sum is their OR (bit 63 wraps to the sign).
-    return (bits.reshape(f, k, nw, N1_WORD).to(torch.int64) << shifts).sum(-1)
+    nt, cap = n1_layout(k)
+    dev = boxes.device
+    shifts = torch.arange(N1_WORD, device=dev, dtype=torch.int64)
+    cols = torch.arange(k, device=dev)
+    dense = torch.zeros((f, nt * N1_WORD, nt), dtype=torch.int64,
+                        device=dev)
+    for r0 in range(0, k, 256):
+        r1 = min(r0 + 256, k)
+        bits = iou_at_least(boxes[:, r0:r1, None], boxes[:, None],
+                            iou_threshold)
+        bits &= cols > torch.arange(r0, r1, device=dev)[:, None]   # c > r
+        bits &= valid[:, r0:r1, None]
+        bits = torch.nn.functional.pad(bits, (0, nt * N1_WORD - k))
+        # Distinct bits: the sum is their OR (bit 63 wraps to the sign).
+        dense[:, r0:r1] = (bits.reshape(f, r1 - r0, nt, N1_WORD).to(
+            torch.int64) << shifts).sum(-1)
+    out = torch.zeros((f, cap + 1), dtype=torch.int64, device=dev)
+    out.scatter_(1, n1_word_index(valid).reshape(f, -1),
+                 dense.reshape(f, -1))
+    return out[:, :cap]
 
 
 def greedy_nms_walk_reference(boxes: torch.Tensor, valid: torch.Tensor,
                               iou_threshold: float = 0.3) -> torch.Tensor:
     """N1's algorithm in plain PyTorch, for the tests: (F, K, 4) boxes and
     (F, K) valid -> (F, K) keep. :func:`suppression_rows`, then per frame
-    the walk over i = 0 .. K-1 with a removed-bitmask of ceil(K / 64)
-    words: a valid box that is not removed is kept and ORs its row into
-    the mask. K host steps; not a serving path."""
+    the tiled walk: a removed-mask word per tile, starting as the tile's
+    invalid rows; for tile t, R = removed[t], and for i = 0 .. 63 in order,
+    row i is kept iff bit i of R is clear, and then ORs its diagonal word
+    into R; the kept rows' words right of the diagonal are ORed into the
+    later tiles' removed words. T x 64 host steps and no host read; not a
+    serving path."""
     f, k = valid.shape
-    rows = suppression_rows(boxes, valid, iou_threshold)
-    removed = torch.zeros((f, rows.shape[-1]), dtype=torch.int64,
-                          device=boxes.device)
-    keep = torch.zeros((f, k), dtype=torch.bool, device=boxes.device)
-    for i in range(k):
-        w, b = divmod(i, N1_WORD)
-        alive = valid[:, i] & (((removed[:, w] >> b) & 1) == 0)
-        keep[:, i] = alive
-        removed |= torch.where(alive[:, None], rows[:, i],
-                               torch.zeros_like(rows[:, i]))
-    return keep
+    nt, cap = n1_layout(k)
+    dev = boxes.device
+    words = torch.nn.functional.pad(
+        suppression_rows(boxes, valid, iou_threshold), (0, 1))
+    tiles = torch.gather(words, 1, n1_word_index(valid).reshape(
+        f, -1)).reshape(f, nt, N1_WORD, nt)
+    shifts = torch.arange(N1_WORD, device=dev, dtype=torch.int64)
+    vbits = torch.nn.functional.pad(valid, (0, nt * N1_WORD - k))
+    vbits = (vbits.reshape(f, nt, N1_WORD).to(torch.int64) << shifts).sum(-1)
+    removed = ~vbits
+    later = torch.arange(nt, device=dev)
+    keep = []
+    for t in range(nt):
+        r = removed[:, t]
+        diag = tiles[:, t, :, t]
+        for i in range(N1_WORD):
+            r = r | torch.where(((r >> i) & 1) == 0, diag[:, i], 0)
+        kept = (((~r)[:, None] >> shifts) & 1) == 1
+        keep.append(kept)
+        rows = torch.where(kept[:, :, None], tiles[:, t], 0)
+        while rows.shape[1] > 1:                    # OR over the rows
+            rows = rows[:, 0::2] | rows[:, 1::2]
+        removed = removed | torch.where(later > t, rows[:, 0], 0)
+    return torch.cat(keep, 1)[:, :k]
 
 
 def _launch(boxes: torch.Tensor, valid: torch.Tensor,
@@ -163,8 +268,9 @@ def _launch(boxes: torch.Tensor, valid: torch.Tensor,
     keep = torch.empty((f, k), dtype=torch.bool, device=dev)
     if keep.numel() == 0:
         return keep
-    sup = torch.empty((f, k, -(-k // N1_WORD)), dtype=torch.int64,
-                      device=dev)
+    if boxes.data_ptr() % 16:            # the kernel reads boxes as float4
+        boxes = boxes.clone()
+    sup = torch.empty((f, n1_layout(k)[1]), dtype=torch.int64, device=dev)
     with torch.cuda.device(dev):
         rc = fn(boxes.data_ptr(), valid.data_ptr(), sup.data_ptr(),
                 keep.data_ptr(), f, k, float(iou_threshold),

@@ -16,11 +16,13 @@ def random_boxes(rng, n, span=200.0):
     return np.concatenate([xy, xy + wh], 1).astype(np.float32)
 
 
-def chain_boxes(n):
-    """Boxes sliding by 10 px: each overlaps its neighbour at IoU 0.6 and
-    the one after next at 0.33, so greedy keeps every third box and the
-    suppression chain runs the whole length."""
-    x = np.arange(n, dtype=np.float32) * 10.0
+def chain_boxes(n, step=10.0):
+    """Boxes 50 px wide sliding by ``step`` px. At 10 px each overlaps its
+    neighbour at IoU 0.6 and the one after next at 0.33, so greedy keeps
+    every third box; at 20 px its neighbour at 0.43 and the one after next
+    at 0.11, so every box suppresses the next and greedy keeps every second
+    one. Either way the suppression chain runs the whole length."""
+    x = np.arange(n, dtype=np.float32) * np.float32(step)
     return np.stack([x, np.zeros(n), x + 49.0, np.full(n, 49.0)],
                     1).astype(np.float32)
 
@@ -66,7 +68,17 @@ def nms_case(name, k=2048, seed=0):
     - ``ties``: the three tie pairs, repeated at integer offsets, with
       random boxes far from them;
     - ``frames``: 4 frames with 0, 1, ``k`` / 2 and ``k`` valid boxes;
-    - ``ragged``: K = 100, not a multiple of 64.
+    - ``ragged``: K = 100, not a multiple of 64;
+    - ``tile_edges``: K = 256, 64-box tiles' edges: frames whose last valid
+      box is 63, 64, 65, 127 and 128; a frame with a 10 px chain over boxes
+      40-100 (across the tile edge at 64); a frame whose tile 1 (boxes
+      64-127) is a 20 px chain, every box suppressing the next;
+    - ``holes``: K = 256, valid masks that are not a prefix: a whole tile
+      invalid (boxes 64-127 in one frame, 0-63 in the other) among random
+      gaps;
+    - ``wide``: K = 2,112, past 2,048, so tile 0's row holds 33 words (two
+      of N1's 32-word chunks) in the frame whose boxes are all valid; the
+      other frame's last valid box is below 2,048.
     """
     rng = np.random.default_rng(seed)
     if name == "random":
@@ -103,10 +115,30 @@ def nms_case(name, k=2048, seed=0):
         boxes = np.stack([random_boxes(rng, 100, span=80.0)
                           for _ in range(2)])
         valid = rng.uniform(size=(2, 100)) < 0.8
+    elif name == "tile_edges":
+        boxes = np.stack([random_boxes(rng, 256, span=120.0)
+                          for _ in range(7)])
+        far = np.float32(5000)
+        boxes[5, 40:101] = chain_boxes(61) + far
+        boxes[6, 64:128] = chain_boxes(64, step=20.0) + far
+        last = np.array([63, 64, 65, 127, 128, 255, 255])
+        valid = np.arange(256)[None] <= last[:, None]
+    elif name == "holes":
+        boxes = np.stack([random_boxes(rng, 256, span=120.0)
+                          for _ in range(2)])
+        valid = rng.uniform(size=(2, 256)) < 0.85
+        valid[0, 64:128] = False
+        valid[1, 0:64] = False
+    elif name == "wide":
+        boxes = np.stack([random_boxes(rng, 2112, span=160.0)
+                          for _ in range(2)])
+        valid = np.ones((2, 2112), bool)
+        valid[1] = np.arange(2112) < 2000
+        valid[1] &= rng.uniform(size=2112) < 0.9
     else:
         raise ValueError(name)
     return boxes.astype(np.float32), valid
 
 
 CASES = ("random", "crowd", "padding", "duplicates", "chain", "ties",
-         "frames", "ragged")
+         "frames", "ragged", "tile_edges", "holes", "wide")

@@ -15,6 +15,7 @@ from synergynet_tpu_torch.mm3d import load_param_pack
 from synergynet_tpu_torch.mm3d.codec import full_fp32
 from synergynet_tpu_torch.ops import (build_decode_basis, decode_dense_fused,
                                       decode_dense_fused_reference)
+from tests.nms_cases import CASES as NMS_CASES
 
 torch.set_num_threads(2)
 
@@ -1498,8 +1499,7 @@ def _nms_inputs(cuda, case, k=2048, seed=0):
 
 
 @pytest.mark.gpu
-@pytest.mark.parametrize("case", ["random", "crowd", "padding", "duplicates",
-                                  "chain", "ties", "frames", "ragged"])
+@pytest.mark.parametrize("case", NMS_CASES)
 def test_nms_kernel_matches_plain_twin(cuda, case):
     """N1 equals the fixpoint twin bit for bit, on the card and on the
     CPU; one launch a call."""
@@ -1534,6 +1534,56 @@ def test_nms_kernel_matches_plain_twin_on_frames(cuda, b):
     want = greedy_nms_mask_reference(tb, tv, 0.3)
     assert torch.equal(got, want)
     assert torch.equal(got[0].cpu(), torch.arange(2048) % 3 == 0)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("k", [100, 16384])
+def test_nms_kernel_matches_plain_twin_at_k(cuda, k):
+    """Spread boxes of which about half are kept, at K = 100 and at N1's cap
+    K = 16,384, where a tile's row holds 256 words (eight of the walk's
+    chunks) and the walk's shared memory is largest."""
+    from synergynet_tpu_torch.detect.nms import (greedy_nms_mask,
+                                                 greedy_nms_mask_reference)
+    from tests.nms_cases import random_boxes
+    rng = np.random.default_rng(k)
+    span = 600.0 * (k / 2048) ** 0.5
+    boxes = np.stack([random_boxes(rng, k, span=span) for _ in range(2)])
+    valid = np.ones((2, k), bool)
+    valid[1] = rng.uniform(size=k) < 0.9
+    tb, tv = torch.tensor(boxes, device=cuda), torch.tensor(valid, device=cuda)
+    got = greedy_nms_mask(tb, tv, 0.3)
+    want = greedy_nms_mask_reference(tb, tv, 0.3)
+    assert torch.equal(got, want)
+    share = float(want.float().mean())
+    assert 0.3 < share < 0.7
+
+
+@pytest.mark.gpu
+def test_nms_kernel_inside_a_captured_graph(cuda):
+    """N1 captured in a CUDA graph (after one eager call, as the programs
+    warm up), then replayed on new boxes and valid flags copied into the
+    captured inputs: each replay equals the twin on those inputs."""
+    from synergynet_tpu_torch.detect.nms import (greedy_nms_mask,
+                                                 greedy_nms_mask_reference)
+    from tests.nms_cases import nms_case
+    boxes, valid = nms_case("crowd")
+    tb, tv = torch.tensor(boxes, device=cuda), torch.tensor(valid, device=cuda)
+    stream = torch.cuda.Stream()
+    stream.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(stream):
+        greedy_nms_mask(tb, tv, 0.3)
+    torch.cuda.current_stream().wait_stream(stream)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        out = greedy_nms_mask(tb, tv, 0.3)
+    for seed in (1, 2, 3):
+        b, v = nms_case("crowd", seed=seed)
+        tb.copy_(torch.tensor(b, device=cuda))
+        tv.copy_(torch.tensor(v, device=cuda))
+        graph.replay()
+        want = greedy_nms_mask_reference(tb, tv, 0.3)
+        assert torch.equal(out, want)
+        assert int(want.sum()) > 0
 
 
 @pytest.mark.gpu
