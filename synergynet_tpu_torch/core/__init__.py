@@ -15,5 +15,5 @@ from synergynet_tpu_torch.core.checkpoint import (  # noqa: F401
     load_trained_variables, load_shipped_trained, shipped_trained_path,
 )
 from synergynet_tpu_torch.core.profiling import (  # noqa: F401
-    trace, annotate, StageTimer, measure, device_memory_stats,
+    trace, annotate, recorder, StageTimer, device_memory_stats,
 )

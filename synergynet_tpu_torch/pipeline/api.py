@@ -29,6 +29,18 @@ NMS runs kernel N1 on the device, so nothing inside reads the host.
 ``__call__`` replays the one-frame program and then reads the face count,
 as the JAX package's ``__call__`` reads its outputs. On the CPU the eager
 body runs.
+
+What an operator can read (:mod:`synergynet_tpu_torch.core.profiling`,
+``recorder``): each ``process_batch.b<B>`` program stamps ``BATCH_STAGES``
+into its own ring (device ms per stage of every replay:
+``recorder.stage_ms``) and its body tallies ``TALLIES`` (candidates with a
+positive score, candidates kept by greedy NMS and the visibility
+threshold, faces returned), read with the program's calls, frames and
+bytes by ``recorder.counters``; under a profiler the calls show the spans
+``synergy.process_batch`` and, in ``__call__``, ``synergy.frame`` >
+``synergy.prep`` (fit, upload, pack: host work and its uploads),
+``synergy.to_host`` (the outputs' copies to numpy: where the host waits
+for the device) and ``synergy.unpack`` (host work).
 """
 
 from __future__ import annotations
@@ -41,6 +53,7 @@ import torch
 from synergynet_tpu_torch.convert import synergy_state_dict
 from synergynet_tpu_torch.core.checkpoint import load_shipped_trained
 from synergynet_tpu_torch.core.device import resolve_device
+from synergynet_tpu_torch.core.profiling import annotate, stage_done, tally
 from synergynet_tpu_torch.detect.detector import (FaceBoxes, prepare_frame,
                                                   rank_and_keep)
 from synergynet_tpu_torch.mm3d.assets import N_LMK, ParamPack, load_param_pack
@@ -61,6 +74,13 @@ from synergynet_tpu_torch.pipeline.program import ProgramCache
 
 CROP = 120
 MAX_FACES_PER_BATCH = 16
+# The device intervals of one process_batch call, between its eight stamps:
+# copy-in (and the graph's launch), detect, select (top-k sort, N1, keep),
+# crop, regress (the backbone alone), decode (landmarks, B1, pose,
+# rescale), clone-out.
+BATCH_STAGES = ("copy_in", "detect", "select", "crop", "regress", "decode",
+                "clone_out")
+TALLIES = ("valid", "kept", "faces")
 
 
 def _crops_on(frame: torch.Tensor, roi_boxes: Sequence,
@@ -232,7 +252,9 @@ class FusedFrameEngine:
                              f"{api.device}")
         self.max_faces = max_faces
         self._det_mean = self.detector.mean
-        self.programs = ProgramCache(api.device)
+        self.programs = ProgramCache(
+            api.device, "frame",
+            kernels=("stem_s2d8", "nms_greedy", "fused_decode"))
 
     def detect_candidates(self, frames_s2d: torch.Tensor,
                           true_hws: torch.Tensor
@@ -250,11 +272,13 @@ class FusedFrameEngine:
         (:func:`~synergynet_tpu_torch.detect.detector.rank_and_keep`):
         (face_scores (B, F) with -1 on padding rows, n_faces (B,),
         face_boxes (B, F, 4))."""
-        top_scores, face_boxes, keep, _ = rank_and_keep(scores, boxes,
-                                                        self.max_faces)
+        top_scores, face_boxes, keep, kept = rank_and_keep(scores, boxes,
+                                                           self.max_faces)
         face_scores = torch.where(keep, top_scores,
                                   torch.full_like(top_scores, -1.0))
-        return face_scores, (face_scores > 0).sum(-1), face_boxes
+        n_faces = (face_scores > 0).sum(-1)
+        tally(lambda: ((scores > 0).sum(), kept.sum(), n_faces.sum()))
+        return face_scores, n_faces, face_boxes
 
     def regress(self, frames: torch.Tensor, rois: torch.Tensor
                 ) -> torch.Tensor:
@@ -262,17 +286,22 @@ class FusedFrameEngine:
         TF32 off for an f32 regressor."""
         b, f = rois.shape[:2]
         crops = crop_resize_matmul(frames, rois, CROP)
+        stage_done("crop")
         xn = ((crops - 127.5) / 128.0).reshape(b * f, CROP, CROP, 3)
         with full_fp32_if(self.api.dtype):
             param62, _ = self.api.model(xn)
-        return param62.float().reshape(b, f, -1)
+        param62 = param62.float().reshape(b, f, -1)
+        stage_done("regress")
+        return param62
 
     def head(self, frames, frames_s2d, true_hws):
         """Detect + crop + regress for B frames -> (face_scores (B, F),
         n_faces (B,), rois (B, F, 4), param62 (B, F, 62))."""
         scores, boxes = self.detect_candidates(frames_s2d, true_hws)
+        stage_done("detect")
         face_scores, n_faces, face_boxes = self.select_faces(scores, boxes)
         rois = square_rois(face_boxes)
+        stage_done("select")
         return face_scores, n_faces, rois, self.regress(frames, rois)
 
     def tail(self, param62: torch.Tensor, rois: torch.Tensor):
@@ -285,13 +314,17 @@ class FusedFrameEngine:
     def process_batch_eager(self, frames: torch.Tensor,
                             frames_s2d: torch.Tensor, true_hws: torch.Tensor):
         """The eager body of :meth:`process_batch`, op by op on the frames'
-        device: what a card's program captures and what the CPU runs."""
+        device: what a card's program captures and what the CPU runs. Run
+        by its program it stamps ``BATCH_STAGES`` and tallies ``TALLIES``
+        (module docstring); called directly, like a stage called on its
+        own, it stamps nothing."""
         face_scores, n_faces, rois, param62 = self.head(frames, frames_s2d,
                                                         true_hws)
         b, f = rois.shape[:2]
         outs = self.tail(param62.reshape(b * f, -1), rois.reshape(b * f, -1))
         lmk, dense, angles, t3d = (x.reshape(b, f, *x.shape[1:])
                                    for x in outs)
+        stage_done("decode")
         return (face_scores, n_faces, rois, param62, lmk, dense, angles, t3d)
 
     @torch.inference_mode()
@@ -304,21 +337,27 @@ class FusedFrameEngine:
         Frames on a card replay the captured program of their batch size
         (captured on its first call; fresh output tensors each call);
         frames on the CPU run :meth:`process_batch_eager`."""
-        if frames.device.type == "cuda":
-            return self.programs.run("process_batch",
-                                     self.process_batch_eager, frames,
-                                     frames_s2d, true_hws)
-        return self.process_batch_eager(frames, frames_s2d, true_hws)
+        with annotate("synergy.process_batch"):
+            return self.programs.run(
+                f"process_batch.b{frames.shape[0]}", self.process_batch_eager,
+                frames, frames_s2d, true_hws, stages=BATCH_STAGES,
+                tallies=TALLIES)
 
     def __call__(self, img_bgr: np.ndarray) -> Tuple[List, List, List]:
         """One BGR uint8 frame -> reference-format (pts_res, vertices_lst,
         poses) in original-image coordinates, as numpy."""
-        canvas, packed, true_hw, scale = prepare_frame(
-            img_bgr, self.detector.stem_r, self.api.device)
-        out = self.process_batch(canvas[None], packed[None], true_hw[None])
-        _, n, _, _, lmk, dense, angles, t3d = (x[0].cpu().numpy()
-                                               for x in out)
-        return unpack_face_outputs(int(n), lmk, dense, angles, t3d, scale)
+        with annotate("synergy.frame"):
+            with annotate("synergy.prep"):
+                canvas, packed, true_hw, scale = prepare_frame(
+                    img_bgr, self.detector.stem_r, self.api.device)
+            out = self.process_batch(canvas[None], packed[None],
+                                     true_hw[None])
+            with annotate("synergy.to_host"):
+                _, n, _, _, lmk, dense, angles, t3d = [x[0].cpu().numpy()
+                                                       for x in out]
+            with annotate("synergy.unpack"):
+                return unpack_face_outputs(int(n), lmk, dense, angles, t3d,
+                                           scale)
 
 
 def unpack_face_outputs(n: int, lmk, dense, angles, t3d, scale: float):

@@ -27,6 +27,7 @@ from typing import Optional, Tuple
 import numpy as np
 import torch
 
+from synergynet_tpu_torch.core.profiling import annotate
 from synergynet_tpu_torch.detect.detector import prepare_frame
 from synergynet_tpu_torch.ops.resize import _resize_linear
 from synergynet_tpu_torch.pipeline.api import unpack_face_outputs
@@ -163,7 +164,8 @@ class FusedOverlayEngine:
             (tris[None] + (np.arange(f, dtype=np.int32) * nver)[:, None, None]
              ).reshape(-1, 3)).to(dev)
         self.rings = one_ring_table(tris, nver).long().to(dev)
-        self.programs = ProgramCache(dev)
+        self.programs = ProgramCache(dev, "overlay",
+                                     kernels=("raster_tiled",))
 
     def render(self, frame_u8: torch.Tensor, dense: torch.Tensor,
                n_faces: int) -> Tuple[torch.Tensor, torch.Tensor]:
@@ -195,28 +197,43 @@ class FusedOverlayEngine:
         the <=720x1088 canvas and scale back with ``_resize_linear``,
         which equals the JAX package's ``cv2.resize`` bit for bit. On a
         card: the engine's one-frame program, one read of the face count,
-        then the render program of its bucket (none at zero faces)."""
+        then the render program of its bucket (none at zero faces).
+        Under a profiler: the spans ``synergy.overlay`` >
+        ``synergy.prep``, the engine's
+        ``synergy.process_batch``, ``synergy.read_count`` (the face count's
+        read: the host waits for the frame's program), ``synergy.render``
+        (the render program, the crop and any rescale, enqueued),
+        ``synergy.to_host`` (the outputs' and the overlay's copies) and
+        ``synergy.unpack``."""
         eng = self.engine
         h, w = img_bgr.shape[:2]
-        canvas, packed, true_hw, scale = prepare_frame(
-            img_bgr, eng.detector.stem_r, eng.api.device)
-        out = eng.process_batch(canvas[None], packed[None], true_hw[None])
-        _, n_t, _, _, lmk, dense, angles, t3d = (x[0] for x in out)
-        n = int(n_t)
-        if n <= 0:
-            overlay = canvas.clamp(0, 255).to(torch.uint8)
-        elif canvas.device.type == "cuda":
-            fb = face_bucket(n, dense.shape[0])
-            overlay, = self.programs.run(
-                ("render", fb), lambda c, d, k: (self.render_bucket(
-                    c, d, k, fb),), canvas, dense, n_t)
-        else:
-            overlay = self.render_bucket(canvas, dense, n_t,
-                                         face_bucket(n, dense.shape[0]))
-        hs, ws = true_hw.tolist()
-        ov = overlay[:hs, :ws]
-        if scale != 1.0:
-            ov = _resize_linear(ov, h, w).to(torch.uint8)
-        pts, verts, poses = unpack_face_outputs(
-            n, *(x.cpu().numpy() for x in (lmk, dense, angles, t3d)), scale)
-        return pts, verts, poses, ov.cpu().numpy()
+        with annotate("synergy.overlay"):
+            with annotate("synergy.prep"):
+                canvas, packed, true_hw, scale = prepare_frame(
+                    img_bgr, eng.detector.stem_r, eng.api.device)
+            out = eng.process_batch(canvas[None], packed[None],
+                                    true_hw[None])
+            _, n_t, _, _, lmk, dense, angles, t3d = (x[0] for x in out)
+            with annotate("synergy.read_count"):
+                n = int(n_t)
+            with annotate("synergy.render"):
+                if n <= 0:
+                    overlay = canvas.clamp(0, 255).to(torch.uint8)
+                elif canvas.device.type == "cuda":
+                    fb = face_bucket(n, dense.shape[0])
+                    overlay, = self.programs.run(
+                        f"render.f{fb}", lambda c, d, k: (self.render_bucket(
+                            c, d, k, fb),), canvas, dense, n_t)
+                else:
+                    overlay = self.render_bucket(
+                        canvas, dense, n_t, face_bucket(n, dense.shape[0]))
+                hs, ws = true_hw.tolist()
+                ov = overlay[:hs, :ws]
+                if scale != 1.0:
+                    ov = _resize_linear(ov, h, w).to(torch.uint8)
+            with annotate("synergy.to_host"):
+                host = [x.cpu().numpy() for x in (lmk, dense, angles, t3d)]
+                ov = ov.cpu().numpy()
+            with annotate("synergy.unpack"):
+                pts, verts, poses = unpack_face_outputs(n, *host, scale)
+        return pts, verts, poses, ov

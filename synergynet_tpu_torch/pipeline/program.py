@@ -23,17 +23,36 @@ replayed after:
   increase, and every replay credits it again; the set-up's own calls
   leave the counters as they were. So a counter reads one call's launches
   per call, replayed or eager.
+- measurement (:mod:`synergynet_tpu_torch.core.profiling`): each program
+  has its own record in the recorder, named by its key and its engine
+  (:class:`ProgramCache`'s ``engine``): every call adds its bytes in and
+  out (the static inputs' and outputs' sizes). The set-up is recorded as
+  the spans ``synergy.warmup`` and ``synergy.capture``; the kernels'
+  libraries are built and loaded before them, when the cache is made, so
+  nvcc's seconds fall outside both. Under a profiler a call shows
+  ``synergy.copy_in`` (the host enqueueing the copies into the static
+  inputs), ``synergy.replay`` (the graph launch) and ``synergy.clone_out``
+  (enqueueing the output clones): host times; the device's own are the
+  stage stamps. A body run with ``stages`` stamps the boundaries between
+  them; the program stamps the first point before its copy-in, the end of
+  the copy-in as the graph's first node, and the last point after its
+  clone-out, so a row spans the whole call on the device.
 
 A failed capture or replay raises; nothing falls back to the eager body on
-a card. The CPU runs the eager body (the callers route by device).
+a card. On the CPU a cache runs the body eagerly (:class:`EagerProgram`)
+with the same record: counters and a ring on the host clock.
 """
 
 from __future__ import annotations
 
+import itertools
 import threading
 from typing import Callable, Sequence, Tuple
 
 import torch
+
+from synergynet_tpu_torch.core.profiling import (ProgramStats, annotate,
+                                                 recorder)
 
 WARMUP = 2
 
@@ -67,24 +86,34 @@ def _credit(counters, amounts) -> None:
 _CAPTURE_LOCK = threading.Lock()
 
 
+def _nbytes(tensors: Sequence[torch.Tensor]) -> int:
+    return sum(x.numel() * x.element_size() for x in tensors)
+
+
 class CapturedProgram:
     """One CUDA graph of ``fn(*inputs)`` (a tuple of tensors out) over
-    static copies of ``inputs``, all on one card. Built by
-    :class:`ProgramCache`, which holds its lock. ``pool_bytes``: the device
-    memory the capture reserved (its pool: intermediates and outputs)."""
+    static copies of ``inputs``, all on one card, recorded in ``stats``.
+    Built by :class:`ProgramCache`, which holds its lock. ``pool_bytes``:
+    the device memory the capture reserved (its pool: intermediates and
+    outputs)."""
 
-    def __init__(self, fn: Callable, inputs: Sequence[torch.Tensor]):
+    def __init__(self, fn: Callable, inputs: Sequence[torch.Tensor],
+                 stats: ProgramStats):
         dev = inputs[0].device
         counters = launch_counters()
         before = _read(counters)
+        self.stats = stats
+        seq = stats.sequence
         self.inputs = [x.clone() for x in inputs]
         side = torch.cuda.Stream(dev)
         side.wait_stream(torch.cuda.current_stream(dev))
-        with torch.cuda.stream(side):
-            for _ in range(WARMUP):
-                fn(*self.inputs)
+        with recorder.setup_span("synergy.warmup"):
+            with torch.cuda.stream(side):
+                for _ in range(WARMUP):
+                    fn(*self.inputs)
+            side.synchronize()
         self.graph = torch.cuda.CUDAGraph()
-        with _CAPTURE_LOCK:
+        with _CAPTURE_LOCK, recorder.setup_span("synergy.capture"):
             torch.cuda.synchronize(dev)
             torch.cuda.empty_cache()
             reserved = _reserved(dev)
@@ -93,7 +122,10 @@ class CapturedProgram:
             # thread_local: another thread's eager work (an allocation, a
             # sync) does not invalidate this capture.
             with torch.cuda.graph(self.graph, stream=side,
-                                  capture_error_mode="thread_local"):
+                                  capture_error_mode="thread_local"), \
+                    recorder.stamping(seq):
+                if seq is not None:         # the copy-in ends here
+                    seq.done(seq.stages[0])
                 outputs = fn(*self.inputs)
             end = _read(counters)
             self.pool_bytes = _reserved(dev) - reserved
@@ -104,34 +136,92 @@ class CapturedProgram:
         _credit(counters, [b - e for b, e in zip(before, end)])
         self.counters = counters
         self.stream = torch.cuda.current_stream(dev)
+        self.bytes_in, self.bytes_out = (_nbytes(self.inputs),
+                                         _nbytes(self.outputs))
+        stats.captures += 1
+        stats.pool_bytes = self.pool_bytes
 
     def __call__(self, inputs: Sequence[torch.Tensor]
                  ) -> Tuple[torch.Tensor, ...]:
+        st, seq = self.stats, self.stats.sequence
         stream = torch.cuda.current_stream(self.inputs[0].device)
         if stream != self.stream:       # the last call's work comes first
             stream.wait_stream(self.stream)
             self.stream = stream
-        for s, x in zip(self.inputs, inputs):
-            s.copy_(x)
-        self.graph.replay()
-        out = tuple(o.clone() for o in self.outputs)
+        if seq is not None:
+            seq.begin(recorder.current_call())
+        with annotate("synergy.copy_in"):
+            for s, x in zip(self.inputs, inputs):
+                s.copy_(x)
+        with annotate("synergy.replay"):
+            self.graph.replay()
+        with annotate("synergy.clone_out"):
+            out = tuple(o.clone() for o in self.outputs)
+        if seq is not None:
+            seq.done(seq.stages[-1])
         _credit(self.counters, self.credits)
+        st.calls += 1
+        st.bytes_in += self.bytes_in
+        st.bytes_out += self.bytes_out
         return out
 
 
-class ProgramCache:
-    """The captured programs of one engine on ``device``:
-    ``cache.run(key, fn, *inputs)`` captures ``fn`` on the first call of
-    (``key``, the inputs' shapes and dtypes) and replays that program
-    after; ``key`` names ``fn`` (one ``fn`` per key). Inputs on another
-    device raise."""
+class EagerProgram:
+    """``fn`` run op by op (a CPU cache's program), recorded in ``stats``
+    as a captured program is: a stamped body fills one ring row a call on
+    the host clock (its ``copy_in`` interval is empty: nothing is
+    copied)."""
 
-    def __init__(self, device: torch.device):
-        self.device = device
+    def __init__(self, fn: Callable, stats: ProgramStats):
+        self.fn, self.stats = fn, stats
+
+    def __call__(self, inputs: Sequence[torch.Tensor]
+                 ) -> Tuple[torch.Tensor, ...]:
+        st, seq = self.stats, self.stats.sequence
+        if seq is not None:
+            seq.begin(recorder.current_call())
+            seq.done(seq.stages[0])
+        with recorder.stamping(seq):
+            out = tuple(self.fn(*inputs))
+        if seq is not None:
+            seq.done(seq.stages[-1])
+        st.calls += 1
+        st.bytes_in += _nbytes(inputs)
+        st.bytes_out += _nbytes(out)
+        return out
+
+
+_ENGINES = itertools.count(1)
+
+
+class ProgramCache:
+    """The programs of one engine on ``device``: ``cache.run(key, fn,
+    *inputs)`` captures ``fn`` on the first call of (``key``, the inputs'
+    shapes and dtypes) and replays that program after (on the CPU: runs
+    it eagerly); ``key`` (a string) names ``fn`` (one ``fn`` per key).
+    With ``stages`` (the first the copy-in, the last the clone-out, the
+    body marking those between with ``stage_done``) and ``tallies`` the
+    program stamps; a stamped body takes its frames first, so a call's
+    frames are its first input's leading size. Each program's record in
+    the recorder is named by ``key`` and ``self.engine`` (``engine``
+    numbered in the process: ``frame#1``). ``kernels``: the ``csrc``
+    libraries the engine's bodies launch, built and loaded now on a card.
+    Inputs on another device raise."""
+
+    def __init__(self, device: torch.device, engine: str,
+                 kernels: Sequence[str] = ()):
+        self.device = torch.device(device)
+        self.engine = f"{engine}#{next(_ENGINES)}"
         self.programs: dict = {}
         self.lock = threading.Lock()
+        if self.device.type == "cuda":
+            from synergynet_tpu_torch.ops.cuda_build import (
+                load_kernel_library)
+            for name in (*kernels, "stage_stamp"):
+                load_kernel_library(name)
 
-    def run(self, key, fn: Callable, *inputs: torch.Tensor
+    def run(self, key: str, fn: Callable, *inputs: torch.Tensor,
+            stages: Sequence[str] = (), tallies: Sequence[str] = ()
             ) -> Tuple[torch.Tensor, ...]:
         for x in inputs:
             if x.device != self.device:
@@ -141,7 +231,13 @@ class ProgramCache:
         with self.lock:
             prog = self.programs.get(sig)
             if prog is None:
-                prog = self.programs[sig] = CapturedProgram(fn, inputs)
+                stats = recorder.program(
+                    key, self.engine, self.device, stages, tallies,
+                    inputs[0].shape[0] if stages else 0)
+                prog = self.programs[sig] = (
+                    CapturedProgram(fn, inputs, stats)
+                    if self.device.type == "cuda" else
+                    EagerProgram(fn, stats))
             return prog(inputs)
 
 

@@ -1744,6 +1744,72 @@ def test_graph_threads_get_their_own_frames(cuda, graph_engines):
 
 
 @pytest.mark.gpu
+def test_replay_stamps_eight_points_a_call(cuda, graph_engines, tmp_path):
+    """At B=128 each replay leaves one ring row of eight stamps whose seven
+    intervals sum to within 3% of the call's CUDA-event time; the counters
+    read the calls, the static buffers' bytes and what was served; a stage
+    called alone stamps nothing; under the profiler a call shows the
+    ``synergy.*`` spans and eight ``stage_stamp`` kernels."""
+    from synergynet_tpu_torch.core.profiling import recorder
+    from synergynet_tpu_torch.pipeline.api import BATCH_STAGES
+    eng, b = graph_engines["fused"], 128
+    key, name = f"process_batch.b{b}", eng.programs.engine
+    args = _batch(cuda, b, seed=17)
+    out = eng.process_batch(*args)           # the capture
+    torch.cuda.synchronize()
+    st = recorder.counters(key, name)
+    assert st["captures"] == 1 and st["pool_bytes"] > 0
+    recorder.reset()
+    times, served = [], 0
+    for _ in range(3):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        out = eng.process_batch(*args)
+        end.record()
+        end.synchronize()
+        times.append(start.elapsed_time(end))
+        served += int(out[1].sum())
+    rows = recorder.stage_rows(key, name)
+    assert len(rows) == 3
+    for (call, ms), t in zip(rows, times):
+        assert call is None and list(ms) == list(BATCH_STAGES)
+        assert all(v > 0 for v in ms.values())
+        assert abs(sum(ms.values()) - t) <= 0.03 * t, (ms, t)
+    c = recorder.counters(key, name)
+    nbytes = [sum(x.numel() * x.element_size() for x in xs)
+              for xs in (args, out)]
+    assert c["calls"] == 3
+    assert c["bytes_in"] == 3 * nbytes[0] and c["bytes_out"] == 3 * nbytes[1]
+    assert c["frames"] == 3 * b
+    assert c["valid"] >= c["kept"] >= c["faces"] == served > 0
+    seq, = [p.sequence for p in recorder.programs(key, name)]
+    before = seq.buf.clone()
+    with torch.inference_mode():
+        eng.regress(args[0], out[2])
+        eng.detect_candidates(args[1], args[2])
+        eng.process_batch_eager(*args)
+    torch.cuda.synchronize()
+    assert torch.equal(seq.buf, before)
+    with torch.profiler.profile(activities=[
+            torch.profiler.ProfilerActivity.CPU,
+            torch.profiler.ProfilerActivity.CUDA]) as prof:
+        eng.process_batch(*args)
+        torch.cuda.synchronize()
+    import json
+    prof.export_chrome_trace(str(tmp_path / "trace.json"))
+    with open(tmp_path / "trace.json") as f:
+        events = json.load(f)["traceEvents"]
+    assert sum(e.get("cat") == "kernel" and "stage_stamp" in e["name"]
+               for e in events) == 8
+    names = {e.get("name") for e in events}
+    for span in ("synergy.process_batch", "synergy.copy_in",
+                 "synergy.replay", "synergy.clone_out"):
+        assert span in names
+    assert recorder.stage_rows(key, name)[-1][0] is not None
+
+
+@pytest.mark.gpu
 @pytest.mark.parametrize("hw", [(720, 1088), (480, 640), (1080, 1920)])
 def test_overlay_through_graphs_equals_eager_overlay(cuda, graph_engines, hw):
     """FusedOverlayEngine on the card (the engine's one-frame program, then

@@ -1,6 +1,7 @@
 """``core/profiling.py``: the device's busy time read out of a Chrome trace,
-a profiled window of calls, ``trace`` / ``annotate``, ``StageTimer``,
-``measure`` and ``device_memory_stats`` on the CPU."""
+a profiled window of calls, ``trace`` / ``annotate``, ``StageTimer`` and
+``device_memory_stats`` on the CPU; the recorder's spans, stage stamps and
+counters, alone and in the serving engine's CPU body."""
 
 import json
 import os
@@ -9,11 +10,14 @@ import time
 import pytest
 import torch
 
-from synergynet_tpu_torch.core.profiling import (StageTimer, annotate,
-                                                 device_busy,
+import numpy as np
+
+from synergynet_tpu_torch.core.profiling import (RING_ROWS, StageTimer,
+                                                 annotate, device_busy,
                                                  device_memory_stats,
-                                                 measure, profile_calls,
-                                                 trace)
+                                                 profile_calls, recorder,
+                                                 stage_done, tally, trace)
+from synergynet_tpu_torch.pipeline.program import ProgramCache
 
 torch.set_num_threads(2)
 
@@ -79,15 +83,6 @@ def test_stage_timer_on_the_host_clock():
             StageTimer()
 
 
-def test_measure_times_calls_after_warm_up():
-    calls = []
-    r = measure(lambda x, y=0: calls.append(x + y) or time.sleep(0.002),
-                1, iters=5, warmup=2, y=2)
-    assert calls == [3] * 7
-    assert 0.002 <= r["sec_per_call"] < 0.5
-    assert abs(r["calls_per_sec"] * r["sec_per_call"] - 1) < 1e-9
-
-
 def test_trace_writes_annotated_spans(tmp_path):
     with trace(str(tmp_path)) as prof:
         with annotate("my_span"):
@@ -97,3 +92,266 @@ def test_trace_writes_annotated_spans(tmp_path):
         events = json.load(f)["traceEvents"]
     assert any(e.get("name") == "my_span" for e in events)
     assert device_memory_stats("cpu") == {}
+
+
+# -- spans --------------------------------------------------------------------
+
+def _cpu_profiler():
+    return torch.profiler.profile(
+        activities=[torch.profiler.ProfilerActivity.CPU])
+
+
+def test_span_without_a_profiler_records_nothing(monkeypatch):
+    """With no profiler running a span is the shared null context: no
+    ``record_function``, no record, no call number."""
+    recorder.reset()
+
+    def no_record_function(name):
+        raise AssertionError(f"record_function({name!r}) entered")
+
+    monkeypatch.setattr(torch.autograd.profiler, "record_function",
+                        no_record_function)
+    monkeypatch.setattr(torch.profiler, "record_function",
+                        no_record_function)
+    with annotate("synergy.outer"):
+        with annotate("synergy.inner"):
+            pass
+    assert annotate("synergy.outer") is annotate("synergy.inner")
+    assert recorder.spans() == []
+    assert recorder.current_call() is None
+
+
+def test_spans_under_a_profiler_nest_and_share_their_call(tmp_path):
+    recorder.reset()
+    with trace(str(tmp_path)) as prof:
+        for _ in range(2):
+            with annotate("synergy.outer"):
+                with annotate("synergy.mid"):
+                    with annotate("synergy.inner"):
+                        torch.ones(8, 8) @ torch.ones(8, 8)
+                with annotate("synergy.after"):
+                    pass
+    spans = recorder.spans()
+    assert [s.name for s in spans] == [
+        "synergy.inner", "synergy.mid", "synergy.after",
+        "synergy.outer"] * 2
+    first, second = spans[:4], spans[4:]
+    assert {s.call for s in first} == {1} and {s.call for s in second} == {2}
+    by = {s.name: s for s in first}
+    assert by["synergy.inner"].parent == "synergy.mid"
+    assert by["synergy.mid"].parent == "synergy.outer"
+    assert by["synergy.after"].parent == "synergy.outer"
+    assert by["synergy.outer"].parent is None
+    for s in first:
+        assert by["synergy.outer"].start_ns <= s.start_ns <= s.end_ns <= \
+            by["synergy.outer"].end_ns
+    with open(prof.trace_path) as f:
+        names = [e.get("name") for e in json.load(f)["traceEvents"]]
+    for name in ("synergy.outer", "synergy.mid", "synergy.inner",
+                 "synergy.after"):
+        assert names.count(name) == 2
+    assert recorder.current_call() is None
+
+
+def test_set_up_span_is_recorded_without_a_profiler():
+    recorder.reset()
+    with recorder.setup_span("synergy.capture"):
+        time.sleep(0.002)
+    s, = recorder.spans()
+    assert s.name == "synergy.capture" and s.call is None
+    assert s.parent is None
+    assert s.end_ns - s.start_ns >= 2_000_000
+
+
+# -- stage stamps and counters of a synthetic program -------------------------
+
+STAGES = ("copy_in", "a", "b", "clone_out")
+
+
+def _body(x):
+    stage_done("a")
+    tally(lambda: ((x > 0).sum(),))
+    stage_done("b")
+    return (x + 1,)
+
+
+def _cache():
+    return ProgramCache(torch.device("cpu"), "test")
+
+
+def _run(cache, key, x):
+    return cache.run(key, _body, x, stages=STAGES, tallies=("n",))
+
+
+def _record(cache, key):
+    st, = recorder.programs(key, cache.engine)
+    return st
+
+
+@pytest.mark.parametrize("n", [1, RING_ROWS, RING_ROWS + 1])
+def test_stage_ring_wraps(n):
+    """After ``n`` calls the ring holds the last ``min(n, 64)`` rows in
+    order: each row's stamps lie inside its own call and rise."""
+    key = f"test.wrap{n}"
+    recorder.reset()
+    cache = _cache()
+    bounds = []
+    for _ in range(n):
+        t0 = time.perf_counter_ns()
+        _run(cache, key, torch.ones(3))
+        bounds.append((t0, time.perf_counter_ns()))
+    seq = _record(cache, key).sequence
+    rows, tallies = seq.read()
+    assert len(rows) == min(n, RING_ROWS) and seq.done_rows == n
+    assert int(seq.row) == n and tallies == [3 * n]
+    for (call, stamps), (t0, t1) in zip(rows, bounds[n - len(rows):]):
+        assert call is None
+        assert len(stamps) == len(STAGES) + 1
+        assert t0 <= stamps[0] and stamps[-1] <= t1
+        assert stamps == sorted(stamps)
+    ms = recorder.stage_rows(key)
+    assert len(ms) == len(rows) and list(ms[0][1]) == list(STAGES)
+
+
+def test_stage_ms_takes_the_rows_of_given_calls():
+    key = "test.calls"
+    recorder.reset()
+    cache = _cache()
+    _run(cache, key, torch.ones(2))         # no profiler: no call number
+    with _cpu_profiler():
+        for _ in range(3):
+            with annotate("synergy.call"):
+                _run(cache, key, torch.ones(2))
+    rows = recorder.stage_rows(key)
+    assert [c for c, _ in rows] == [None, 1, 2, 3]
+    assert recorder.stage_ms(key, calls={2, 3}) == {
+        s: pytest.approx(np.median([rows[2][1][s], rows[3][1][s]]))
+        for s in STAGES}
+    assert recorder.stage_ms(key, last=1) == rows[3][1]
+    assert recorder.stage_ms(key, calls={9}) is None
+    assert recorder.stage_ms("test.never") is None
+    assert recorder.counters("test.never") is None
+
+
+def test_stage_outside_a_stamped_body_stamps_nothing():
+    """A body called directly stamps nothing and never computes its
+    tallies."""
+    key = "test.outside"
+    recorder.reset()
+    cache = _cache()
+    _run(cache, key, torch.ones(2))
+    seq = _record(cache, key).sequence
+    before = seq.buf.clone()
+    _body(torch.ones(2))
+    stage_done("a")
+    tally(lambda: pytest.fail("tallies computed outside a stamped body"))
+    assert torch.equal(seq.buf, before) and seq.done_rows == 1
+
+
+def test_each_engine_keeps_its_own_program_record():
+    """Two engines serving one key stamp their own rings; counters sum
+    over them or narrow to one engine."""
+    key = "test.engines"
+    recorder.reset()
+    one, two = _cache(), _cache()
+    assert one.engine != two.engine
+    _run(one, key, torch.ones(2))
+    for _ in range(2):
+        _run(two, key, torch.ones(4))
+    assert _record(one, key).sequence.read()[1] == [2]
+    assert _record(two, key).sequence.read()[1] == [8]
+    assert len(recorder.stage_rows(key, one.engine)) == 1
+    assert len(recorder.stage_rows(key)) == 3
+    assert recorder.counters(key, two.engine)["calls"] == 2
+    both = recorder.counters(key)
+    assert both["calls"] == 3 and both["n"] == 10 and both["frames"] == 10
+    assert recorder.counters(key, "test#0") is None
+    for dev, n in (("cuda:0", 2), ("cuda:1", 3)):
+        st = recorder.program("test.devices", f"test#{n}", dev)
+        st.calls, st.bytes_in = n, 10 * n
+    assert st.device == "cuda:1"
+    assert recorder.counters("test.devices", "test#3")["calls"] == 3
+    assert recorder.counters("test.devices")["bytes_in"] == 50
+
+
+def test_tally_needs_one_value_per_name():
+    recorder.reset()
+    cache = _cache()
+    with pytest.raises(ValueError, match="tallies"):
+        cache.run("test.tallies", _body, torch.ones(2), stages=STAGES,
+                  tallies=("n", "m"))
+
+
+# -- the serving engine's CPU body --------------------------------------------
+
+@pytest.fixture(scope="module")
+def cpu_engine():
+    from synergynet_tpu_torch.detect.detector import (FaceBoxes,
+                                                      random_init_variables)
+    from synergynet_tpu_torch.pipeline import (FusedFrameEngine,
+                                               SynergyNet3DMM)
+    api = SynergyNet3DMM(variables="trained", device="cpu")
+    det = FaceBoxes(random_init_variables(0), device="cpu")
+    return FusedFrameEngine(api, detector=det, max_faces=2)
+
+
+def _frames(b, seed):
+    from synergynet_tpu_torch.detect.detector import prepare_frame
+    rng = np.random.default_rng(seed)
+    packs = [prepare_frame(rng.integers(0, 256, (720, 1088, 3), np.uint8),
+                           8, "cpu") for _ in range(b)]
+    return tuple(torch.stack([p[i] for p in packs]) for i in range(3))
+
+
+def test_process_batch_stamps_one_whole_row(cpu_engine):
+    """A CPU ``process_batch`` call runs ``process_batch_eager`` under its
+    program, which leaves one row of eight stamps in order."""
+    from synergynet_tpu_torch.pipeline.api import BATCH_STAGES
+    recorder.reset()
+    t0 = time.perf_counter_ns()
+    cpu_engine.process_batch(*_frames(1, 3))
+    t1 = time.perf_counter_ns()
+    seq = _record(cpu_engine.programs, "process_batch.b1").sequence
+    assert seq.stages == BATCH_STAGES
+    (call, stamps), = seq.read()[0]
+    assert len(stamps) == 8 and stamps == sorted(stamps)
+    assert t0 <= stamps[0] and stamps[-1] <= t1
+    (_, ms), = recorder.stage_rows("process_batch.b1",
+                                   cpu_engine.programs.engine)
+    assert list(ms) == list(BATCH_STAGES)
+    assert ms["detect"] > 0 and ms["regress"] > 0
+
+
+def test_a_stage_called_alone_leaves_the_ring(cpu_engine):
+    """A direct ``regress`` (or detect or select, or the whole eager body)
+    call stamps and tallies nothing."""
+    frames, s2d, hws = _frames(1, 4)
+    out = cpu_engine.process_batch(frames, s2d, hws)
+    seq = _record(cpu_engine.programs, "process_batch.b1").sequence
+    before, done = seq.buf.clone(), seq.done_rows
+    with torch.inference_mode():
+        cpu_engine.regress(frames, out[2])
+        scores, boxes = cpu_engine.detect_candidates(s2d, hws)
+        cpu_engine.select_faces(scores, boxes)
+        cpu_engine.process_batch_eager(frames, s2d, hws)
+    assert torch.equal(seq.buf, before) and seq.done_rows == done
+
+
+def test_counters_after_two_calls(cpu_engine):
+    """frames = 2B, valid >= kept >= faces = the faces served, and the
+    bytes in and out are the inputs' and outputs' sizes."""
+    recorder.reset()
+    b = 2
+    served, nbytes = 0, [0, 0]
+    for seed in (5, 6):
+        args = _frames(b, seed)
+        out = cpu_engine.process_batch(*args)
+        served += int(out[1].sum())
+        for i, xs in enumerate((args, out)):
+            nbytes[i] += sum(x.numel() * x.element_size() for x in xs)
+    c = recorder.counters(f"process_batch.b{b}", cpu_engine.programs.engine)
+    assert c["calls"] == 2 and c["frames"] == 2 * b
+    assert c["valid"] >= c["kept"] >= c["faces"] == served > 0
+    assert [c["bytes_in"], c["bytes_out"]] == nbytes
+    assert c["captures"] == 0
+    assert recorder.stage_rows(f"process_batch.b{b}")[-1][0] is None

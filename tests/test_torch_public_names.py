@@ -45,8 +45,10 @@ NOT_PORTED = {
     # by design: jax.sharding's types; the port's shardings are
     # core.mesh.Sharding descriptors over a torch.distributed mesh
     "parallel": {"NamedSharding", "P"},
-    # by design: the TPU compile-cache fingerprint
-    "core": {"enable_compile_cache"},
+    # by design: the TPU compile-cache fingerprint; and ``measure``, which
+    # nothing read: the port's serving path measures itself (the spans,
+    # stage stamps and counters of ``core.profiling.recorder``)
+    "core": {"enable_compile_cache", "measure"},
     # by design: the TPU binning and replication machinery and the
     # fragment window of the host z-buffer fallback
     "render": {"replication_for", "window_for"},
