@@ -10,8 +10,8 @@ each fatal on failure:
 1. the card: ``nvidia-smi`` name and power limit;
 2. build every kernel of the serving, overlay, fused-stem and deferred
    paths from ``synergynet_tpu_torch/csrc`` (nvcc, sm_90a, one nvcc per
-   source, all started together), greedy NMS's N1 included, and print the
-   build seconds and ptxas resource lines;
+   source, all started together), greedy NMS's N1 and the crop's C1
+   included, and print the build seconds and ptxas resource lines;
 3. each kernel against its plain PyTorch twin on the card, at its path's
    shapes, with kernel and plain times (CUDA events, L2 flushed between
    launches, as the path finds it cold):
@@ -39,7 +39,7 @@ each fatal on failure:
    finite values, landmarks equal to the dense mesh at the keypoint
    vertices, and the dense mesh against the plain twin on the path's own
    param62; every kernel's launch count over these calls (and only these)
-   must be > 0, N1's too. On the card each call replays its batch size's
+   must be > 0, N1's and C1's too. On the card each call replays its batch size's
    captured program, whose replays credit the launches recorded at
    capture. Then the same calls and checks on a second engine whose
    detector runs the fused stem (``stem_mode="pallas"``), with the stem
@@ -171,7 +171,10 @@ each fatal on failure:
    ``greedy_nms_mask`` and this tree's on these candidates, in turns
    (parent, this, this, parent), each ``chip_smoke.py --nms-worker`` in a
    process of its own; ``select_faces``' split (sort, N1,
-   the rest); the overlay through the graphs equal to the eager overlay at
+   the rest); kernel C1 (the face crop) on the path's own rois at 128
+   frames x 8 faces and at 1 frame: taps equal to its twin's, crops
+   within 1e-4 of the twin on the card, its time (median of 20, L2
+   flushed) against the twin's and its bound; the overlay through the graphs equal to the eager overlay at
    720x1088, 480x640 and 1080x1920; ms per call graph and eager in turns
    at 1 and 128 frames for both stems and ms per overlay frame; copy-in,
    replay and clone-out costs and each program's pool bytes; and one
@@ -179,7 +182,7 @@ each fatal on failure:
    whose kernel launches must equal the credited counters (with the
    replays' device busy time and idle share).
 
-Prints the kernels as one JSON line (B1-B4 and N1, each with its
+Prints the kernels as one JSON line (B1-B4, N1 and C1, each with its
 launches on its path,
 error against its twin, kernel, plain and library ms, and the least time
 the card could take, from this run's shapes; each kernel's ``ms`` is the
@@ -208,7 +211,8 @@ OVERLAY_FRAMES = ((720, 1088), (480, 640), (1080, 1920))
 RTOL, ATOL = 1e-4, 1e-3     # the dense decode's tolerance (f32)
 STEM_TOL = dict(rtol=1.6e-2, atol=1e-5)     # bf16's own tolerance
 DEVICE = "cuda:0"
-KERNELS = ("fused_decode", "raster_tiled", "stem_s2d8", "nms_greedy")
+KERNELS = ("fused_decode", "raster_tiled", "stem_s2d8", "nms_greedy",
+           "crop_bilinear")
 # Published H100 SXM peaks (dense): HBM bytes/s, bf16 tensor-core and f32
 # (outside the tensor cores) FLOP/s, and TF32 tensor-core FLOP/s (NVIDIA's
 # H100 SXM data sheet, dense TF32).
@@ -2218,6 +2222,7 @@ OVERLAY_REPS = 10
 # Kernel-name fragments in a profiler trace, per launch counter.
 TRACE_NAMES = {"B1 fused_decode": "decode_kernel",
                "N1 nms_greedy": "nms_tile_walk_kernel",
+               "C1 crop_bilinear": "crop_bilinear_kernel",
                "B4 stem_s2d8": "stem_kernel",
                "B2 raster_tiled": "resolve_mesh_kernel"}
 
@@ -2310,6 +2315,62 @@ def nms_ab(parent_dir, card):
             for b, t in turn.items() if b != "package")), card)
 
 
+# C1 and its twin round every product and sum once, in the same order
+# (tests/test_torch_gpu.py's CROP_ATOL): a few float32 ulps at 255.
+C1_ATOL = 1e-4
+# C1's least traffic a face: the 120 x 120 x 3 f32 crop written once and
+# the roi read once (the source taps left out); operations: four taps a
+# value, each a multiply and an add, and the weights of each output row
+# and column (perfbench/counts/crop.py).
+C1_BYTES_A_FACE = 120 * 120 * 3 * 4 + 4 * 4
+C1_FLOPS_A_FACE = 120 * 120 * 3 * 4 * 2 + 4 * 120 * 4
+
+
+def c1_checks(torch, dev, card, eng, frames, frames_s2d, hws):
+    """Kernel C1 on the serving path's own rois (``process_batch``'s, 8 a
+    frame) at 128 frames and at 1: its taps equal the twin's, its crops
+    within ``C1_ATOL`` of the twin's on the card (and whether bit for bit),
+    its time (min / median / max of 20 L2-flushed runs on the device
+    clock) against the twin's and the bound."""
+    from synergynet_tpu_torch.pipeline.device_crop import (
+        crop_resize_bilinear, crop_resize_reference, crop_taps)
+    flush = torch.empty(256 * 2 ** 20, dtype=torch.uint8, device=dev)
+    res = {}
+    for b in (BATCH, 1):
+        img = frames[:b]
+        with torch.inference_mode():
+            rois = eng.process_batch(img, frames_s2d[:b], hws[:b])[2]
+            got = crop_resize_bilinear(img, rois)
+            want = crop_resize_reference(img, rois)
+            idx, f = crop_taps(rois, img.shape[1:3])
+        torch.cuda.synchronize()
+        widx, wf = crop_taps(rois.cpu(), img.shape[1:3])
+        if not (torch.equal(idx.cpu(), widx) and torch.equal(f.cpu(), wf)):
+            fail(f"phase 14 C1 B={b}: its taps differ from the twin's")
+        err = float((got - want).abs().max())
+        if err > C1_ATOL:
+            fail(f"phase 14 C1 B={b}: crops differ from the twin by {err}")
+        spread = time_spread(lambda: crop_resize_bilinear(img, rois), 20,
+                             torch, flush.zero_)
+        plain = time_ms(lambda: crop_resize_reference(img, rois),
+                        3 if b > 1 else 10, torch, flush.zero_)
+        faces = rois.shape[0] * rois.shape[1]
+        bnd, by = bound(faces * C1_BYTES_A_FACE, faces * C1_FLOPS_A_FACE,
+                        F32_FLOPS)
+        res[str(b)] = {"faces": faces, "max_abs_err": err,
+                       "bit_for_bit": bool(torch.equal(got, want)),
+                       "ms": spread[1], "ms_min": spread[0],
+                       "ms_max": spread[2], "plain_ms": plain,
+                       "bound_ms": bnd, "bound_by": by}
+        log(f"phase 14 C1 B={b} ({faces} faces of the path's rois): taps = "
+            f"twin's, crops within {err:.3g} of the twin (bit for bit: "
+            f"{res[str(b)]['bit_for_bit']}) | kernel min/median/max "
+            f"{spread[0]:.4f} / {spread[1]:.4f} / {spread[2]:.4f} ms over 20 "
+            f"(L2 flushed) | twin {plain:.4f} ms | bound {bnd:.4f} ms ({by}) "
+            f"| {bnd / spread[1]:.3f} of bound | {card}")
+    return res
+
+
 def trace_kernel_counts(path, names):
     """Kernel launches per name fragment in a Chrome trace."""
     with open(path) as f:
@@ -2337,6 +2398,7 @@ def programs_phase(torch, dev, card, eng, eng_p, ov, frames, frames_s2d, hws,
     from synergynet_tpu_torch.ops.fused_decode import decode_dense_fused
     from synergynet_tpu_torch.ops.resize import _resize_linear
     from synergynet_tpu_torch.pipeline import unpack_face_outputs
+    from synergynet_tpu_torch.pipeline.device_crop import crop_resize_bilinear
     from synergynet_tpu_torch.render import rasterize_mesh
     from tests.nms_cases import CASES, THRESHOLD, nms_case
     t_phase = time.perf_counter()
@@ -2502,6 +2564,9 @@ def programs_phase(torch, dev, card, eng, eng_p, ov, frames, frames_s2d, hws,
                 f"{whole - sort - nms:.3f}; CUDA events, mean of 10) | {card}")
     out["select_split_ms"] = split
 
+    # -- 14e. C1 against its twin, its time and its bound ---------------------
+    out["c1"] = c1_checks(torch, dev, card, eng, frames, frames_s2d, hws)
+
     # -- 14f. the overlay through the graphs equals the eager overlay ---------
     def eager_overlay(img):
         canvas, packed, true_hw, scale = prepare_frame(img, 8, dev)
@@ -2597,6 +2662,7 @@ def programs_phase(torch, dev, card, eng, eng_p, ov, frames, frames_s2d, hws,
     # -- 14i. one profiler pass: trace counts against credited counters -------
     counters = {"B1 fused_decode": (decode_dense_fused, "launches"),
                 "N1 nms_greedy": (greedy_nms_mask, "launches"),
+                "C1 crop_bilinear": (crop_resize_bilinear, "launches"),
                 "B4 stem_s2d8": (fused_stem1_s2d8, "launches"),
                 "B2 raster_tiled": (rasterize_mesh, "launches")}
     a = (frames, frames_s2d, hws)
@@ -2682,6 +2748,7 @@ def main():
     from synergynet_tpu_torch.detect.detector import random_init_variables
     from synergynet_tpu_torch.detect.net import space_to_depth
     from synergynet_tpu_torch.detect.nms import greedy_nms_mask
+    from synergynet_tpu_torch.pipeline.device_crop import crop_resize_bilinear
     from synergynet_tpu_torch.detect.stem_fused import (
         fused_stem1_s2d8, fused_stem1_s2d8_reference)
     from synergynet_tpu_torch.mm3d import rescale_to_roi
@@ -2968,6 +3035,7 @@ def main():
     # capture.
     decode_dense_fused.launches = 0
     greedy_nms_mask.launches = 0
+    crop_resize_bilinear.launches = 0
     t0 = time.perf_counter()
     frames_np = {hw: np.random.default_rng(1).integers(0, 256, (*hw, 3),
                                                        np.uint8)
@@ -2985,12 +3053,16 @@ def main():
     torch.cuda.synchronize()
     launches = decode_dense_fused.launches
     n1_launches = greedy_nms_mask.launches
+    c1_launches = crop_resize_bilinear.launches
     log(f"main path: fused_decode launched {launches} times, nms_greedy "
-        f"{n1_launches} times (__call__ x2, process_batch x1)")
+        f"{n1_launches} times, crop_bilinear {c1_launches} times (__call__ "
+        f"x2, process_batch x1)")
     if launches <= 0:
         fail("the serving path never launched the fused_decode kernel")
     if n1_launches <= 0:
         fail("the serving path never launched the nms_greedy kernel")
+    if c1_launches <= 0:
+        fail("the serving path never launched the crop_bilinear kernel")
     peak_gb = torch.cuda.max_memory_allocated() / 2 ** 30
     scores, n_faces, rois, p62, lmk, dense, angles, t3d = out
     want_shapes = [(BATCH, FACES), (BATCH,), (BATCH, FACES, 4),
@@ -3240,6 +3312,7 @@ def main():
     programs = programs_phase(torch, dev, card, eng, eng_p, ov, frames,
                               frames_s2d, hws, imgs)
     n1 = programs["n1"]
+    c1 = programs["c1"]
     n1_turns = nms_ab(args.parent, card) if args.parent else None
 
     # -- 7. device profile (opt-in) -------------------------------------------
@@ -3436,7 +3509,29 @@ def main():
         "split_ms_b1": n1["1"]["split_cold"],
         "plain_ms_b1": n1["1"]["plain_ms"],
         "bound_ms_b1": n1["1"]["bound_ms"],
-        "bound_by_b1": n1["1"]["bound_by"]}],
+        "bound_by_b1": n1["1"]["bound_by"]}, {
+        "name": "crop_bilinear", "route": "cuda",
+        "source": "synergynet_tpu_torch/csrc/crop_bilinear.cu",
+        "replaces": "synergynet_tpu/pipeline/device_crop.py:26",
+        "note": "not a TPU kernel: the counterpart of crop_resize_bilinear's "
+        "four-tap gather, which XLA compiles; C1 replaces the port's two "
+        "dense f32 interpolation products",
+        "launches": c1_launches,
+        "max_abs_err": max(v["max_abs_err"] for v in c1.values()),
+        "ms": c1[str(BATCH)]["ms"], "plain_ms": c1[str(BATCH)]["plain_ms"],
+        "bound_ms": c1[str(BATCH)]["bound_ms"],
+        "bound_by": c1[str(BATCH)]["bound_by"], "library_ms": None,
+        "timing": spread_timing.split("; ms_entry")[0]
+        + "; plain_ms: the twin on the card, mean of 3 (B=1: 10); "
+        "bound_ms: the crops written and the rois read once over 3.35 "
+        "TB/s (the source taps left out), or the bilinear operations over "
+        "67 TFLOP/s, the larger",
+        "ms_min": c1[str(BATCH)]["ms_min"], "ms_max": c1[str(BATCH)]["ms_max"],
+        "faces": c1[str(BATCH)]["faces"], "ms_b1": c1["1"]["ms"],
+        "ms_min_b1": c1["1"]["ms_min"], "ms_max_b1": c1["1"]["ms_max"],
+        "plain_ms_b1": c1["1"]["plain_ms"],
+        "bound_ms_b1": c1["1"]["bound_ms"],
+        "bit_for_bit": all(v["bit_for_bit"] for v in c1.values())}],
         "e2e_faces_per_s": {str(b): v[1] for b, v in e2e.items()},
         "e2e_ms": {str(b): v[0] for b, v in e2e.items()},
         "e2e_fused_stem_ms": {str(b): v[0] for b, v in e2e_p.items()},

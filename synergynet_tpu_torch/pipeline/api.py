@@ -68,7 +68,7 @@ from synergynet_tpu_torch.nn.synergy import (SynergyNet,
 from synergynet_tpu_torch.ops.fused_decode import (build_decode_basis,
                                                    decode_dense_fused)
 from synergynet_tpu_torch.ops.resize import crop_resize_cv2
-from synergynet_tpu_torch.pipeline.device_crop import (crop_resize_matmul,
+from synergynet_tpu_torch.pipeline.device_crop import (crop_resize_bilinear,
                                                        square_rois)
 from synergynet_tpu_torch.pipeline.program import ProgramCache
 
@@ -254,7 +254,8 @@ class FusedFrameEngine:
         self._det_mean = self.detector.mean
         self.programs = ProgramCache(
             api.device, "frame",
-            kernels=("stem_s2d8", "nms_greedy", "fused_decode"))
+            kernels=("stem_s2d8", "nms_greedy", "crop_bilinear",
+                     "fused_decode"))
 
     def detect_candidates(self, frames_s2d: torch.Tensor,
                           true_hws: torch.Tensor
@@ -285,7 +286,7 @@ class FusedFrameEngine:
         """(B, CH, CW, 3) frames + (B, F, 4) rois -> param62 (B, F, 62),
         TF32 off for an f32 regressor."""
         b, f = rois.shape[:2]
-        crops = crop_resize_matmul(frames, rois, CROP)
+        crops = crop_resize_bilinear(frames, rois, CROP)
         stage_done("crop")
         xn = ((crops - 127.5) / 128.0).reshape(b * f, CROP, CROP, 3)
         with full_fp32_if(self.api.dtype):

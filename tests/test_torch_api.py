@@ -16,7 +16,9 @@ the JAX package, on the CPU, f32, on the same seeded inputs and weights.
   last-bit difference cannot flip the count;
 - ``select_detections`` and ``nms_indices`` exact, soft-NMS scores within
   1e-5, the gather and hybrid crops at the JAX package's own crop
-  tolerance.
+  tolerance; the plain twin of kernel C1 against JAX's four-tap gather on
+  whole-pixel, empty, negative, off-frame, up- and down-scaled and
+  batched rois (``BILINEAR_ATOL``), its taps equal to numpy float32's.
 """
 
 import jax
@@ -49,6 +51,7 @@ from synergynet_tpu_torch.mm3d import (crop_img, dewhiten, load_param_pack,
                                        square_box, whiten)
 from synergynet_tpu_torch.mm3d.crop import crop_rect
 from synergynet_tpu_torch.ops.resize import lanczos4_coefficients
+from synergynet_tpu_torch.pipeline.device_crop import crop_taps
 from synergynet_tpu_torch.pipeline import (MAX_FACES_PER_BATCH,
                                            SynergyNet3DMM,
                                            crop_resize_bilinear,
@@ -461,3 +464,72 @@ def test_crop_alternatives_match_jax_and_matmul(which):
     assert got.shape == (6, 32, 32, 3)
     np.testing.assert_allclose(got.numpy(), want, rtol=1e-5, atol=1e-3)
     assert fn is crop_resize_matmul        # one implementation, JAX names
+
+
+# Rois (B, N, 4) on (160, 224) frames, cropped to 120 x 120. Extents 24, 40,
+# 72, 120, 200 and 360 put many sample coordinates exactly on whole pixels.
+# JAX divides extent / 120 as a multiply by 1 / 120 (XLA), the twin and C1
+# correctly rounded; the two give different floors only at extents such as
+# 280, 312 and 344, which no case uses, so the taps agree. The extra rounding
+# moves a sample coordinate c < 512 by at most ~2 ulps (6e-5), and so a
+# weight: on 0-255 noise a value by at most 255 x 6e-5 per axis, ~0.03.
+# BILINEAR_ATOL sits above that and far below what a tap moved by one pixel
+# does to a value on noise (tens).
+BILINEAR_ATOL = 0.05
+BILINEAR_CASES = {
+    "integer_coordinates": [[[x, y, x + e, y + e] for x, y, e in (
+        (10, 20, 24), (30, 5, 40), (100, 60, 72), (50, 20, 120),
+        (0, 0, 200), (-60, -90, 360), (150.4, 100.6, 40))]],
+    "empty_and_negative_extents": [[
+        [50, 60, 50, 60], [80, 40, 70, 30], [100.4, 20, 100.6, 90],
+        [-10, -10, -30, -30], [223, 159, 223, 159], [300, 10, 250, 60],
+        [20, 30, 90, 20]]],
+    "off_frame": [[
+        [-200, -200, -100, -100], [300, 10, 400, 110], [10, 170, 110, 270],
+        [-50, -50, -1, -1], [-119.6, 40, 0.4, 160], [223.5, -10, 330, 90]]],
+    "up_and_down_scales": [[
+        [10, 10, 40, 40], [5, 5, 60, 65], [0, 0, 150, 150],
+        [20, 5, 219, 155], [-30, -40, 220, 210], [100, 100, 101, 102]]],
+    "batched": [[[10 + 20 * i + 7 * f, 15 * i - 5 * f, 70 + 30 * i + 7 * f,
+                  60 + 25 * i - 5 * f] for i in range(4)] for f in range(3)],
+}
+
+
+@pytest.mark.parametrize("case", sorted(BILINEAR_CASES))
+def test_crop_twin_matches_jax_bilinear(case):
+    """The plain twin of kernel C1 (the CPU path of crop_resize_bilinear)
+    against the JAX package's four-tap gather, frame by frame; at whole-
+    pixel sample coordinates its taps carry weight 0 on the second tap and
+    sit on the exact pixel."""
+    rois = np.asarray(BILINEAR_CASES[case], np.float32)
+    b = rois.shape[0]
+    rng = np.random.default_rng(len(case))
+    img = rng.uniform(0, 255, (b, 160, 224, 3)).astype(np.float32)
+    got = crop_resize_bilinear(torch.tensor(img), torch.tensor(rois))
+    assert got.shape == (*rois.shape[:2], 120, 120, 3)
+    for f in range(b):
+        want = np.asarray(jax_bilinear(jnp.asarray(img[f]),
+                                       jnp.asarray(rois[f])))
+        np.testing.assert_allclose(got[f].numpy(), want, rtol=0,
+                                   atol=BILINEAR_ATOL)
+    # The taps against the same arithmetic in numpy float32 (one rounding
+    # an operation), at every coordinate; on a whole-pixel coordinate the
+    # second tap's weight is 0.
+    idx, frac = crop_taps(torch.tensor(rois), (160, 224))
+    r = np.round(rois)
+    d = np.arange(120, dtype=np.float32) + np.float32(0.5)
+    whole = 0
+    for axis, (lo, size) in enumerate(((1, 160), (0, 224))):
+        start = r[..., lo, None]
+        ext = r[..., lo + 2, None] - start
+        top = np.maximum(ext - 1, 0)
+        c = np.minimum(np.maximum(d * (ext / np.float32(120)) - 0.5, 0), top)
+        c0 = np.floor(c)
+        taps = np.stack([c0, np.minimum(c0 + 1, top)], -1) + start[..., None]
+        np.testing.assert_array_equal(
+            idx[..., axis, :, :].numpy(),
+            np.where((taps >= 0) & (taps < size), taps, -1))
+        np.testing.assert_array_equal(frac[..., axis, :].numpy(), c - c0)
+        whole += int((c == c0).sum())
+    if case == "integer_coordinates":
+        assert whole > 600

@@ -1609,6 +1609,135 @@ def test_nms_kernel_rejects_what_it_does_not_take(cuda):
     assert int(keep.sum()) == 1
 
 
+# -- kernel C1: the face crop -------------------------------------------------
+
+# C1 and its twin round every product and sum once, in the same order, so
+# they should agree bit for bit; 1e-4 on 0-255 values (a few float32 ulps at
+# 255) admits rounding and nothing more, while a tap moved by one pixel moves
+# a value on noise by tens.
+CROP_ATOL = 1e-4
+
+
+def _crop_rois(rng, b, n, hw=(720, 1088)):
+    """(b, n, 4) f32 rois like the serving path's square rois, plus rows
+    that are padding (zeros), empty, negative, wholly off the frame, on
+    .5 pixels, or with whole-pixel sample coordinates (extents 40 and 360)."""
+    h, w = hw
+    side = rng.uniform(0, 500, (b, n))
+    cx = rng.uniform(-100, w + 100, (b, n))
+    cy = rng.uniform(-100, h + 100, (b, n))
+    rois = np.stack([cx - side / 2, cy - side / 2, cx + side / 2,
+                     cy + side / 2], -1)
+    special = [[0, 0, 0, 0], [300, 200, 300, 200], [500, 400, 480, 380],
+               [-900, -900, -500, -500], [w + 10, 5, w + 200, 195],
+               [100.5, 200.5, 260.5, 360.5], [40, 50, 80, 90],
+               [-100, -120, 260, 240]]
+    for i, r in enumerate(special[:n]):
+        rois[i % b, i] = r
+    return rois.astype(np.float32)
+
+
+# (frames, rois a frame, output side, channels): the serving path's two
+# shapes, then the scalar-store path (side x channels not a multiple of 4)
+# and one channel.
+C1_SHAPES = [(128, 8, 120, 3), (1, 8, 120, 3), (2, 5, 33, 3), (3, 4, 32, 1)]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("shape", C1_SHAPES, ids=lambda s: "x".join(map(
+    str, s)))
+def test_crop_kernel_matches_plain_twin(cuda, shape):
+    """C1's taps equal the twin's, and its crops the twin's within
+    CROP_ATOL, on 720x1088 noise frames; one launch a call."""
+    from synergynet_tpu_torch.pipeline.device_crop import (
+        crop_resize_bilinear, crop_resize_reference, crop_taps)
+    b, n, s, c = shape
+    rng = np.random.default_rng(b * 100 + s)
+    rois = torch.tensor(_crop_rois(rng, b, n), device=cuda)
+    g = torch.Generator(device=cuda).manual_seed(b)
+    frames = torch.rand((b, 720, 1088, c), generator=g, device=cuda) * 255
+    before = crop_resize_bilinear.launches
+    got = crop_resize_bilinear(frames, rois, s)
+    torch.cuda.synchronize()
+    assert crop_resize_bilinear.launches == before + 1
+    assert got.shape == (b, n, s, s, c) and got.dtype == torch.float32
+    idx, f = crop_taps(rois, (720, 1088), s)
+    want_idx, want_f = crop_taps(rois.cpu(), (720, 1088), s)
+    assert torch.equal(idx.cpu(), want_idx) and torch.equal(f.cpu(), want_f)
+    want = crop_resize_reference(frames, rois, s)
+    torch.testing.assert_close(got, want, rtol=0, atol=CROP_ATOL)
+    if b <= 2:                  # the twin on the card equals it on the CPU
+        assert torch.equal(want.cpu(), crop_resize_reference(
+            frames.cpu(), rois.cpu(), s))
+    # rois wholly off the frame along an axis crop to zeros
+    off = (idx < 0).all(-1).all(-1).any(-1)
+    assert bool(off.any())
+    assert int(got[off].abs().sum()) == 0
+
+
+@pytest.mark.gpu
+def test_crop_kernel_inside_a_captured_graph(cuda):
+    """C1 captured in a CUDA graph (after one eager call), replayed on new
+    frames and rois copied into the captured inputs: each replay equals the
+    twin on those inputs."""
+    from synergynet_tpu_torch.pipeline.device_crop import (
+        crop_resize_bilinear, crop_resize_reference)
+    rng = np.random.default_rng(7)
+    frames = torch.zeros((2, 720, 1088, 3), device=cuda)
+    rois = torch.tensor(_crop_rois(rng, 2, 8), device=cuda)
+    stream = torch.cuda.Stream()
+    stream.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(stream):
+        crop_resize_bilinear(frames, rois)
+    torch.cuda.current_stream().wait_stream(stream)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        out = crop_resize_bilinear(frames, rois)
+    for seed in (1, 2):
+        frames.copy_(torch.rand(frames.shape, device=cuda) * 255)
+        rois.copy_(torch.tensor(_crop_rois(np.random.default_rng(seed), 2,
+                                           8), device=cuda))
+        graph.replay()
+        torch.cuda.synchronize()
+        torch.testing.assert_close(out, crop_resize_reference(frames, rois),
+                                   rtol=0, atol=CROP_ATOL)
+
+
+@pytest.mark.gpu
+def test_crop_kernel_rejects_what_it_does_not_take(cuda):
+    from synergynet_tpu_torch.pipeline.device_crop import (
+        C1_MAX_SIZE, crop_resize_bilinear)
+    frames = torch.zeros((2, 64, 80, 3), device=cuda)
+    rois = torch.tensor(_crop_rois(np.random.default_rng(0), 2, 3, (64, 80)),
+                        device=cuda)
+    before = crop_resize_bilinear.launches
+    with pytest.raises(TypeError):
+        crop_resize_bilinear(frames.double(), rois)
+    with pytest.raises(TypeError):
+        crop_resize_bilinear(frames.half(), rois)
+    with pytest.raises(TypeError):
+        crop_resize_bilinear(frames, rois.double())
+    with pytest.raises(ValueError, match="contiguous"):
+        crop_resize_bilinear(frames.transpose(1, 2), rois)
+    with pytest.raises(ValueError, match="contiguous"):
+        crop_resize_bilinear(frames, rois.transpose(0, 1).contiguous()
+                             .transpose(0, 1))
+    with pytest.raises(ValueError):
+        crop_resize_bilinear(frames, rois.cpu())
+    with pytest.raises(ValueError):
+        crop_resize_bilinear(frames.cpu(), rois)
+    with pytest.raises(ValueError):
+        crop_resize_bilinear(frames, rois[:1])
+    for side in (0, C1_MAX_SIZE + 1):
+        with pytest.raises(ValueError, match="C1 takes"):
+            crop_resize_bilinear(frames, rois, side)
+    assert crop_resize_bilinear.launches == before
+    # At the cap it runs.
+    out = crop_resize_bilinear(frames, rois, C1_MAX_SIZE)
+    torch.cuda.synchronize()
+    assert out.shape == (2, 3, C1_MAX_SIZE, C1_MAX_SIZE, 3)
+
+
 def _engines_under_test(cuda):
     from synergynet_tpu_torch.detect import FaceBoxes
     from synergynet_tpu_torch.detect.detector import random_init_variables
@@ -1647,22 +1776,24 @@ def _batch(cuda, b, seed):
 def test_graph_replay_equals_eager_body(cuda, graph_engines, which, b):
     """process_batch on the card replays its batch size's captured program:
     its outputs equal the eager body's bit for bit, and the launch
-    counters credit one call's launches per replay."""
+    counters credit one call's launches per replay (the crop's C1 among
+    them)."""
     from synergynet_tpu_torch.detect.nms import greedy_nms_mask
     from synergynet_tpu_torch.detect.stem_fused import fused_stem1_s2d8
+    from synergynet_tpu_torch.pipeline.device_crop import crop_resize_bilinear
     eng = graph_engines[which]
     args = _batch(cuda, b, seed=b)
     want = eng.process_batch_eager(*args)
     before = (decode_dense_fused.launches, greedy_nms_mask.launches,
-              fused_stem1_s2d8.launches)
+              fused_stem1_s2d8.launches, crop_resize_bilinear.launches)
     got = eng.process_batch(*args)
     torch.cuda.synchronize()
     assert any(k[1][0][0] == (b, 720, 1088, 3)
                for k in eng.programs.programs)
     after = (decode_dense_fused.launches, greedy_nms_mask.launches,
-             fused_stem1_s2d8.launches)
+             fused_stem1_s2d8.launches, crop_resize_bilinear.launches)
     assert after == (before[0] + 1, before[1] + 1,
-                     before[2] + (which == "fused"))
+                     before[2] + (which == "fused"), before[3] + 1)
     assert int(got[1].sum()) > 0
     for g, w in zip(got, want):
         assert g.dtype == w.dtype and torch.equal(g, w)
