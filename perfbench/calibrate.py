@@ -40,12 +40,12 @@ def control_numbers(root: str, name: str, seed: int, device: str = "cuda",
     slots = [k % len(entry.ring) for k in sorted(sample)]
     canvas, hws = entry.canvases(slots)
     pack = P.pack_tensors(run.pack_arrays, run.device)
-    arch = run.cfg["regressor"]["arch"]
+    regressor = run.cfg["regressor"]
     anc = P.anchors(canvas.shape[1], canvas.shape[2], run.device)
     faces = {}
     with exact_f32(), torch.no_grad():
         for f0 in range(0, canvas.shape[0], 16):
-            part = P.serve(Precision("fp8"), arch, ref["detector"],
+            part = P.serve(Precision("fp8"), regressor, ref["detector"],
                            ref["regressor"], pack, canvas[f0:f0 + 16],
                            hws[f0:f0 + 16], run.cfg["max_faces"], anc)
             for k, v in part.items():
@@ -60,8 +60,8 @@ def control_numbers(root: str, name: str, seed: int, device: str = "cuda",
                 faces["dense"][i, :int(faces["n"][i])], pack["tri"],
                 faces["alpha"])[0], hws[i].tolist(), entry.ring[s].shape[:2])
                 for i, s in enumerate(slots)]
-    return judge(arch, ref["detector"], ref["regressor"], pack, canvas, hws,
-                 faces)
+    return judge(regressor, ref["detector"], ref["regressor"], pack, canvas,
+                 hws, faces)
 
 
 def main() -> int:

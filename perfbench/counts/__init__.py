@@ -10,18 +10,19 @@ model operations for a call.
 
 from __future__ import annotations
 
-import importlib
-
 
 def call_flops(cfg: dict, frames: int, faces: int) -> float:
     """The model's operations for ``frames`` canvases and ``faces``
-    faces: the detector on every canvas, then per face the bilinear crop,
-    the regressor at 120x120 and the landmark and dense decode."""
+    faces: the detector on every canvas, then per face the bilinear crop
+    and the regressor at the configuration's crop size (``regressor.crop``,
+    the regressor's ``counts/<arch>.py``) and the landmark and dense
+    decode."""
+    from perfbench import by_name
     from perfbench.counts import crop, decode, faceboxes
     h, w = cfg["canvas"]
-    reg = importlib.import_module(
-        f"perfbench.counts.{cfg['regressor']['arch']}")
+    size = cfg["regressor"]["crop"]
+    reg = by_name(__name__, cfg["regressor"]["arch"])
     return (frames * faceboxes.flops(h, w)
-            + faces * (crop.flops() + reg.flops(120)
+            + faces * (reg.flops(size) + crop.flops(size)
                        + decode.flops(1, decode.NVER)
                        + decode.flops(1, decode.N_LMK)))

@@ -77,27 +77,6 @@ class Entry:
             "dense": cat[5], "angles": cat[6], "t3d": cat[7]}
 
     @torch.inference_mode()
-    def stages(self, spans, repeats=5):
-        """Eager stage times on the first ring batch, CUDA events:
-        ``detect`` (``detect_candidates``) and ``regress`` (crop and
-        regressor on the call's own rois)."""
-        eng = self.engine
-        frames, s2d, hws = self.ring[0]
-        rois = self.call(0)[2]
-        for name, fn in (("detect", lambda: eng.detect_candidates(s2d, hws)),
-                         ("regress", lambda: eng.regress(frames, rois))):
-            fn()
-            for _ in range(repeats):
-                start = torch.cuda.Event(enable_timing=True)
-                end = torch.cuda.Event(enable_timing=True)
-                start.record()
-                fn()
-                end.record()
-                end.synchronize()
-                spans.setdefault(name, []).append(
-                    start.elapsed_time(end) / 1e3)
-
-    @torch.inference_mode()
     def trace_inputs(self, inputs):
         """``nms``: the work (``perfbench.counts.nms``) of each ring
         batch's own candidates: the program's eager ``detect_candidates``,

@@ -8,11 +8,26 @@ metric is a file found by its name:
   each reports;
 - ``perfbench/workloads/<cell>.json``: the cell's configuration, entry,
   traffic and the limits of its check;
-- ``perfbench/configs/<config>.json``: the configuration as it is run;
+- ``perfbench/configs/<config>.json``: the configuration as it is run,
+  its regressor's architecture (``regressor.arch``) and crop size
+  (``regressor.crop``) among it;
+- ``perfbench/reference/regressors/<arch>.py``: the plain reference net
+  of a regressor architecture and the leaves of its seeded tree;
+- ``perfbench/counts/<arch>.py``: ``flops(s)``, the architecture's
+  operations on an s x s crop;
 - ``perfbench/entries/<entry>.py``: how a call is made and its outputs
   read (:class:`Entry`);
 - ``perfbench/metrics/<metric>.py``: ``read(rec)`` -> the metric's value,
   or None where the run has nothing for it to read.
+
+So a model configuration is added as new files and entries alone: its
+configuration file, for an architecture the benchmark lacks its
+``reference/regressors/<arch>.py`` and ``counts/<arch>.py``, a workload
+file for each of its cells, and their entries under ``configs`` and
+``workloads`` in ``BENCHMARK.json`` (with the cells added to the
+``workloads`` of the metrics they report). Everything that crops, or
+counts a crop, reads the configuration's ``regressor.crop``; the program
+is given it too.
 """
 
 from __future__ import annotations
@@ -210,7 +225,8 @@ def run_cell(root: str, name: str, seed: int, seconds: float, trace: bool,
         rec.trace = traced_window(
             torch, entry.call, traffic["trace_calls"],
             os.path.join(root, "build", "perfbench", f"trace-{name}.json"))
-        entry.stages(rec.spans)
+        if hasattr(entry, "stages"):
+            entry.stages(rec.spans)
         if hasattr(entry, "trace_inputs"):
             entry.trace_inputs(rec.inputs)
         device_info["busy_s"] = rec.trace["busy_s"]
@@ -232,7 +248,7 @@ def run_cell(root: str, name: str, seed: int, seconds: float, trace: bool,
     if kept:
         canvas, hws, faces = entry.judge_inputs([kept[i] for i in
                                                  sorted(kept)])
-        numbers = judge(cfg["regressor"]["arch"], ref_trees["detector"],
+        numbers = judge(cfg["regressor"], ref_trees["detector"],
                         ref_trees["regressor"],
                         pack_tensors(run.pack_arrays, dev), canvas, hws,
                         faces)

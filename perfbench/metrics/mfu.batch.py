@@ -1,8 +1,8 @@
 """The model's operations per call (``perfbench.counts.call_flops``: the
-detector on every canvas, the crop as bilinear taps, the regressor at
-120x120 and the landmark and dense decode of every face) over the wall
-time per call of the measured window, as a share of the card's bf16 peak,
-in %."""
+detector on every canvas, the crop as bilinear taps, the regressor at the
+configuration's crop size and the landmark and dense decode of every face)
+over the wall time per call of the measured window, as a share of the
+card's bf16 peak, in %."""
 
 from perfbench.counts import call_flops
 from perfbench.peaks import BF16_FLOPS

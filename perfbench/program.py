@@ -8,17 +8,29 @@ and lays them out itself.
 
 from __future__ import annotations
 
+import inspect
+
 import torch
 
 DTYPES = {"bfloat16": torch.bfloat16, "float32": torch.float32}
+# The crop size of a program whose API takes none.
+FIXED_CROP = 120
 
 
 def build(cfg: dict, trees: dict, pack_arrays: dict, device):
-    """-> the configuration's ``FusedFrameEngine`` on ``device``."""
+    """-> the configuration's ``FusedFrameEngine`` on ``device``, given the
+    configuration's crop size (``regressor.crop``). A program whose
+    ``SynergyNet3DMM`` takes no ``crop`` serves ``FIXED_CROP`` only, and
+    another size raises."""
     from synergynet_tpu_torch.detect import FaceBoxes
     from synergynet_tpu_torch.mm3d.assets import pack_from_arrays
     from synergynet_tpu_torch.pipeline import (FusedFrameEngine,
                                                SynergyNet3DMM)
+    crop = cfg["regressor"]["crop"]
+    takes_crop = "crop" in inspect.signature(SynergyNet3DMM).parameters
+    if not takes_crop and crop != FIXED_CROP:
+        raise ValueError(f"the program crops at {FIXED_CROP} pixels only; "
+                         f"the configuration asks for {crop}")
     dtype = DTYPES[cfg["dtype"]]
     det_cfg = cfg["detector"]
     det = FaceBoxes(variables=trees["detector"], dtype=dtype,
@@ -26,7 +38,8 @@ def build(cfg: dict, trees: dict, pack_arrays: dict, device):
                     device=device)
     api = SynergyNet3DMM(cfg["regressor"]["arch"], trees["regressor"],
                          pack_from_arrays(pack_arrays), det, dtype,
-                         device=device)
+                         device=device,
+                         **({"crop": crop} if takes_crop else {}))
     return FusedFrameEngine(api, detector=det, max_faces=cfg["max_faces"])
 
 

@@ -116,10 +116,12 @@ def _wrap(deg):
     return (deg + 180.0) % 360.0 - 180.0
 
 
-def judge(arch: str, det: dict, reg: dict, pack: dict,
+def judge(regressor: dict, det: dict, reg: dict, pack: dict,
           canvas: torch.Tensor, true_hw: torch.Tensor,
           faces: Dict[str, torch.Tensor]) -> Dict[str, float]:
-    """The numbers for served ``faces`` of (B, 720, 1088, 3) canvases."""
+    """The numbers for served ``faces`` of (B, 720, 1088, 3) canvases;
+    ``regressor`` is the configuration's regressor entry (its ``arch``
+    and ``crop``), ``reg`` its tree."""
     p = Precision("f32")
     anc = P.anchors(canvas.shape[1], canvas.shape[2], canvas.device)
     out = {"logit_gap": 0.0, "roi_err": 0.0, "param_err": 0.0,
@@ -132,8 +134,9 @@ def judge(arch: str, det: dict, reg: dict, pack: dict,
             part = {k: v[sl] for k, v in faces.items()
                     if k in ("n", "rois", "param", "lmk", "dense", "angles",
                              "t3d")}
-            for k, v in _judge_frames(p, arch, det, reg, pack, canvas[sl],
-                                      true_hw[sl], part, anc).items():
+            for k, v in _judge_frames(p, regressor, det, reg, pack,
+                                      canvas[sl], true_hw[sl], part,
+                                      anc).items():
                 out[k] = max(out[k], v)
     return out
 
@@ -153,7 +156,8 @@ def overlay_err(p, pack, canvas, true_hw, faces) -> float:
     return 100.0 * bad / max(drawn, 1)
 
 
-def _judge_frames(p, arch, det, reg, pack, canvas, true_hw, faces, anc):
+def _judge_frames(p, regressor, det, reg, pack, canvas, true_hw, faces,
+                  anc):
     c = P.candidates(p, det, canvas, true_hw, anc)
     logit, boxes, valid = c["logit"], c["boxes"], c["valid"]
     rois = P.square_rois(boxes)
@@ -182,7 +186,7 @@ def _judge_frames(p, arch, det, reg, pack, canvas, true_hw, faces, anc):
 
     roi = ((served_rois - rois[rows, m]).abs() - 1).clamp(min=0).amax(-1)
     roi = roi / anchor[m]
-    param = P.regress(p, arch, reg, canvas, served_rois)
+    param = P.regress(p, regressor, reg, canvas, served_rois)
     perr = (faces["param"] - param).norm(dim=-1) / param.norm(dim=-1)
     geom, pose = zero.clone(), zero.clone()
     for i in range(b):

@@ -1,4 +1,6 @@
-"""The three networks of the served pipeline, plainly, on flax-layout trees.
+"""The detector of the served pipeline, plainly, on flax-layout trees, and
+the helpers that the regressors (:mod:`perfbench.reference.regressors`,
+one module an architecture) share.
 
 A tree is a nested dict of tensors under the flax module names, each
 BatchNorm holding ``scale``, ``bias``, ``mean`` and ``var`` together
@@ -10,12 +12,9 @@ NCHW inside, NHWC at the entries.
   repository's ``FaceBoxes/models/faceboxes.py``): the unfolded net, a
   7x7/4 CReLU conv, BatchNorm as its own step, so the folding into the
   served stem is worked out again, not taken.
-- MobileNetV2 1.0 (Sandler et al. 2018, arXiv:1801.04381; the reference's
-  ``backbone_nets/mobilenetv2_backbone.py``) with the 12/40/10 head.
-- ResNeSt-50 (Zhang et al. 2020, arXiv:2004.08955; the reference's
-  ``backbone_nets/ResNeSt/resnest.py``): deep stem of width 32, radix 2,
-  cardinality 1, bottleneck width 64, ``avg_down``, ``avd`` after the
-  split attention.
+- The regressors' shared parts: :func:`conv`, :func:`bn`, the 12/40/10
+  parameter :func:`head`, and the leaf specs of a convolution, a
+  BatchNorm, the head and SynergyNet's landmark-refinement MLPs.
 
 :func:`leaf_specs` lists every leaf a configuration's trees hold, with its
 shape and kind, for the benchmark to draw seeded weights from.
@@ -28,14 +27,10 @@ from typing import Dict, List, Tuple
 import torch
 import torch.nn.functional as F
 
+from perfbench.reference import regressors
 from perfbench.reference.precision import Precision
 
 EPS = 1e-5
-MBV2_SETTING = ((1, 16, 1, 1), (6, 24, 2, 2), (6, 32, 3, 2), (6, 64, 4, 2),
-                (6, 96, 3, 1), (6, 160, 3, 2), (6, 320, 1, 1))
-RESNEST50_LAYERS = (3, 4, 6, 3)
-RADIX = 2
-STEM_WIDTH = 32
 HEAD = (("fc_pose", 12), ("fc_shape", 40), ("fc_exp", 10))
 
 # FaceBoxes: (module, kernel, cin, cout, stride, pad, crelu)
@@ -147,77 +142,6 @@ def faceboxes(p: Precision, t: dict, x_nhwc: torch.Tensor):
     return torch.cat(locs, 1), torch.cat(confs, 1)
 
 
-# -- MobileNetV2 --------------------------------------------------------------
-
-def _cbr6(p, node, x, stride=1):
-    return torch.clamp(bn(node["BatchNorm_0"],
-                          conv(p, node["Conv_0"], x, stride)), 0.0, 6.0)
-
-
-def mobilenet_v2(p: Precision, t: dict, x_nhwc: torch.Tensor):
-    """Normalized (B, 120, 120, 3) crops -> (B, 62) parameters."""
-    x = _cbr6(p, t["ConvBNReLU6_0"], x_nhwc.permute(0, 3, 1, 2), 2)
-    i, cin = 0, 32
-    for e, c, n, s in MBV2_SETTING:
-        for r in range(n):
-            node = t[f"InvertedResidual_{i}"]
-            stride = s if r == 0 else 1
-            y, j = x, 0
-            if e != 1:
-                y, j = _cbr6(p, node["ConvBNReLU6_0"], y), 1
-            y = _cbr6(p, node[f"ConvBNReLU6_{j}"], y, stride)
-            y = bn(node["BatchNorm_0"], conv(p, node["Conv_0"], y))
-            x = x + y if stride == 1 and cin == c else y
-            cin, i = c, i + 1
-    x = _cbr6(p, t["ConvBNReLU6_1"], x)
-    return head(p, t["ParamHead_0"], x.mean(dim=(2, 3)))
-
-
-# -- ResNeSt-50 ---------------------------------------------------------------
-
-def _splat(p, node, x):
-    y = F.relu(bn(node["BatchNorm_0"], conv(p, node["Conv_0"], x)))
-    b, ch, h, w = y.shape
-    split = y.reshape(b, RADIX, ch // RADIX, h, w)
-    gap = split.sum(1).mean(dim=(2, 3), keepdim=True)
-    gap = F.relu(bn(node["BatchNorm_1"], conv(p, node["Conv_1"], gap)))
-    att = conv(p, node["Conv_2"], gap).reshape(b, 1, RADIX, ch // RADIX)
-    att = torch.softmax(att, dim=2).transpose(1, 2).reshape(
-        b, RADIX, ch // RADIX, 1, 1)
-    return (split * att).sum(1)
-
-
-def resnest50(p: Precision, t: dict, x_nhwc: torch.Tensor):
-    """Normalized (B, 120, 120, 3) crops -> (B, 62) parameters."""
-    x = x_nhwc.permute(0, 3, 1, 2)
-    for i in range(3):
-        x = F.relu(bn(t[f"BatchNorm_{i}"],
-                      conv(p, t[f"Conv_{i}"], x, 2 if i == 0 else 1)))
-    x = F.max_pool2d(x, 3, 2, 1)
-    k, cin = 0, 2 * STEM_WIDTH
-    for stage, n in enumerate(RESNEST50_LAYERS):
-        planes = 64 * 2 ** stage
-        for i in range(n):
-            node = t[f"ResNeStBottleneck_{k}"]
-            stride = 2 if stage > 0 and i == 0 else 1
-            y = F.relu(bn(node["BatchNorm_0"], conv(p, node["Conv_0"], x)))
-            y = _splat(p, node["SplAtConv2d_0"], y)
-            if stride > 1:
-                y = F.avg_pool2d(y, 3, stride, 1, count_include_pad=True)
-            y = bn(node["BatchNorm_1"], conv(p, node["Conv_1"], y))
-            if stride != 1 or cin != 4 * planes:
-                if stride != 1:
-                    x = F.avg_pool2d(x, stride, stride, ceil_mode=True,
-                                     count_include_pad=False)
-                x = bn(node["BatchNorm_2"], conv(p, node["Conv_2"], x))
-            x = F.relu(x + y)
-            cin, k = 4 * planes, k + 1
-    return head(p, t["ParamHead_0"], x.mean(dim=(2, 3)))
-
-
-REGRESSORS = {"mobilenet_v2": mobilenet_v2, "resnest50": resnest50}
-
-
 # -- leaf specs, for seeded weights -------------------------------------------
 
 Spec = List[Tuple[str, Tuple[str, ...], Tuple[int, ...], str]]
@@ -257,42 +181,6 @@ def _head_spec(out: Spec, path, cin):
         out.append(("params", path + (name, "bias"), (n,), "bias"))
 
 
-def resnest50_spec() -> Spec:
-    out: Spec = []
-    root = ("backbone",)
-    cin = 3
-    for i, c in enumerate((STEM_WIDTH, STEM_WIDTH, 2 * STEM_WIDTH)):
-        _conv_leaf(out, root + (f"Conv_{i}",), 3, cin, c)
-        _bn_leaves(out, root + (f"BatchNorm_{i}",), c)
-        cin = c
-    k = 0
-    for stage, n in enumerate(RESNEST50_LAYERS):
-        planes = 64 * 2 ** stage
-        for i in range(n):
-            stride = 2 if stage > 0 and i == 0 else 1
-            b = root + (f"ResNeStBottleneck_{k}",)
-            s = b + ("SplAtConv2d_0",)
-            inter = max(planes * RADIX // 4, 32)
-            _conv_leaf(out, b + ("Conv_0",), 1, cin, planes)
-            _bn_leaves(out, b + ("BatchNorm_0",), planes)
-            _conv_leaf(out, s + ("Conv_0",), 3, planes // RADIX,
-                       planes * RADIX)
-            _bn_leaves(out, s + ("BatchNorm_0",), planes * RADIX)
-            _conv_leaf(out, s + ("Conv_1",), 1, planes, inter, bias=True)
-            _bn_leaves(out, s + ("BatchNorm_1",), inter)
-            _conv_leaf(out, s + ("Conv_2",), 1, inter, planes * RADIX,
-                       bias=True)
-            _conv_leaf(out, b + ("Conv_1",), 1, planes, 4 * planes)
-            _bn_leaves(out, b + ("BatchNorm_1",), 4 * planes,
-                       "bn_scale_residual")
-            if stride != 1 or cin != 4 * planes:
-                _conv_leaf(out, b + ("Conv_2",), 1, cin, 4 * planes)
-                _bn_leaves(out, b + ("BatchNorm_2",), 4 * planes)
-            cin, k = 4 * planes, k + 1
-    _head_spec(out, root + ("ParamHead_0",), cin)
-    return out
-
-
 def synergy_mlp_spec(feat_dim: int) -> Spec:
     """The landmark-refinement MLPs every SynergyNet tree carries
     (``forward_direction``, ``reverse_direction``). Serving never runs
@@ -325,8 +213,9 @@ def synergy_mlp_spec(feat_dim: int) -> Spec:
 
 def leaf_specs(arch: str) -> Dict[str, Spec]:
     """The seeded trees of a configuration: ``detector`` always,
-    ``regressor`` where the configuration draws its regressor."""
+    ``regressor`` where the regressor module of ``arch`` draws one."""
     out = {"detector": faceboxes_spec()}
-    if arch == "resnest50":
-        out["regressor"] = resnest50_spec() + synergy_mlp_spec(2048)
+    reg = regressors.load(arch).spec()
+    if reg is not None:
+        out["regressor"] = reg
     return out

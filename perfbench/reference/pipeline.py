@@ -8,6 +8,13 @@ its anchors and +1-pixel IoU, ``utils/inference.py``'s crop and
 ``utils/inference.py::predict_pose``) at the served constants: a 720x1088
 canvas, scores above 0.05 inside the frame, the 2,048 best into NMS at
 0.3, kept faces above 0.5.
+
+Two sizes are apart. A face is cropped at the configuration's
+``regressor.crop`` (S x S pixels, the regressor's input: 120 for the
+reference's nets, other sizes for other architectures), given here as
+``regressor``, the configuration's regressor entry. ``STD`` is the 3DMM's
+own 120-pixel parameter space: the decode and the pose scale the
+regressed camera from it to the roi, whatever the crop's size.
 """
 
 from __future__ import annotations
@@ -18,7 +25,8 @@ from typing import Dict, Tuple
 import numpy as np
 import torch
 
-from perfbench.reference.nets import REGRESSORS, faceboxes
+from perfbench.reference import regressors
+from perfbench.reference.nets import faceboxes
 from perfbench.reference.precision import Precision
 
 CANVAS = (720, 1088)
@@ -28,8 +36,7 @@ CONF_T, NMS_T, VIS_T, TOP_K = 0.05, 0.3, 0.5, 2048
 STEPS = (32, 64, 128)
 MIN_SIZES = ((32, 64, 128), (256,), (512,))
 DENSE = {32: (0.0, 0.25, 0.5, 0.75), 64: (0.0, 0.5)}
-CROP = 120
-STD = 120
+STD = 120                 # the 3DMM's parameter space, not the crop
 
 
 def fit_scale(h: int, w: int) -> float:
@@ -176,25 +183,26 @@ def square_rois(boxes: torch.Tensor) -> torch.Tensor:
     return torch.stack([cx - m, cy - m, cx + m, cy + m], -1)
 
 
-def crop(canvas: torch.Tensor, rois: torch.Tensor) -> torch.Tensor:
-    """``cv2.resize(crop_img(img, roi), (120, 120), INTER_LINEAR)`` as a
-    four-tap gather: (H, W, 3) canvas, (N, 4) rois -> (N, 120, 120, 3).
+def crop(canvas: torch.Tensor, rois: torch.Tensor, size: int
+         ) -> torch.Tensor:
+    """``cv2.resize(crop_img(img, roi), (size, size), INTER_LINEAR)`` as a
+    four-tap gather: (H, W, 3) canvas, (N, 4) rois -> (N, size, size, 3).
     Rois round to whole pixels; samples outside the image are zero."""
     h, w = canvas.shape[:2]
     r = torch.round(rois)
-    d = torch.arange(CROP, dtype=torch.float32, device=canvas.device) + 0.5
+    d = torch.arange(size, dtype=torch.float32, device=canvas.device) + 0.5
 
-    def taps(start, extent, size):
+    def taps(start, extent, limit):
         hi = (extent - 1).clamp(min=0)[:, None]
-        c = torch.minimum((d * (extent / CROP)[:, None] - 0.5).clamp(min=0),
+        c = torch.minimum((d * (extent / size)[:, None] - 0.5).clamp(min=0),
                           hi)
         c0 = torch.floor(c)
         i0 = (c0 + start[:, None]).long()
         i1 = (torch.minimum(c0 + 1, hi) + start[:, None]).long()
         f = c - c0
-        ok0 = (i0 >= 0) & (i0 < size)
-        ok1 = (i1 >= 0) & (i1 < size)
-        return (i0.clamp(0, size - 1), i1.clamp(0, size - 1),
+        ok0 = (i0 >= 0) & (i0 < limit)
+        ok1 = (i1 >= 0) & (i1 < limit)
+        return (i0.clamp(0, limit - 1), i1.clamp(0, limit - 1),
                 (1 - f) * ok0, f * ok1)
 
     y0, y1, wy0, wy1 = taps(r[:, 1], r[:, 3] - r[:, 1], h)
@@ -207,13 +215,16 @@ def crop(canvas: torch.Tensor, rois: torch.Tensor) -> torch.Tensor:
     return out
 
 
-def regress(p: Precision, arch: str, reg: dict, canvases: torch.Tensor,
-            rois: torch.Tensor, chunk: int = 512) -> torch.Tensor:
+def regress(p: Precision, regressor: dict, reg: dict,
+            canvases: torch.Tensor, rois: torch.Tensor, chunk: int = 512
+            ) -> torch.Tensor:
     """(B, H, W, 3) canvases + (B, N, 4) rois -> (B, N, 62) whitened
-    parameters."""
-    net = REGRESSORS[arch]
+    parameters: crops at ``regressor["crop"]`` through the reference net
+    of ``regressor["arch"]`` with the tree ``reg``."""
+    net = regressors.load(regressor["arch"]).forward
     b, n = rois.shape[:2]
-    x = torch.cat([crop(canvases[f], rois[f]) for f in range(b)])
+    x = torch.cat([crop(canvases[f], rois[f], regressor["crop"])
+                   for f in range(b)])
     out = [net(p, reg, (x[i:i + chunk] - 127.5) / 128.0)
            for i in range(0, b * n, chunk)]
     return torch.cat(out or [x.new_zeros((0, 62))]).reshape(b, n, 62)
@@ -288,7 +299,7 @@ def pack_tensors(arrays: Dict[str, np.ndarray], device) -> Dict:
                                 device=device).contiguous()}
 
 
-def serve(p: Precision, arch: str, det: dict, reg: dict, pack: dict,
+def serve(p: Precision, regressor: dict, det: dict, reg: dict, pack: dict,
           canvas: torch.Tensor, true_hw: torch.Tensor, max_faces: int,
           anc: torch.Tensor) -> Dict[str, torch.Tensor]:
     """The whole pipeline on (B, 720, 1088, 3) canvases, the served
@@ -304,7 +315,7 @@ def serve(p: Precision, arch: str, det: dict, reg: dict, pack: dict,
     rois = square_rois(torch.gather(boxes, 1,
                                     pick[..., None].expand(-1, -1, 4)))
     b, f = rois.shape[:2]
-    param = regress(p, arch, reg, canvas, rois)
+    param = regress(p, regressor, reg, canvas, rois)
     lmk, dense, angles, t3d = decode(p, pack, param.reshape(-1, 62),
                                      rois.reshape(-1, 4))
     return {"n": n, "rois": rois, "param": param,

@@ -1,8 +1,11 @@
 """The work counts, by hand at small shapes and pinned at the cells'."""
 
+import os
+
 import pytest
 import torch
 
+from perfbench import harness
 from perfbench.counts import (call_flops, conv, crop, decode, faceboxes,
                               mobilenet_v2, nms, raster, resnest50, stem)
 
@@ -42,7 +45,9 @@ def test_decode_by_hand_and_at_1024_faces():
 
 def test_crop_is_bilinear_taps():
     assert crop.flops(2, 1) == 2 * 2 * 4 * 2 + 4 * 2 * 4
-    assert crop.flops() == 347_520
+    assert crop.flops(120) == 347_520
+    assert crop.nbytes(2, 1) == 2 * 2 * 4 + 4 * 4
+    assert crop.nbytes(120) == 172_816
 
 
 def test_nms_work_by_hand():
@@ -61,9 +66,24 @@ def test_raster_by_hand():
 
 
 def test_model_flops_of_a_call():
-    cfg = {"canvas": [720, 1088], "regressor": {"arch": "mobilenet_v2"}}
-    per_face = (crop.flops() + mobilenet_v2.flops(120)
+    cfg = {"canvas": [720, 1088],
+           "regressor": {"arch": "mobilenet_v2", "crop": 120}}
+    per_face = (crop.flops(120) + mobilenet_v2.flops(120)
                 + decode.flops(1, decode.NVER) + decode.flops(1, 68))
     assert call_flops(cfg, 128, 1024) == 128 * faceboxes.flops(720, 1088) \
         + 1024 * per_face
     assert faceboxes.flops(720, 1088) == pytest.approx(1.425e9, rel=1e-3)
+
+
+@pytest.mark.parametrize("config,flops", [
+    ("synergy_mbv2", 391_378_615_296),
+    ("synergy_resnest50", 3_553_748_401_152)])
+def test_call_flops_of_the_configurations_pinned(config, flops):
+    """The operations of a 128-frame call with 1,024 faces that
+    ``mfu.batch`` divides by, as they stood before the crop size was read
+    from the configuration."""
+    root = os.path.dirname(os.path.dirname(os.path.dirname(
+        os.path.abspath(__file__))))
+    cfg = harness.read_json(os.path.join(root, "perfbench", "configs",
+                                         f"{config}.json"))
+    assert call_flops(cfg, 128, 1024) == flops

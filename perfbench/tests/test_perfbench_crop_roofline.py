@@ -18,7 +18,8 @@ C1 = "void (anonymous namespace)::crop_bilinear_kernel<true>(float const*)"
 def _rec(per_op_s, calls=10):
     return SimpleNamespace(trace={"per_op_s": per_op_s, "calls": calls},
                            traffic={"frames_per_call": 128},
-                           cfg={"max_faces": 8})
+                           cfg={"max_faces": 8,
+                                "regressor": {"crop": 120}})
 
 
 def test_crop_roofline_is_the_bytes_bound_over_the_kernel_time():

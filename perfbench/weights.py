@@ -34,7 +34,7 @@ from typing import Dict, Tuple
 import numpy as np
 import torch
 
-from perfbench.reference import nets
+from perfbench.reference import nets, regressors
 from perfbench.reference import pipeline as P
 from perfbench.reference.nets import leaf_specs, merge
 from perfbench.reference.precision import Precision, exact_f32
@@ -90,7 +90,8 @@ def _mark(tree: dict) -> None:
 def calibrate(arch: str, tree: dict, x: torch.Tensor) -> None:
     """Set every running statistic of a drawn ``tree`` from a pass of the
     reference over ``x`` (see the module doc), in place: canvases for the
-    detector (``arch`` "faceboxes"), normalized crops for a regressor."""
+    detector (``arch`` "faceboxes"), normalized crops for a regressor
+    (``arch`` its architecture)."""
     ref = merge(tree["params"], tree["batch_stats"])
     _mark(ref)
     p = Precision("f32")
@@ -99,7 +100,7 @@ def calibrate(arch: str, tree: dict, x: torch.Tensor) -> None:
             nets.faceboxes(p, ref, x - torch.tensor(P.BGR_MEAN,
                                                     device=x.device))
         else:
-            y = nets.REGRESSORS[arch](p, ref["backbone"], x)
+            y = regressors.load(arch).forward(p, ref["backbone"], x)
             rms = (y * y).mean(0).sqrt()
             head = tree["params"]["backbone"]["ParamHead_0"]
             at = 0
@@ -119,8 +120,10 @@ def calibrate(arch: str, tree: dict, x: torch.Tensor) -> None:
     copy(tree["batch_stats"], ref)
 
 
-def _service_crops(det_tree: dict, canvases: torch.Tensor, per_frame=32):
-    """The reference's normalized crops of the detector's best boxes."""
+def _service_crops(det_tree: dict, canvases: torch.Tensor, size: int,
+                   per_frame=32):
+    """The reference's normalized ``size`` x ``size`` crops of the
+    detector's best boxes."""
     det = merge(det_tree["params"], det_tree["batch_stats"])
     hw = torch.tensor([canvases.shape[1:3]] * len(canvases),
                       device=canvases.device)
@@ -130,7 +133,7 @@ def _service_crops(det_tree: dict, canvases: torch.Tensor, per_frame=32):
             canvases.shape[1], canvases.shape[2], canvases.device))
         _, boxes, _ = P.top_candidates(c, per_frame)
         rois = P.square_rois(boxes)
-        crops = torch.cat([P.crop(canvases[i], rois[i])
+        crops = torch.cat([P.crop(canvases[i], rois[i], size)
                            for i in range(len(canvases))])
     return (crops - 127.5) / 128.0
 
@@ -168,9 +171,11 @@ def configuration_weights(cfg: dict, root: str, seed: int, device
     calibrate("faceboxes", trees["detector"], canvases)
     src = cfg["regressor"]["weights"]
     if src == "seeded":
+        if "regressor" not in specs:
+            raise ValueError(f"regressor {arch!r} draws no seeded tree")
         trees["regressor"] = draw(specs["regressor"], stream(seed, 2), device)
-        calibrate(arch, trees["regressor"],
-                  _service_crops(trees["detector"], canvases))
+        calibrate(arch, trees["regressor"], _service_crops(
+            trees["detector"], canvases, cfg["regressor"]["crop"]))
     else:
         trees["regressor"] = read_npz(f"{root}/{src}", device)
     ref = {"detector": merge(trees["detector"]["params"],
