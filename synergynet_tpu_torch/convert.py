@@ -7,13 +7,15 @@ key is its flax path joined by dots with the leaf renamed:
 - ``kernel`` (conv, HWIO) -> ``weight`` (OIHW); a depthwise ``(3, 3, 1, C)``
   kernel becomes ``(C, 1, 3, 3)`` by the same transpose;
 - ``kernel`` (Dense, ``(in, out)``) -> ``weight`` (Linear, ``(out, in)``);
-- BatchNorm ``scale`` / ``bias`` / ``mean`` / ``var`` -> ``weight`` /
-  ``bias`` / ``running_mean`` / ``running_var``.
+- BatchNorm and LayerNorm ``scale`` / ``bias`` and BatchNorm ``mean`` /
+  ``var`` -> ``weight`` / ``bias`` / ``running_mean`` / ``running_var``;
+- a Vision Transformer's learned embeddings ``cls`` (1, 1, D) and
+  ``pos_embedding`` (1, T, D) keep their names and layouts.
 
 Leaves may be numpy arrays or anything ``np.asarray`` reads (the JAX
 package's trees); this module never imports jax. :func:`flax_from_state_dict`
 goes back, from the port's tensors to a flax-shaped numpy tree (the rank of
-a ``weight`` tells a conv (4), a dense (2) and a BatchNorm scale (1) apart).
+a ``weight`` tells a conv (4), a dense (2) and a norm's scale (1) apart).
 """
 
 from __future__ import annotations
@@ -24,6 +26,7 @@ import numpy as np
 import torch
 
 _STATS = {"mean": "running_mean", "var": "running_var"}
+EMBEDDINGS = ("cls", "pos_embedding")
 
 
 def _walk(tree: dict, prefix: Tuple[str, ...] = ()
@@ -44,8 +47,8 @@ def _param_leaf(name: str, arr: np.ndarray) -> Tuple[str, np.ndarray]:
         raise ValueError(f"kernel of rank {arr.ndim} has no torch layout")
     if name == "scale":
         return "weight", arr
-    if name == "bias":
-        return "bias", arr
+    if name == "bias" or name in EMBEDDINGS:
+        return name, arr
     raise ValueError(f"unknown flax param leaf {name!r}")
 
 
@@ -101,8 +104,8 @@ def flax_from_state_dict(state: Dict[str, torch.Tensor]) -> dict:
             _put(out["params"], path + ["kernel"], arr.T.copy())
         elif leaf == "weight" and arr.ndim == 1:
             _put(out["params"], path + ["scale"], arr)
-        elif leaf == "bias":
-            _put(out["params"], path + ["bias"], arr)
+        elif leaf == "bias" or leaf in EMBEDDINGS:
+            _put(out["params"], path + [leaf], arr)
         else:
             raise ValueError(f"no flax leaf for {key!r} {tuple(arr.shape)}")
     return out

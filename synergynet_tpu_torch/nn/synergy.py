@@ -37,9 +37,11 @@ LOSS_WEIGHTS = {       # reference model_building.py:146-155
 
 
 class SynergyNet(nn.Module):
-    """``forward((B, 120, 120, 3) normalized NHWC)`` -> ``((B, 62) params,
-    (B, C) feat)``, both fp32. ``dropout`` is the head's train-mode rate;
-    its masks come from the ``generator`` passed to ``forward``."""
+    """``forward((B, S, S, 3) normalized NHWC)`` -> ``((B, 62) params,
+    (B, C) feat)``, both fp32; S is 120 as SynergyNet ships, or the side
+    the backbone fixes (``backbone.input_size``, a Vision Transformer's).
+    ``dropout`` is the head's train-mode rate; its masks come from the
+    ``generator`` passed to ``forward``."""
 
     def __init__(self, arch: str = "mobilenet_v2",
                  dtype: torch.dtype = torch.float32, dropout: float = 0.2,
@@ -79,9 +81,14 @@ def init_synergy_(model: nn.Module, generator: torch.Generator
     deviations, rescaled to variance 1 / fan_in), biases zero, BatchNorm
     scale 1 (0 where the module sets ``zero_init``, as flax's
     ``scale_init=zeros`` in ResNet's blocks) and bias 0, running mean 0
-    and variance 1. In place; the draws
+    and variance 1; LayerNorm scale 1 and bias 0; a Vision Transformer's
+    class token 0 and position embedding normal with standard deviation
+    0.02, as the ViT paper's released code draws them. In place; the draws
     come from ``generator`` (on the parameters' device)."""
     for m in model.modules():
+        if hasattr(m, "pos_embedding"):
+            m.cls.zero_()
+            nn.init.normal_(m.pos_embedding, 0.0, 0.02, generator=generator)
         if isinstance(m, (nn.Conv2d, nn.Linear)):
             w = m.weight
             fan_in = w[0].numel()           # (in / groups) * kh * kw
@@ -90,6 +97,9 @@ def init_synergy_(model: nn.Module, generator: torch.Generator
                                   generator=generator)
             if m.bias is not None:
                 m.bias.zero_()
+        elif isinstance(m, nn.LayerNorm):
+            m.weight.fill_(1.0)
+            m.bias.zero_()
         elif hasattr(m, "running_var"):
             m.weight.fill_(0.0 if getattr(m, "zero_init", False) else 1.0)
             m.bias.zero_()

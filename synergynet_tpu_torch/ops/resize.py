@@ -163,7 +163,8 @@ def crop_resize_cv2(frame: torch.Tensor,
     [-255 (P N + N P), 255 (P^2 + N^2)], where P = 2780 and N = 732 are the
     largest positive and negative tap sums of a row over every ``fx``, so
     its magnitude stays below 255 (P^2 + N^2) = 2,107,377,120 < 2^31 - 1
-    for any uint8 input -- but only just."""
+    for any uint8 input -- but only just. The taps depend on ``fx`` alone,
+    so the bound holds at every output ``size``."""
     if interpolation not in INTERPOLATIONS:
         raise ValueError(f"interpolation {interpolation!r} not in "
                          f"{INTERPOLATIONS}")

@@ -3,7 +3,8 @@
 Counterpart of ``synergynet_tpu/pipeline/api.py``:
 
 - :class:`SynergyNet3DMM` holds the regressor, the 3DMM pack and the
-  coordinate-split dense basis on one device, and is the packaged
+  coordinate-split dense basis on one device, with the side its faces are
+  cropped at (``crop``: 120 as SynergyNet ships), and is the packaged
   two-stage API of the reference (``synergy3DMM.SynergyNet.get_all_outputs``,
   reference synergy3DMM.py:167-207): ``get_all_outputs`` squares each rect
   on the host, crops and resizes every face on the device with
@@ -62,7 +63,7 @@ from synergynet_tpu_torch.mm3d.codec import (decode_landmarks, full_fp32,
 from synergynet_tpu_torch.mm3d.crop import crop_rect, square_box
 from synergynet_tpu_torch.mm3d.pose import (pose_from_param,
                                             rescale_pose_to_roi)
-from synergynet_tpu_torch.nn.layers import cast_convs_
+from synergynet_tpu_torch.nn.layers import cast_layers_
 from synergynet_tpu_torch.nn.synergy import (SynergyNet,
                                              init_synergy_variables)
 from synergynet_tpu_torch.ops.fused_decode import (build_decode_basis,
@@ -72,7 +73,7 @@ from synergynet_tpu_torch.pipeline.device_crop import (crop_resize_bilinear,
                                                        square_rois)
 from synergynet_tpu_torch.pipeline.program import ProgramCache
 
-CROP = 120
+CROP = 120              # SynergyNet's crop side: the API's default
 MAX_FACES_PER_BATCH = 16
 # The device intervals of one process_batch call, between its eight stamps:
 # copy-in (and the graph's launch), detect, select (top-k sort, N1, keep),
@@ -83,27 +84,27 @@ BATCH_STAGES = ("copy_in", "detect", "select", "crop", "regress", "decode",
 TALLIES = ("valid", "kept", "faces")
 
 
-def _crops_on(frame: torch.Tensor, roi_boxes: Sequence,
-              interpolation: str) -> torch.Tensor:
-    """(H, W, 3) uint8 frame on its device + N roi boxes -> (N, 120, 120, 3)
-    uint8 on that device."""
-    return crop_resize_cv2(frame, [crop_rect(rb) for rb in roi_boxes], CROP,
+def _crops_on(frame: torch.Tensor, roi_boxes: Sequence, interpolation: str,
+              size: int = CROP) -> torch.Tensor:
+    """(H, W, 3) uint8 frame on its device + N roi boxes -> (N, size, size,
+    3) uint8 on that device."""
+    return crop_resize_cv2(frame, [crop_rect(rb) for rb in roi_boxes], size,
                            interpolation)
 
 
 def preprocess_crops(img_bgr: np.ndarray, roi_boxes: Sequence[np.ndarray],
-                     interpolation: str = "lanczos4", device="cuda"
-                     ) -> np.ndarray:
-    """Crop + resize every roi to a (N, 120, 120, 3) uint8 stack, equal bit
-    for bit to the JAX package's ``cv2.resize(crop_img(img, roi), (120,
-    120), interpolation=...)``: ``'lanczos4'`` (packaged API,
-    synergy3DMM.py:188) or ``'linear'`` (demo script, singleImage.py:77 --
-    quirk Q7). The frame is uploaded once and every face resampled in one
-    batched gather on ``device`` (the card unless the caller asks for the
-    CPU)."""
+                     interpolation: str = "lanczos4", device="cuda",
+                     size: int = CROP) -> np.ndarray:
+    """Crop + resize every roi to a (N, size, size, 3) uint8 stack, equal
+    bit for bit to ``cv2.resize(crop_img(img, roi), (size, size),
+    interpolation=...)`` (at 120 the JAX package's):
+    ``'lanczos4'`` (packaged API, synergy3DMM.py:188) or ``'linear'`` (demo
+    script, singleImage.py:77 -- quirk Q7). The frame is uploaded once and
+    every face resampled in one batched gather on ``device`` (the card
+    unless the caller asks for the CPU)."""
     frame = torch.from_numpy(np.ascontiguousarray(img_bgr, np.uint8)).to(
         resolve_device(device))
-    return _crops_on(frame, roi_boxes, interpolation).cpu().numpy()
+    return _crops_on(frame, roi_boxes, interpolation, size).cpu().numpy()
 
 
 class SynergyNet3DMM:
@@ -111,7 +112,7 @@ class SynergyNet3DMM:
     the caller asks for the CPU; raises when there is no card). Construct
     once; call :meth:`get_all_outputs` per image. The parameters bind
     positionally as the JAX class's, ``(arch, variables, pack, detector,
-    dtype, seed)``, with ``device`` after them.
+    dtype, seed)``, with ``device`` and ``crop`` after them.
 
     ``variables``: the string ``"trained"`` (the shipped full-recipe
     weights, ``arch="mobilenet_v2"`` only, as in the JAX package), a flax
@@ -126,7 +127,12 @@ class SynergyNet3DMM:
     their f32 products and convolutions in full f32, TF32 off, as the JAX
     package's API computes by default. ``detector``: the
     :class:`FaceBoxes` that :meth:`get_all_outputs` calls when given no
-    rects; built on first use on the same device when not given.
+    rects; built on first use on the same device when not given. ``crop``
+    (``self.crop``): the side every face is cropped at, by the host crops
+    and by :class:`FusedFrameEngine`; by default the side the backbone
+    fixes (``input_size``: a Vision Transformer's position embedding), else
+    ``CROP``. A ``crop`` that the backbone's fixed side does not match
+    raises a ``ValueError`` here.
     """
 
     def __init__(self, arch: str = "mobilenet_v2",
@@ -134,7 +140,7 @@ class SynergyNet3DMM:
                  pack: Optional[ParamPack] = None,
                  detector: Optional[FaceBoxes] = None,
                  dtype: torch.dtype = torch.float32, seed: int = 0,
-                 device="cuda"):
+                 device="cuda", crop: Optional[int] = None):
         self.device = resolve_device(device)
         if isinstance(variables, str):
             if variables != "trained":
@@ -144,12 +150,19 @@ class SynergyNet3DMM:
         self.dtype = dtype
         self.pack = pack if pack is not None else load_param_pack()
         model = SynergyNet(arch=arch, dtype=dtype)
+        fixed = getattr(model.backbone, "input_size", None)
+        if crop is None:
+            crop = CROP if fixed is None else fixed
+        elif fixed not in (None, crop):
+            raise ValueError(f"backbone {arch!r} takes {fixed} x {fixed} "
+                             f"crops; the API crops at {crop}")
+        self.crop = crop
         if variables is None:
             variables = init_synergy_variables(
                 model, torch.Generator().manual_seed(seed))
         else:
             model.load_state_dict(synergy_state_dict(variables))
-        cast_convs_(model, dtype)
+        cast_layers_(model, dtype)
         self.variables = variables
         self.model = model.to(self.device).eval()
         self.basis = build_decode_basis(self.pack).to(self.device)
@@ -180,7 +193,7 @@ class SynergyNet3DMM:
 
     @torch.inference_mode()
     def _process(self, crops: torch.Tensor, rois: torch.Tensor):
-        """(N, 120, 120, 3) uint8 crops + (N, 4) f32 rois on the device ->
+        """(N, crop, crop, 3) uint8 crops + (N, 4) f32 rois on the device ->
         (param62, lmk, dense, angles, t3d) tensors, run in chunks of
         ``MAX_FACES_PER_BATCH`` faces, TF32 off."""
         out = []
@@ -194,11 +207,15 @@ class SynergyNet3DMM:
         return [torch.cat(parts) for parts in zip(*out)]
 
     def process_crops(self, crops_u8, roi_boxes):
-        """Batched core: (N, 120, 120, 3) uint8 crops (numpy or a tensor) +
-        (N, 4+) roi boxes -> (param62, lmk, dense, angles, t3d) numpy arrays
-        with leading dim N, in the rois' image coordinates. At zero faces
-        the five arrays are empty with the contract's trailing shapes."""
+        """Batched core: (N, crop, crop, 3) uint8 crops (numpy or a tensor)
+        + (N, 4+) roi boxes -> (param62, lmk, dense, angles, t3d) numpy
+        arrays with leading dim N, in the rois' image coordinates. At zero
+        faces the five arrays are empty with the contract's trailing
+        shapes. Crops of another side raise."""
         n = len(crops_u8)
+        if n and tuple(crops_u8.shape[1:3]) != (self.crop, self.crop):
+            raise ValueError(f"crops of {tuple(crops_u8.shape[1:3])}; the "
+                             f"API crops at {self.crop}")
         if n == 0:
             return (np.zeros((0, 62), np.float32),
                     np.zeros((0, 3, N_LMK), np.float32),
@@ -225,7 +242,7 @@ class SynergyNet3DMM:
         roi_boxes = np.stack([square_box(r) for r in rects])
         frame = torch.from_numpy(np.ascontiguousarray(img_bgr, np.uint8)).to(
             self.device)
-        crops = _crops_on(frame, roi_boxes, interpolation)
+        crops = _crops_on(frame, roi_boxes, interpolation, self.crop)
         rois = torch.as_tensor(roi_boxes[:, :4].astype(np.float32),
                                device=self.device)
         _, lmk, dense, angles, t3d = (x.cpu().numpy() for x in
@@ -284,11 +301,13 @@ class FusedFrameEngine:
     def regress(self, frames: torch.Tensor, rois: torch.Tensor
                 ) -> torch.Tensor:
         """(B, CH, CW, 3) frames + (B, F, 4) rois -> param62 (B, F, 62),
-        TF32 off for an f32 regressor."""
+        the faces cropped at the api's ``crop``, TF32 off for an f32
+        regressor."""
         b, f = rois.shape[:2]
-        crops = crop_resize_bilinear(frames, rois, CROP)
+        size = self.api.crop
+        crops = crop_resize_bilinear(frames, rois, size)
         stage_done("crop")
-        xn = ((crops - 127.5) / 128.0).reshape(b * f, CROP, CROP, 3)
+        xn = ((crops - 127.5) / 128.0).reshape(b * f, size, size, 3)
         with full_fp32_if(self.api.dtype):
             param62, _ = self.api.model(xn)
         param62 = param62.float().reshape(b, f, -1)

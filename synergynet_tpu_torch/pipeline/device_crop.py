@@ -1,7 +1,8 @@
-"""On-device crop + bilinear resize: frames -> fixed 120x120 face crops.
+"""On-device crop + bilinear resize: frames -> S x S face crops (S 120 as
+SynergyNet ships, or the serving API's ``crop``, up to 512).
 
 Counterpart of ``synergynet_tpu/pipeline/device_crop.py``. The
-semantics are the host chain ``cv2.resize(crop_img(img, roi), 120x120,
+semantics are the host chain ``cv2.resize(crop_img(img, roi), S x S,
 INTER_LINEAR)``: rois round to integers like ``crop_img``, sample
 coordinates follow cv2's ``(dst + 0.5) * scale - 0.5`` rule and clamp at the
 crop border, and samples from outside the image are zero.

@@ -61,6 +61,7 @@ def launch_counters() -> Tuple[Tuple[object, str], ...]:
     """Every kernel wrapper's launch counter, as (holder, attribute)."""
     from synergynet_tpu_torch.detect.nms import greedy_nms_mask
     from synergynet_tpu_torch.detect.stem_fused import fused_stem1_s2d8
+    from synergynet_tpu_torch.nn.attention import attention
     from synergynet_tpu_torch.ops.fused_decode import decode_dense_fused
     from synergynet_tpu_torch.pipeline.device_crop import crop_resize_bilinear
     from synergynet_tpu_torch.render.raster_tiled import (rasterize_mesh,
@@ -70,6 +71,7 @@ def launch_counters() -> Tuple[Tuple[object, str], ...]:
             (fused_stem1_s2d8, "launches_f32"),
             (greedy_nms_mask, "launches"),
             (crop_resize_bilinear, "launches"),
+            (attention, "launches"),
             (rasterize_mesh, "launches"),
             (rasterize_mesh_ids, "launches"))
 

@@ -26,7 +26,7 @@ from synergynet_tpu_torch.convert import flax_from_state_dict, \
     state_dict_from_flax
 from synergynet_tpu_torch.nn import SynergyNet, available_backbones
 from synergynet_tpu_torch.nn.backbones import make_backbone
-from synergynet_tpu_torch.nn.layers import cast_convs_
+from synergynet_tpu_torch.nn.layers import cast_layers_
 
 torch.set_num_threads(2)
 
@@ -78,8 +78,10 @@ def crops(b=2, seed=0):
 
 
 def test_registry_equals_jax():
-    assert available_backbones() == jax_names()
-    assert len(available_backbones()) == 29
+    """The JAX registry's 29 names, and ViT-B/16, which the port alone
+    has."""
+    assert available_backbones() == sorted(jax_names() + ["vit_b16"])
+    assert len(available_backbones()) == 30
 
 
 @pytest.mark.parametrize("arch", jax_names())
@@ -134,7 +136,7 @@ def forward_weights():
 def test_forward_matches_jax(arch, kw, dtype, forward_weights):
     """Eval forward against ``apply(..., train=False)`` at 120x120, batch
     2. The bf16 model stores its convs in bf16 as serving does
-    (``cast_convs_``: kernels and biases rounded once, as flax rounds them
+    (``cast_layers_``: kernels and biases rounded once, as flax rounds them
     per call)."""
     variables = forward_weights(arch, kw)
     x = crops()
@@ -143,7 +145,7 @@ def test_forward_matches_jax(arch, kw, dtype, forward_weights):
         variables, jnp.asarray(x))
     tm = make_backbone(arch, dtype=getattr(torch, dtype), **kw)
     tm.load_state_dict(state_dict_from_flax(variables))
-    cast_convs_(tm, getattr(torch, dtype))
+    cast_layers_(tm, getattr(torch, dtype))
     with torch.no_grad():
         p, f = tm.eval()(torch.from_numpy(x))
     assert p.dtype == f.dtype == torch.float32

@@ -207,7 +207,7 @@ def test_positional_order_is_jax_with_device_after():
     names = list(inspect.signature(SynergyNet3DMM).parameters)
     assert jax_names == ["arch", "variables", "pack", "detector", "dtype",
                          "seed"]
-    assert names == jax_names + ["device"]
+    assert names == jax_names + ["device", "crop"]
 
 
 def test_positional_arch_builds_that_family():

@@ -1971,3 +1971,103 @@ def test_overlay_through_graphs_equals_eager_overlay(cuda, graph_engines, hw):
     assert np.array_equal(overlay, want.cpu().numpy())
     again = ov(img)[3]
     assert np.array_equal(again, overlay)
+
+
+# -- the Vision Transformer regressor ----------------------------------------
+
+# ViT-B/16 in bf16 against the float32 reference at the published widths:
+# bf16 rounds every GEMM operand, each block's output and the residual
+# stream at 2^-9 relative, which over 12 blocks reads a few % of the 62
+# parameters' norm; the same reference in fp8 e4m3 (2^-4) reads far more,
+# and must fall outside.
+VIT_REL = 0.08
+
+
+@pytest.mark.gpu
+def test_vit_b16_card_matches_the_f32_reference(cuda):
+    """``vit_b16`` at its published widths, bf16 on the card, against the
+    benchmark's plain float32 reference (TF32 off) on 16 seeded crops."""
+    from perfbench import weights
+    from perfbench.reference.nets import merge
+    from perfbench.reference.precision import Precision, exact_f32
+    from perfbench.reference.regressors import vit_b16 as ref
+    from synergynet_tpu_torch.convert import synergy_state_dict
+    from synergynet_tpu_torch.nn import SynergyNet
+    from synergynet_tpu_torch.nn.layers import cast_layers_
+    tree = weights.draw(ref.spec(), 11, cuda)
+    model = SynergyNet("vit_b16", dtype=torch.bfloat16)
+    model.load_state_dict(synergy_state_dict(weights.numpy_tree(tree)))
+    model = cast_layers_(model, torch.bfloat16).to(cuda).eval()
+    g = torch.Generator(device=cuda).manual_seed(0)
+    x = (torch.randint(0, 256, (16, 224, 224, 3), generator=g,
+                       device=cuda).float() - 127.5) / 128.0
+    t = merge(tree["params"], tree["batch_stats"])["backbone"]
+    with torch.no_grad():
+        got, feat = model(x)
+        with exact_f32():
+            want = ref.forward(Precision("f32"), t, x)
+            fp8 = ref.forward(Precision("fp8"), t, x)
+
+    def rel(a):
+        return ((a - want).norm(dim=-1) / want.norm(dim=-1)).max().item()
+
+    assert feat.shape == (16, 768) and got.dtype == torch.float32
+    assert rel(got) < VIT_REL < rel(fp8), (rel(got), rel(fp8))
+
+
+@pytest.mark.gpu
+def test_attention_runs_flash_attention_and_nothing_else(cuda):
+    """The attention function on the card launches FlashAttention's forward
+    kernel (the name the benchmark reads) and no math-backend GEMM or
+    softmax, equals the CPU path within bf16's rounding of the result, and
+    raises where FlashAttention cannot run (f32) instead of falling
+    back."""
+    from torch.autograd import DeviceType
+
+    from synergynet_tpu_torch.nn.attention import attention
+    g = torch.Generator(device=cuda).manual_seed(0)
+    qkv = torch.randn((4, 197, 3, 12, 64), generator=g, device=cuda,
+                      dtype=torch.bfloat16)
+    q, k, v = qkv.permute(2, 0, 3, 1, 4)
+    attention(q, k, v)
+    torch.cuda.synchronize()
+    with torch.profiler.profile(
+            activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
+        out = attention(q, k, v)
+        torch.cuda.synchronize()
+    names = [e.name for e in prof.events()
+             if e.device_type == DeviceType.CUDA]
+    assert any("flash_fwd" in n for n in names), names
+    assert not any("gemm" in n.lower() or "softmax" in n.lower()
+                   for n in names), names
+    want = attention(q.cpu(), k.cpu(), v.cpu())
+    torch.testing.assert_close(out.cpu().float(), want.float(), rtol=2e-2,
+                               atol=2e-2)
+    with pytest.raises(RuntimeError):
+        attention(q.float(), k.float(), v.float())
+
+
+@pytest.mark.gpu
+def test_vit_process_batch_captures_at_224(cuda):
+    """``process_batch`` of 2 canvases through a seeded ViT-B/16 API at
+    crop 224: captured and replayed, equal to the eager body bit for bit,
+    the attention's launches credited 12 a replay."""
+    from synergynet_tpu_torch.detect import FaceBoxes
+    from synergynet_tpu_torch.detect.detector import random_init_variables
+    from synergynet_tpu_torch.nn.attention import attention
+    from synergynet_tpu_torch.pipeline import FusedFrameEngine, SynergyNet3DMM
+    api = SynergyNet3DMM("vit_b16", dtype=torch.bfloat16, device=cuda,
+                         crop=224)
+    eng = FusedFrameEngine(api, detector=FaceBoxes(
+        random_init_variables(0), dtype=torch.bfloat16, device=cuda,
+        stem_mode="pallas"), max_faces=8)
+    args = _batch(cuda, 2, seed=5)
+    want = eng.process_batch_eager(*args)
+    before = attention.launches
+    got = eng.process_batch(*args)                # captured, then replayed
+    again = eng.process_batch(*args)
+    torch.cuda.synchronize()
+    assert attention.launches == before + 2 * 12
+    assert int(got[1].sum()) > 0
+    for g, a, w in zip(got, again, want):
+        assert torch.equal(g, w) and torch.equal(a, w)
