@@ -10,7 +10,7 @@ each fatal on failure:
 1. the card: ``nvidia-smi`` name and power limit;
 2. build every kernel of the serving, overlay, fused-stem and deferred
    paths from ``synergynet_tpu_torch/csrc`` (nvcc, sm_90a, one nvcc per
-   source, all started together), greedy NMS's N1 and the crop's C1
+   source, all started together), greedy NMS's N1, the crop's C1 and R1
    included, and print the build seconds and ptxas resource lines;
 3. each kernel against its plain PyTorch twin on the card, at its path's
    shapes, with kernel and plain times (CUDA events, L2 flushed between
@@ -181,8 +181,16 @@ each fatal on failure:
    ``torch.profiler`` pass over a 128-frame replay and an overlay frame,
    whose kernel launches must equal the credited counters (with the
    replays' device busy time and idle share).
+15. kernel R1, ResNeSt's split-attention radix combine (``splat_phase``):
+   both entries at the served ResNeSt-50's seven distinct shapes (1,024
+   faces, bf16, radix 2) against their twins, within one bf16 step; each
+   entry's time (median of 20, L2 flushed) and the twins', summed over the
+   16 blocks, against the bytes bound (each radix tensor read once, each
+   combined tensor written once: 3.46 GB); beside them the same two steps
+   in plain PyTorch on the radix tensor's channels-last view (the
+   layout-only rewrite, no kernel of its own).
 
-Prints the kernels as one JSON line (B1-B4, N1 and C1, each with its
+Prints the kernels as one JSON line (B1-B4, N1, C1 and R1, each with its
 launches on its path,
 error against its twin, kernel, plain and library ms, and the least time
 the card could take, from this run's shapes; each kernel's ``ms`` is the
@@ -212,7 +220,7 @@ RTOL, ATOL = 1e-4, 1e-3     # the dense decode's tolerance (f32)
 STEM_TOL = dict(rtol=1.6e-2, atol=1e-5)     # bf16's own tolerance
 DEVICE = "cuda:0"
 KERNELS = ("fused_decode", "raster_tiled", "stem_s2d8", "nms_greedy",
-           "crop_bilinear")
+           "crop_bilinear", "split_attention")
 # Published H100 SXM peaks (dense): HBM bytes/s, bf16 tensor-core and f32
 # (outside the tensor cores) FLOP/s, and TF32 tensor-core FLOP/s (NVIDIA's
 # H100 SXM data sheet, dense TF32).
@@ -1418,7 +1426,8 @@ def families_phase(torch, dev, card, frames, frames_s2d, hws, det_bf16):
     made from a seed and loaded through ``nn/torch_import``, served by
     ``SynergyNet3DMM`` (``get_all_outputs`` with 8 rects in f32, TF32
     off, against the CPU) and ``FusedFrameEngine.process_batch`` at 128
-    frames in bf16, B1 launched in each; the detector from a seeded
+    frames in bf16, B1 launched in each and R1 32 times a call in
+    resnest50's; the detector from a seeded
     ``FaceBoxesProd.pth`` in f32 with the fused stem (B4's f32 entry),
     stem_r=4 and the 3-channel stem, each against the CPU face for face;
     and B4's f32 entry against its twin, cuDNN's f32 conv with TF32 off,
@@ -1441,6 +1450,8 @@ def families_phase(torch, dev, card, frames, frames_s2d, hws, det_bf16):
         seeded_torch_state_dict)
     from synergynet_tpu_torch.ops.fused_decode import (
         decode_dense_fused, decode_dense_fused_reference)
+    from synergynet_tpu_torch.ops.split_attention import (radix_combine,
+                                                          radix_pool)
     from synergynet_tpu_torch.mm3d import load_param_pack
     from synergynet_tpu_torch.pipeline import (FusedFrameEngine,
                                                SynergyNet3DMM)
@@ -1471,11 +1482,18 @@ def families_phase(torch, dev, card, frames, frames_s2d, hws, det_bf16):
         # The family's own calls: launches over these only.
         decode_dense_fused.launches = 0
         got = api32.get_all_outputs(img, rects=API_RECTS)
+        radix_pool.launches = radix_combine.launches = 0
         out = eng.process_batch(frames, frames_s2d, hws)
         torch.cuda.synchronize()
         launches = decode_dense_fused.launches
         if launches <= 0:
             fail(f"phase 11 {arch}: never launched kernel B1")
+        # R1 on the served path: a pool and a combine in each of the 16
+        # split-attention blocks of every process_batch call.
+        r1_launches = radix_pool.launches + radix_combine.launches
+        if arch == "resnest50" and (r1_launches <= 0 or r1_launches % 32):
+            fail(f"phase 11 resnest50: process_batch credited kernel R1 "
+                 f"{r1_launches} launches, not a positive multiple of 32")
         want = SynergyNet3DMM(variables=tree, arch=arch, pack=pack,
                               device="cpu").get_all_outputs(
                                   img, rects=API_RECTS)
@@ -1514,14 +1532,15 @@ def families_phase(torch, dev, card, frames, frames_s2d, hws, det_bf16):
                        torch)
         families[arch] = {
             "params_m": sum(v.numel() for v in sd.values()) / 1e6,
-            "launches_b1": launches, "card_vs_cpu_err": err,
+            "launches_b1": launches, "launches_r1": r1_launches,
+            "card_vs_cpu_err": err,
             "get_all_outputs_ms": ms_api,
             "get_all_outputs_faces_per_s": FACES / ms_api * 1e3,
             "process_batch_ms": ms_b,
             "process_batch_faces_per_s": b * FACES / ms_b * 1e3}
         log(f"phase 11 {arch} ({families[arch]['params_m']:.1f}M values in "
             f"a seeded best.pth.tar, imported): B1 launched "
-            f"{launches} times; get_all_outputs 8 rects f32 (TF32 off) card "
+            f"{launches} times, R1 {r1_launches}; get_all_outputs 8 rects f32 (TF32 off) card "
             f"vs CPU max |difference| {err:.3e} (rtol {CHAIN_TOL['rtol']}, "
             f"atol {CHAIN_TOL['atol']}), {ms_api:.3f} ms per call, "
             f"{FACES / ms_api * 1e3:.1f} faces/s; process_batch B={b} bf16 "
@@ -2369,6 +2388,134 @@ def c1_checks(torch, dev, card, eng, frames, frames_s2d, hws):
             f"(L2 flushed) | twin {plain:.4f} ms | bound {bnd:.4f} ms ({by}) "
             f"| {bnd / spread[1]:.3f} of bound | {card}")
     return res
+
+
+# -- 15. kernel R1, ResNeSt's split-attention radix combine -------------------
+
+# The served ResNeSt-50's split-attention blocks at 120 pixels (radix 2,
+# cardinality 1): (H, W, c, blocks) of each distinct shape, 16 blocks.
+SPLAT_SHAPES = ((30, 30, 64, 3), (30, 30, 128, 1), (15, 15, 128, 3),
+                (15, 15, 256, 1), (8, 8, 256, 5), (8, 8, 512, 1),
+                (4, 4, 512, 2))
+SPLAT_RADIX = 2
+
+
+def splat_layout_pool(torch, y, radix):
+    """R1's pool in plain PyTorch on ``y``'s channels-last view (B, H W,
+    radix, c): the radix sum rounded to ``y``'s dtype, its spatial mean
+    accumulated in f32 and rounded once, as the twin does."""
+    b, rc, h, w = y.shape
+    v = y.permute(0, 2, 3, 1).view(b, h * w, radix, rc // radix)
+    return v.sum(2).mean(1, dtype=torch.float32).to(y.dtype).view(
+        b, rc // radix, 1, 1)
+
+
+def splat_layout_combine(torch, y, logits, radix, groups):
+    """R1's combine in plain PyTorch on ``y``'s channels-last view: the
+    rSoftmax weights (B, 1, radix, c), then the weighted radix sum as an
+    inner reduce over contiguous channels, written channels-last."""
+    b, rc, h, w = y.shape
+    c = rc // radix
+    v = y.permute(0, 2, 3, 1).view(b, h * w, radix, c)
+    atten = torch.softmax(logits.view(b, groups, radix, c // groups), dim=2)
+    atten = atten.transpose(1, 2).reshape(b, 1, radix, c)
+    return (v * atten).sum(2).view(b, h, w, c).permute(0, 3, 1, 2)
+
+
+def splat_phase(torch, dev, card):
+    """Kernel R1 (phase 15) at the served shapes, 1,024 faces in bf16: each
+    entry against its twin (within one bf16 step), its time (min / median
+    / max of 20 L2-flushed runs on the device clock) and the twin's (mean
+    of 3), summed over the 16 blocks, against the bound: each radix tensor
+    read once and each combined tensor written once (3.46 GB over 3.35
+    TB/s; the two passes' own floor, the radix tensor read twice, beside
+    it), and the layout-only rewrite's time (``splat_layout_pool`` +
+    ``splat_layout_combine``, median of 20, L2 flushed) with its distance
+    from the twin. Returns the numbers for the JSON line."""
+    from synergynet_tpu_torch.ops.split_attention import (
+        radix_combine, radix_combine_reference, radix_pool,
+        radix_pool_reference)
+    t_phase = time.perf_counter()
+    flush = torch.empty(256 * 2 ** 20, dtype=torch.uint8, device=dev)
+    faces, r = FACES * BATCH, SPLAT_RADIX
+    before = radix_pool.launches + radix_combine.launches
+    total = {"pool_ms": 0.0, "combine_ms": 0.0, "plain_ms": 0.0,
+             "layout_ms": 0.0, "min_bytes": 0, "two_pass_bytes": 0}
+    shapes, worst, worst_layout = [], 0, 0
+    g = torch.Generator(device=dev).manual_seed(15)
+    for h, w, c, blocks in SPLAT_SHAPES:
+        y = torch.relu(torch.randn((faces, r * c, h, w), generator=g,
+                                   device=dev)).to(torch.bfloat16)
+        y = y.contiguous(memory_format=torch.channels_last)
+        logits = (2 * torch.randn((faces, r * c, 1, 1), generator=g,
+                                  device=dev)).to(torch.bfloat16)
+        def steps(got, want):
+            return int((got.contiguous().view(torch.int16).int()
+                        - want.contiguous().view(torch.int16).int()
+                        ).abs().max())
+
+        def layout():
+            return (splat_layout_pool(torch, y, r),
+                    splat_layout_combine(torch, y, logits, r, 1))
+
+        with torch.inference_mode():
+            want = (radix_pool_reference(y, r),
+                    radix_combine_reference(y, logits, r, 1))
+            for got, ref in zip((radix_pool(y, r),
+                                 radix_combine(y, logits, r, 1)), want):
+                n = steps(got, ref)
+                if n > 1:
+                    fail(f"phase 15 R1 at {h}x{w}x{r * c}: {n} bf16 "
+                         f"steps from the twin")
+                worst = max(worst, n)
+            lay = layout()
+            if not lay[1].is_contiguous(memory_format=torch.channels_last):
+                fail("phase 15: the layout-only combine is not "
+                     "channels-last")
+            worst_layout = max(worst_layout, *map(steps, lay, want))
+            pool = time_spread(lambda: radix_pool(y, r), 20, torch,
+                               flush.zero_)
+            comb = time_spread(lambda: radix_combine(y, logits, r, 1), 20,
+                               torch, flush.zero_)
+            lay_ms = time_spread(layout, 20, torch, flush.zero_)
+            plain = time_ms(lambda: radix_combine_reference(
+                y, logits, r, 1) + radix_pool_reference(y, r), 3, torch,
+                flush.zero_)
+        per = y.numel() * 2
+        shapes.append({"h": h, "w": w, "radix_c": r * c, "blocks": blocks,
+                       "pool_ms": pool, "combine_ms": comb,
+                       "layout_ms": lay_ms, "plain_ms": plain})
+        total["pool_ms"] += blocks * pool[1]
+        total["combine_ms"] += blocks * comb[1]
+        total["layout_ms"] += blocks * lay_ms[1]
+        total["plain_ms"] += blocks * plain
+        total["min_bytes"] += blocks * (per + per // r)
+        total["two_pass_bytes"] += blocks * (2 * per + per // r)
+        log(f"phase 15 R1 {faces} faces at {h}x{w}, radix x c {r * c} (x"
+            f"{blocks}): pool min/median/max {pool[0]:.4f} / {pool[1]:.4f} "
+            f"/ {pool[2]:.4f} ms, combine {comb[0]:.4f} / {comb[1]:.4f} / "
+            f"{comb[2]:.4f} ms over 20 (L2 flushed) | layout-only "
+            f"{lay_ms[1]:.4f} ms | twin {plain:.4f} ms | radix tensor "
+            f"{per / 1e6:.1f} MB | {card}")
+        del y, logits, want, lay
+    torch.cuda.synchronize()
+    ms = total["pool_ms"] + total["combine_ms"]
+    bnd, _ = bound(total["min_bytes"], 0, BF16_FLOPS)
+    bnd2, _ = bound(total["two_pass_bytes"], 0, BF16_FLOPS)
+    out = dict(total, ms=ms, bound_ms=bnd, two_pass_bound_ms=bnd2,
+               max_steps=worst, max_steps_layout=worst_layout, shapes=shapes,
+               launches_phase15=radix_pool.launches + radix_combine.launches
+               - before)
+    log(f"phase 15 R1, 16 blocks of the served ResNeSt-50 at {faces} faces: "
+        f"pool {total['pool_ms']:.4f} + combine {total['combine_ms']:.4f} = "
+        f"{ms:.4f} ms | layout-only rewrite {total['layout_ms']:.4f} ms "
+        f"({worst_layout} bf16 steps from the twin) | twin "
+        f"{total['plain_ms']:.4f} ms | bound {bnd:.4f} ms "
+        f"({total['min_bytes'] / 1e9:.3f} GB once; two passes "
+        f"{bnd2:.4f} ms) | {bnd / ms:.3f} of bound | within {worst} bf16 "
+        f"step of the twin | {card}")
+    log(f"phase 15 (kernel R1): {time.perf_counter() - t_phase:.1f} s")
+    return out
 
 
 def trace_kernel_counts(path, names):
@@ -3382,6 +3529,9 @@ def main():
     # -- 13. scale-out and detector training ----------------------------------
     scaleout = scaleout_phase(torch, dev, card, eng, frames, frames_s2d, hws)
 
+    # -- 15. kernel R1 at the served ResNeSt-50's shapes ----------------------
+    r1 = splat_phase(torch, dev, card)
+
     log(f"chip_smoke: all phases in {time.perf_counter() - t_start:.1f} s")
 
     ms8, plain8, lib8, bound8, _, spread8, entry8 = kernel_stats[FACES]
@@ -3531,7 +3681,29 @@ def main():
         "ms_min_b1": c1["1"]["ms_min"], "ms_max_b1": c1["1"]["ms_max"],
         "plain_ms_b1": c1["1"]["plain_ms"],
         "bound_ms_b1": c1["1"]["bound_ms"],
-        "bit_for_bit": all(v["bit_for_bit"] for v in c1.values())}],
+        "bit_for_bit": all(v["bit_for_bit"] for v in c1.values())}, {
+        "name": "split_attention", "route": "cuda",
+        "source": "synergynet_tpu_torch/csrc/split_attention.cu",
+        "replaces": "synergynet_tpu/nn/backbones/resnest.py SplAtConv2d",
+        "note": "not a TPU kernel: the JAX package leaves the radix "
+        "combine to XLA; R1 replaces the port's two radix reduces, spatial "
+        "mean and 5-D broadcast product",
+        "launches": fam["families"]["resnest50"]["launches_r1"],
+        "launches_phase15": r1["launches_phase15"],
+        "max_bf16_steps": r1["max_steps"],
+        "ms": r1["ms"], "pool_ms": r1["pool_ms"],
+        "combine_ms": r1["combine_ms"], "plain_ms": r1["plain_ms"],
+        "layout_ms": r1["layout_ms"],
+        "max_bf16_steps_layout": r1["max_steps_layout"],
+        "bound_ms": r1["bound_ms"], "bound_by": "bytes",
+        "two_pass_bound_ms": r1["two_pass_bound_ms"], "library_ms": None,
+        "timing": spread_timing.split("; ms_entry")[0]
+        + "; ms: the medians of both entries summed over ResNeSt-50's 16 "
+        "blocks; plain_ms: the twins on the card, mean of 3 a shape; "
+        "layout_ms: both steps in plain PyTorch on the channels-last view, "
+        "median of 20 a shape; launches: phase 11's resnest50 "
+        "process_batch call (launches_phase15: phase 15's own calls)",
+        "faces": FACES * BATCH, "shapes": r1["shapes"]}],
         "e2e_faces_per_s": {str(b): v[1] for b, v in e2e.items()},
         "e2e_ms": {str(b): v[0] for b, v in e2e.items()},
         "e2e_fused_stem_ms": {str(b): v[0] for b, v in e2e_p.items()},

@@ -21,6 +21,8 @@ from torch import nn
 from synergynet_tpu_torch.nn.batchnorm import BatchNorm
 from synergynet_tpu_torch.nn.heads import ParamHead
 from synergynet_tpu_torch.nn.layers import Conv2d, spatial_mean, to_nchw
+from synergynet_tpu_torch.ops.split_attention import (radix_combine,
+                                                      radix_pool)
 
 
 class SplAtConv2d(nn.Module):
@@ -30,7 +32,11 @@ class SplAtConv2d(nn.Module):
     ``max(cin * radix // 4, 32)`` channels + BN + ReLU, ``Conv_2`` back to
     ``features * radix``) gives the attention: a softmax over radix under
     the (cardinality, radix, features/cardinality) channel layout of
-    ``Conv_2``'s output, or a sigmoid when ``radix`` is 1."""
+    ``Conv_2``'s output, or a sigmoid when ``radix`` is 1. The pool and the
+    weighted radix sum are ``ops/split_attention.py``'s (kernel R1 on a
+    card)."""
+
+    kernels = ("split_attention",)      # the csrc library R1 launches
 
     def __init__(self, cin: int, features: int, kernel: int = 3,
                  stride: int = 1, groups: int = 1, radix: int = 2,
@@ -47,19 +53,11 @@ class SplAtConv2d(nn.Module):
                              bias=True)
 
     def forward(self, x):
-        r, c = self.radix, self.features
-        y = F.relu(self.BatchNorm_0(self.Conv_0(x)))
-        b, _, h, w = y.shape
-        split = y.reshape(b, r, c, h, w)                # radix branches
-        gap = spatial_mean(split.sum(1), keepdim=True)  # (B, C, 1, 1)
+        y = F.relu(self.BatchNorm_0(self.Conv_0(x)))    # radix branches
+        gap = radix_pool(y, self.radix)                 # (B, C, 1, 1)
         gap = F.relu(self.BatchNorm_1(self.Conv_1(gap)))
         atten = self.Conv_2(gap)                        # (B, C*r, 1, 1)
-        if r > 1:
-            atten = atten.reshape(b, self.groups, r, c // self.groups)
-            atten = torch.softmax(atten, dim=2).transpose(1, 2).reshape(
-                b, r, c, 1, 1)
-            return (split * atten).sum(1)
-        return y * torch.sigmoid(atten.reshape(b, c, 1, 1))
+        return radix_combine(y, atten, self.radix, self.groups)
 
 
 class ResNeStBottleneck(nn.Module):

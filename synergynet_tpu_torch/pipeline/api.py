@@ -269,10 +269,14 @@ class FusedFrameEngine:
                              f"{api.device}")
         self.max_faces = max_faces
         self._det_mean = self.detector.mean
+        # Built now: the path's kernel libraries and those its backbone's
+        # modules launch (their ``kernels``).
+        nets = {k for m in api.model.modules()
+                for k in getattr(m, "kernels", ())}
         self.programs = ProgramCache(
             api.device, "frame",
             kernels=("stem_s2d8", "nms_greedy", "crop_bilinear",
-                     "fused_decode"))
+                     "fused_decode", *sorted(nets)))
 
     def detect_candidates(self, frames_s2d: torch.Tensor,
                           true_hws: torch.Tensor

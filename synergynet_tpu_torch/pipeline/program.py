@@ -63,6 +63,8 @@ def launch_counters() -> Tuple[Tuple[object, str], ...]:
     from synergynet_tpu_torch.detect.stem_fused import fused_stem1_s2d8
     from synergynet_tpu_torch.nn.attention import attention
     from synergynet_tpu_torch.ops.fused_decode import decode_dense_fused
+    from synergynet_tpu_torch.ops.split_attention import (radix_combine,
+                                                          radix_pool)
     from synergynet_tpu_torch.pipeline.device_crop import crop_resize_bilinear
     from synergynet_tpu_torch.render.raster_tiled import (rasterize_mesh,
                                                           rasterize_mesh_ids)
@@ -72,6 +74,8 @@ def launch_counters() -> Tuple[Tuple[object, str], ...]:
             (greedy_nms_mask, "launches"),
             (crop_resize_bilinear, "launches"),
             (attention, "launches"),
+            (radix_pool, "launches"),
+            (radix_combine, "launches"),
             (rasterize_mesh, "launches"),
             (rasterize_mesh_ids, "launches"))
 

@@ -2071,3 +2071,173 @@ def test_vit_process_batch_captures_at_224(cuda):
     assert int(got[1].sum()) > 0
     for g, a, w in zip(got, again, want):
         assert torch.equal(g, w) and torch.equal(a, w)
+
+
+# -- kernel R1: ResNeSt's split-attention radix combine -----------------------
+
+# (radix, cardinality) pairs that RESNEST_LAYERS and RESNEST_FAST_VARIANTS
+# build.
+SPLAT_VARIANTS = [(2, 1), (1, 1), (4, 1), (1, 2), (2, 2), (1, 4)]
+# The served ResNeSt-50's split-attention shapes at 120 pixels (radix 2):
+# (H, W, c) of its four stages, each at the first block's and the other
+# blocks' extent.
+SPLAT_SHAPES = [(30, 30, 64), (30, 30, 128), (15, 15, 128), (15, 15, 256),
+                (8, 8, 256), (8, 8, 512), (4, 4, 512)]
+
+
+def _splat_inputs(cuda, b, radix, c, h, w, dtype, seed):
+    g = torch.Generator(device=cuda).manual_seed(seed)
+    y = torch.relu(torch.randn((b, radix * c, h, w), generator=g,
+                               device=cuda)).to(dtype)
+    logits = 2 * torch.randn((b, radix * c, 1, 1), generator=g, device=cuda)
+    return (y.contiguous(memory_format=torch.channels_last),
+            logits.to(dtype))
+
+
+def _assert_r1_close(got, want):
+    """f32: R1 and the twin differ by the order of the spatial sum alone,
+    a few f32 roundings (rtol 1e-5). bf16: that order moves a rounded mean
+    by at most one bf16 step; the combine rounds where the twin rounds."""
+    assert got.shape == want.shape and got.dtype == want.dtype
+    if got.dtype == torch.float32:
+        torch.testing.assert_close(got, want, rtol=1e-5, atol=0)
+    else:
+        steps = (got.contiguous().view(torch.int16).int()
+                 - want.contiguous().view(torch.int16).int()).abs()
+        assert int(steps.max()) <= 1, int(steps.max())
+
+
+def _check_r1(cuda, b, radix, groups, c, h, w, dtype, seed):
+    from synergynet_tpu_torch.ops.split_attention import (
+        radix_combine, radix_combine_reference, radix_pool,
+        radix_pool_reference)
+    y, logits = _splat_inputs(cuda, b, radix, c, h, w, dtype, seed)
+    before = radix_pool.launches, radix_combine.launches
+    pooled = radix_pool(y, radix)
+    out = radix_combine(y, logits, radix, groups)
+    torch.cuda.synchronize()
+    assert (radix_pool.launches, radix_combine.launches) == (
+        before[0] + 1, before[1] + 1)
+    assert pooled.shape == (b, c, 1, 1)
+    assert out.is_contiguous(memory_format=torch.channels_last)
+    _assert_r1_close(pooled, radix_pool_reference(y, radix))
+    _assert_r1_close(out, radix_combine_reference(y, logits, radix, groups))
+    assert torch.equal(radix_pool(y, radix), pooled)        # deterministic
+    assert torch.equal(radix_combine(y, logits, radix, groups), out)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("radix,groups", SPLAT_VARIANTS)
+def test_splat_kernel_matches_twin_every_variant(cuda, radix, groups, dtype):
+    """Every radix and cardinality, at 3 faces of 7 x 5 positions and 24
+    channels a group: a batch, an extent and a width that fill no tile."""
+    _check_r1(cuda, 3, radix, groups, 24 * groups, 7, 5, dtype,
+              seed=10 * radix + groups)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("h,w,c", SPLAT_SHAPES)
+def test_splat_kernel_matches_twin_at_served_shapes(cuda, h, w, c, dtype):
+    _check_r1(cuda, 3, 2, 1, c, h, w, dtype, seed=c + h)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("radix,groups", [(2, 1), (1, 2), (4, 1)])
+def test_splat_gradient_is_the_twins(cuda, radix, groups):
+    """Under autograd R1 runs in a Function whose backward recomputes the
+    twin: the gradients equal the twin's own bit for bit."""
+    from synergynet_tpu_torch.ops.split_attention import (
+        radix_combine, radix_combine_reference, radix_pool,
+        radix_pool_reference)
+    y, logits = _splat_inputs(cuda, 3, radix, 8 * groups, 6, 5,
+                              torch.float32, seed=radix)
+    g = torch.Generator(device=cuda).manual_seed(1)
+    gp = torch.randn((3, 8 * groups, 1, 1), generator=g, device=cuda)
+    gc = torch.randn((3, 8 * groups, 6, 5), generator=g, device=cuda)
+
+    def grads(pool, combine):
+        yy = y.detach().requires_grad_()
+        ll = logits.detach().requires_grad_()
+        ((pool(yy, radix) * gp).sum()
+         + (combine(yy, ll, radix, groups) * gc).sum()).backward()
+        return yy.grad, ll.grad
+
+    before = radix_pool.launches, radix_combine.launches
+    got = grads(radix_pool, radix_combine)
+    assert (radix_pool.launches, radix_combine.launches) == (
+        before[0] + 1, before[1] + 1)
+    want = grads(radix_pool_reference, radix_combine_reference)
+    assert all(torch.equal(a, b) for a, b in zip(got, want))
+
+
+@pytest.mark.gpu
+def test_splat_rejects_what_it_does_not_take(cuda):
+    from synergynet_tpu_torch.ops.split_attention import (radix_combine,
+                                                          radix_pool)
+    y, logits = _splat_inputs(cuda, 2, 2, 16, 4, 4, torch.bfloat16, seed=0)
+    with pytest.raises(TypeError):
+        radix_pool(y.half(), 2)
+    with pytest.raises(ValueError):                  # not channels-last
+        radix_pool(y.contiguous(), 2)
+    with pytest.raises(ValueError):                  # 4 channels a branch
+        radix_pool(y[:, :8].contiguous(memory_format=torch.channels_last), 2)
+    with pytest.raises(ValueError):
+        radix_combine(y, logits[:, :16], 2, 1)
+    with pytest.raises(TypeError):
+        radix_combine(y, logits.float(), 2, 1)
+    with pytest.raises(ValueError):
+        radix_combine(y, logits, 2, 3)
+
+
+@pytest.mark.gpu
+def test_splat_wrapper_and_kernel_share_one_limit(cuda):
+    """The wrapper's checks and the C entries' own refuse the same shapes:
+    at ``R1_MAX_WEIGHTS`` weights R1 runs and matches the twin; one vector
+    past it, or a branch of c not a multiple of 16 bytes, the wrapper
+    raises and each C entry, called past the wrapper, returns
+    cudaErrorInvalidValue (1)."""
+    from synergynet_tpu_torch.ops.split_attention import (
+        R1_MAX_WEIGHTS, _call, radix_combine, radix_pool)
+    _check_r1(cuda, 1, 2, 1, R1_MAX_WEIGHTS // 2, 1, 1, torch.bfloat16,
+              seed=3)
+    for c in (R1_MAX_WEIGHTS // 2 + 8, 12):
+        y, logits = _splat_inputs(cuda, 1, 2, c, 1, 1, torch.bfloat16,
+                                  seed=4)
+        with pytest.raises(ValueError):
+            radix_pool(y, 2)
+        with pytest.raises(ValueError):
+            radix_combine(y, logits, 2, 1)
+        out = torch.empty((1, c), dtype=y.dtype, device=cuda)
+        with pytest.raises(RuntimeError, match="CUDA error 1$"):
+            _call(y.device, "synergy_splat_pool", (y, out), (1, 1, 2, c, 2))
+        with pytest.raises(RuntimeError, match="CUDA error 1$"):
+            _call(y.device, "synergy_splat_combine",
+                  (y, logits.view(1, 2 * c), out), (1, 1, 2, c, 1, 2))
+
+
+@pytest.mark.gpu
+def test_resnest_process_batch_credits_r1_a_replay(cuda):
+    """``process_batch`` of 2 canvases through a seeded bf16 ResNeSt-50:
+    captured and replayed, equal to the eager body bit for bit, R1
+    credited 32 launches a replay (16 blocks, a pool and a combine each)."""
+    from synergynet_tpu_torch.detect import FaceBoxes
+    from synergynet_tpu_torch.detect.detector import random_init_variables
+    from synergynet_tpu_torch.ops.split_attention import (radix_combine,
+                                                          radix_pool)
+    from synergynet_tpu_torch.pipeline import FusedFrameEngine, SynergyNet3DMM
+    api = SynergyNet3DMM("resnest50", dtype=torch.bfloat16, device=cuda)
+    eng = FusedFrameEngine(api, detector=FaceBoxes(
+        random_init_variables(0), dtype=torch.bfloat16, device=cuda,
+        stem_mode="pallas"), max_faces=8)
+    args = _batch(cuda, 2, seed=7)
+    want = eng.process_batch_eager(*args)
+    before = radix_pool.launches + radix_combine.launches
+    got = eng.process_batch(*args)                # captured, then replayed
+    again = eng.process_batch(*args)
+    torch.cuda.synchronize()
+    assert radix_pool.launches + radix_combine.launches == before + 2 * 32
+    assert int(got[1].sum()) > 0
+    for g, a, w in zip(got, again, want):
+        assert torch.equal(g, w) and torch.equal(a, w)
