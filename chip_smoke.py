@@ -212,6 +212,8 @@ from concurrent.futures import ThreadPoolExecutor
 
 import numpy as np
 
+from perfbench.tracing import device_busy
+
 FACES = 8
 BATCH = 128
 CANVAS = (720, 1088)
@@ -286,6 +288,39 @@ def time_spread(fn, n, torch, flush, spin=1_000_000):
         torch.cuda.synchronize()
         runs.append(start.elapsed_time(end))
     return min(runs), float(np.median(runs)), max(runs)
+
+
+def profile_calls(fn, n, trace_path, top=10):
+    """Run ``fn()`` once to warm up, then ``n`` times under the profiler.
+
+    Writes the Chrome trace to ``trace_path`` and returns per-call
+    ``wall_ms`` (host clock over the window, device synchronised at its
+    end), ``busy_ms``, ``idle_share`` = 1 - busy / wall, ``ops`` and the
+    ``top`` device ops by time as ``[(name, ms per call), ...]``. The
+    profiler itself slows the host, so ``wall_ms`` exceeds an unprofiled
+    call's time."""
+    import torch
+
+    acts = [torch.profiler.ProfilerActivity.CPU,
+            torch.profiler.ProfilerActivity.CUDA]
+    fn()
+    torch.cuda.synchronize()
+    with torch.profiler.profile(activities=acts) as prof:
+        t0 = time.perf_counter()
+        for _ in range(n):
+            fn()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    prof.export_chrome_trace(trace_path)
+    with open(trace_path) as f:
+        trace = json.load(f)
+    events = trace["traceEvents"] if isinstance(trace, dict) else trace
+    d = device_busy(events)
+    wall_ms, busy_ms = wall * 1e3 / n, d["busy_us"] / 1e3 / n
+    leaders = sorted(d["per_op_us"].items(), key=lambda kv: -kv[1])[:top]
+    return {"wall_ms": wall_ms, "busy_ms": busy_ms,
+            "idle_share": 1.0 - busy_ms / wall_ms, "ops": d["ops"] / n,
+            "top": [(name, us / 1e3 / n) for name, us in leaders]}
 
 
 def bound(nbytes, flops, peak):
@@ -387,7 +422,6 @@ def raster_worker(pkg_dir):
     ``torch.profiler``."""
     sys.path.insert(0, os.path.abspath(pkg_dir))
     import torch
-    from synergynet_tpu_torch.core.profiling import profile_calls
     from synergynet_tpu_torch import render
     if not torch.cuda.is_available():
         fail("torch.cuda.is_available() is false: this smoke run needs a card")
@@ -638,7 +672,6 @@ def training_phase(torch, dev, card, profile_dir):
         "statistics, momentum and count bit-identical, step advanced")
 
     if profile_dir:
-        from synergynet_tpu_torch.core.profiling import profile_calls
         p = profile_calls(lambda: step(st, imgs, tgts, gen), 3,
                           os.path.join(profile_dir, "trace_train.json"))
         out["profile"] = dict(p, calls=3, unprofiled_ms=ms)
@@ -1105,16 +1138,16 @@ def api_phase(torch, dev, card):
         fused_stem1_s2d8, fused_stem1_s2d8_reference)
     from synergynet_tpu_torch.mm3d import rescale_to_roi, square_box
     from synergynet_tpu_torch.mm3d.codec import full_fp32
+    from synergynet_tpu_torch.ops import cuda_build
     from synergynet_tpu_torch.ops.fused_decode import (
-        decode_dense_fused, decode_dense_fused_reference)
+        decode_dense_fused_reference)
     from synergynet_tpu_torch.pipeline import (SynergyNet3DMM,
                                                UVTextureMapper,
                                                preprocess_crops)
     from synergynet_tpu_torch.pipeline.api import _crops_on
     from synergynet_tpu_torch.render import (
         OVERLAY_LIGHT_CFG, RenderPipeline, add_weighted_u8, rasterize,
-        rasterize_mesh, rasterize_mesh_ids, rasterize_tiled,
-        rasterize_triangles, render_overlay, render_texture)
+        rasterize_tiled, rasterize_triangles, render_overlay, render_texture)
 
     t_phase = time.perf_counter()
     ch, cw = CANVAS
@@ -1141,12 +1174,12 @@ def api_phase(torch, dev, card):
     torch.cuda.synchronize()
 
     # -- the phase's own calls: launches over these only ----------------------
-    counters = {"B1 fused_decode": decode_dense_fused,
-                "B2 raster_tiled": rasterize_mesh,
-                "B3 raster_ids": rasterize_mesh_ids,
-                "B4 stem_s2d8": fused_stem1_s2d8}
-    for fn in counters.values():
-        fn.launches = 0
+    counters = {"B1 fused_decode": "synergy_fused_decode",
+                "B2 raster_tiled": "synergy_raster_mesh",
+                "B3 raster_ids": "synergy_raster_mesh_ids",
+                "B4 stem_s2d8": "synergy_stem_s2d8"}
+    for symbol in counters.values():
+        cuda_build.launches[symbol] = 0
     t0 = time.perf_counter()
     outs = {interp: api.get_all_outputs(img, rects=API_RECTS,
                                         interpolation=interp)
@@ -1166,7 +1199,8 @@ def api_phase(torch, dev, card):
         "rasterize_triangles": rasterize_triangles(v_all, tris_all, h=ch,
                                                    w=cw, device=dev)}
     torch.cuda.synchronize()
-    launches = {k: fn.launches for k, fn in counters.items()}
+    launches = {k: cuda_build.launches[symbol]
+                for k, symbol in counters.items()}
     calls_s = time.perf_counter() - t0
     log(f"packaged API + host renders: launches over the phase's calls "
         f"{launches} (get_all_outputs x3, FaceBoxes.__call__ x3, "
@@ -1448,10 +1482,9 @@ def families_phase(torch, dev, card, frames, frames_s2d, hws, det_bf16):
     from synergynet_tpu_torch.nn.torch_import import (
         expected_torch_shapes, load_synergynet_variables,
         seeded_torch_state_dict)
+    from synergynet_tpu_torch.ops import cuda_build
     from synergynet_tpu_torch.ops.fused_decode import (
         decode_dense_fused, decode_dense_fused_reference)
-    from synergynet_tpu_torch.ops.split_attention import (radix_combine,
-                                                          radix_pool)
     from synergynet_tpu_torch.mm3d import load_param_pack
     from synergynet_tpu_torch.pipeline import (FusedFrameEngine,
                                                SynergyNet3DMM)
@@ -1480,17 +1513,19 @@ def families_phase(torch, dev, card, frames, frames_s2d, hws, det_bf16):
                                pack=pack, device=dev)
         eng = FusedFrameEngine(api16, detector=det_bf16, max_faces=FACES)
         # The family's own calls: launches over these only.
-        decode_dense_fused.launches = 0
+        cuda_build.launches["synergy_fused_decode"] = 0
         got = api32.get_all_outputs(img, rects=API_RECTS)
-        radix_pool.launches = radix_combine.launches = 0
+        cuda_build.launches["synergy_splat_pool"] = 0
+        cuda_build.launches["synergy_splat_combine"] = 0
         out = eng.process_batch(frames, frames_s2d, hws)
         torch.cuda.synchronize()
-        launches = decode_dense_fused.launches
+        launches = cuda_build.launches["synergy_fused_decode"]
         if launches <= 0:
             fail(f"phase 11 {arch}: never launched kernel B1")
         # R1 on the served path: a pool and a combine in each of the 16
         # split-attention blocks of every process_batch call.
-        r1_launches = radix_pool.launches + radix_combine.launches
+        r1_launches = (cuda_build.launches["synergy_splat_pool"]
+                       + cuda_build.launches["synergy_splat_combine"])
         if arch == "resnest50" and (r1_launches <= 0 or r1_launches % 32):
             fail(f"phase 11 resnest50: process_batch credited kernel R1 "
                  f"{r1_launches} launches, not a positive multiple of 32")
@@ -1563,11 +1598,11 @@ def families_phase(torch, dev, card, frames, frames_s2d, hws, det_bf16):
     for name, kw in topologies:
         det = FaceBoxes(weights_path=path, device=dev, **kw)
         cpu = FaceBoxes(weights_path=path, device="cpu", **kw)
-        fused_stem1_s2d8.launches_f32 = 0
+        cuda_build.launches["synergy_stem_s2d8_f32"] = 0
         raw_g, n_g = det.detect_raw(small)
         faces = det(small)
         torch.cuda.synchronize()
-        f32_launches = fused_stem1_s2d8.launches_f32
+        f32_launches = cuda_build.launches["synergy_stem_s2d8_f32"]
         if "pallas" in kw.values() and f32_launches <= 0:
             fail("phase 11: the f32 fused-stem detector never launched B4's "
                  "f32 entry")
@@ -1737,9 +1772,9 @@ def ingest_eval_phase(torch, dev, card):
     from synergynet_tpu_torch.mm3d import assets
     from synergynet_tpu_torch.nn.torch_import import (expected_torch_shapes,
                                                       seeded_torch_state_dict)
+    from synergynet_tpu_torch.ops import cuda_build
     from synergynet_tpu_torch.ops.fused_decode import (
-        decode_dense_fast, decode_dense_fused, decode_dense_fused_reference,
-        get_decode_basis)
+        decode_dense_fast, decode_dense_fused_reference, get_decode_basis)
     from synergynet_tpu_torch.pipeline import FusedFrameEngine, SynergyNet3DMM
     from synergynet_tpu_torch.pipeline import api as api_module
 
@@ -1776,10 +1811,10 @@ def ingest_eval_phase(torch, dev, card):
     params = {b: torch.tensor(rng.normal(0, 1, (b, 62)).astype(np.float32),
                               device=dev) for b in (FACES, FACES * BATCH)}
     torch.cuda.synchronize()
-    decode_dense_fused.launches = 0
+    cuda_build.launches["synergy_fused_decode"] = 0
     fast = {b: decode_dense_fast(p, pack) for b, p in params.items()}
     torch.cuda.synchronize()
-    launches = decode_dense_fused.launches
+    launches = cuda_build.launches["synergy_fused_decode"]
     if launches <= 0:
         fail("phase 12: decode_dense_fast never launched kernel B1")
     basis = get_decode_basis(pack)
@@ -2002,6 +2037,7 @@ def scaleout_phase(torch, dev, card, eng, frames, frames_s2d, hws,
     from synergynet_tpu_torch.detect.detector import random_init_variables
     from synergynet_tpu_torch.mm3d import load_param_pack
     from synergynet_tpu_torch.nn import SynergyNet
+    from synergynet_tpu_torch.ops import cuda_build
     from synergynet_tpu_torch.ops.fused_decode import (build_decode_basis,
                                                        decode_dense_fused)
     from synergynet_tpu_torch.parallel import (shard_fused_engine,
@@ -2120,11 +2156,11 @@ def scaleout_phase(torch, dev, card, eng, frames, frames_s2d, hws,
         # the TP decode: one slab (the whole padded basis) on kernel B1
         p = torch.from_numpy(np.random.default_rng(14).normal(
             0, 1, (FACES * BATCH, 62)).astype(np.float32)).to(dev)
-        decode_dense_fused.launches = 0
+        cuda_build.launches["synergy_fused_decode"] = 0
         decode = tp_dense_decode(mesh, pack)
         slab, checksum = decode(p)
         torch.cuda.synchronize()
-        launches_w1 = decode_dense_fused.launches
+        launches_w1 = cuda_build.launches["synergy_fused_decode"]
         basis = build_decode_basis(pack).to(dev)
         whole = decode_dense_fused(p, basis, pack.to(dev))
         nver = basis.nver
@@ -2273,7 +2309,6 @@ def n1_times(torch, greedy_nms_mask, tb, tv, thr, flush, trace_dir, tag):
     runs), the median warm (no flush), and the bits / walk device ms per
     call under ``torch.profiler``, cold (flushed before each call) and
     warm."""
-    from synergynet_tpu_torch.core.profiling import profile_calls
     fn = lambda: greedy_nms_mask(tb, tv, thr)   # noqa: E731
 
     def cold():
@@ -2432,13 +2467,19 @@ def splat_phase(torch, dev, card):
     it), and the layout-only rewrite's time (``splat_layout_pool`` +
     ``splat_layout_combine``, median of 20, L2 flushed) with its distance
     from the twin. Returns the numbers for the JSON line."""
+    from synergynet_tpu_torch.ops import cuda_build
     from synergynet_tpu_torch.ops.split_attention import (
         radix_combine, radix_combine_reference, radix_pool,
         radix_pool_reference)
+
+    def r1_launches():
+        return (cuda_build.launches["synergy_splat_pool"]
+                + cuda_build.launches["synergy_splat_combine"])
+
     t_phase = time.perf_counter()
     flush = torch.empty(256 * 2 ** 20, dtype=torch.uint8, device=dev)
     faces, r = FACES * BATCH, SPLAT_RADIX
-    before = radix_pool.launches + radix_combine.launches
+    before = r1_launches()
     total = {"pool_ms": 0.0, "combine_ms": 0.0, "plain_ms": 0.0,
              "layout_ms": 0.0, "min_bytes": 0, "two_pass_bytes": 0}
     shapes, worst, worst_layout = [], 0, 0
@@ -2504,8 +2545,7 @@ def splat_phase(torch, dev, card):
     bnd2, _ = bound(total["two_pass_bytes"], 0, BF16_FLOPS)
     out = dict(total, ms=ms, bound_ms=bnd, two_pass_bound_ms=bnd2,
                max_steps=worst, max_steps_layout=worst_layout, shapes=shapes,
-               launches_phase15=radix_pool.launches + radix_combine.launches
-               - before)
+               launches_phase15=r1_launches() - before)
     log(f"phase 15 R1, 16 blocks of the served ResNeSt-50 at {faces} faces: "
         f"pool {total['pool_ms']:.4f} + combine {total['combine_ms']:.4f} = "
         f"{ms:.4f} ms | layout-only rewrite {total['layout_ms']:.4f} ms "
@@ -2536,17 +2576,13 @@ def programs_phase(torch, dev, card, eng, eng_p, ov, frames, frames_s2d, hws,
     graph and eager in turns, copy-in / clone-out / replay costs, pool
     bytes, and one profiler pass whose kernel counts the credited counters
     must match. Returns the numbers for the JSON line."""
-    from synergynet_tpu_torch.core.profiling import profile_calls
     from synergynet_tpu_torch.detect.detector import (NMS_THRESHOLD,
                                                       NMS_TOP_K, prepare_frame)
     from synergynet_tpu_torch.detect.nms import (greedy_nms_mask,
                                                  greedy_nms_mask_reference)
-    from synergynet_tpu_torch.detect.stem_fused import fused_stem1_s2d8
-    from synergynet_tpu_torch.ops.fused_decode import decode_dense_fused
+    from synergynet_tpu_torch.ops import cuda_build
     from synergynet_tpu_torch.ops.resize import _resize_linear
     from synergynet_tpu_torch.pipeline import unpack_face_outputs
-    from synergynet_tpu_torch.pipeline.device_crop import crop_resize_bilinear
-    from synergynet_tpu_torch.render import rasterize_mesh
     from tests.nms_cases import CASES, THRESHOLD, nms_case
     t_phase = time.perf_counter()
     out = {}
@@ -2807,11 +2843,11 @@ def programs_phase(torch, dev, card, eng, eng_p, ov, frames, frames_s2d, hws,
     out["pool_bytes"] = pools
 
     # -- 14i. one profiler pass: trace counts against credited counters -------
-    counters = {"B1 fused_decode": (decode_dense_fused, "launches"),
-                "N1 nms_greedy": (greedy_nms_mask, "launches"),
-                "C1 crop_bilinear": (crop_resize_bilinear, "launches"),
-                "B4 stem_s2d8": (fused_stem1_s2d8, "launches"),
-                "B2 raster_tiled": (rasterize_mesh, "launches")}
+    counters = {"B1 fused_decode": "synergy_fused_decode",
+                "N1 nms_greedy": "synergy_nms_greedy",
+                "C1 crop_bilinear": "synergy_crop_bilinear",
+                "B4 stem_s2d8": "synergy_stem_s2d8",
+                "B2 raster_tiled": "synergy_raster_mesh"}
     a = (frames, frames_s2d, hws)
     checks = {}
     with torch.inference_mode():
@@ -2822,12 +2858,13 @@ def programs_phase(torch, dev, card, eng, eng_p, ov, frames, frames_s2d, hws,
                  lambda: ov(imgs[CANVAS]))):
             fn()
             torch.cuda.synchronize()
-            before = {k: getattr(h, at) for k, (h, at) in counters.items()}
+            before = {k: cuda_build.launches[symbol]
+                      for k, symbol in counters.items()}
             path = os.path.join(prof_dir, f"trace_{len(checks)}.json")
             prof = profile_calls(fn, 1, path, top=1000)
             # profile_calls warms up once, then runs once under the profiler.
-            credited = {k: (getattr(h, at) - before[k]) // 2
-                        for k, (h, at) in counters.items()}
+            credited = {k: (cuda_build.launches[symbol] - before[k]) // 2
+                        for k, symbol in counters.items()}
             seen = trace_kernel_counts(path, TRACE_NAMES)
             if seen != credited:
                 fail(f"phase 14 {label}: trace kernel counts {seen} differ "
@@ -2894,8 +2931,6 @@ def main():
     from synergynet_tpu_torch.detect import FaceBoxes
     from synergynet_tpu_torch.detect.detector import random_init_variables
     from synergynet_tpu_torch.detect.net import space_to_depth
-    from synergynet_tpu_torch.detect.nms import greedy_nms_mask
-    from synergynet_tpu_torch.pipeline.device_crop import crop_resize_bilinear
     from synergynet_tpu_torch.detect.stem_fused import (
         fused_stem1_s2d8, fused_stem1_s2d8_reference)
     from synergynet_tpu_torch.mm3d import rescale_to_roi
@@ -3180,9 +3215,9 @@ def main():
     # call replays its batch size's captured program (the first call of a
     # size captures it), and the replay credits the launches recorded at
     # capture.
-    decode_dense_fused.launches = 0
-    greedy_nms_mask.launches = 0
-    crop_resize_bilinear.launches = 0
+    cuda_build.launches["synergy_fused_decode"] = 0
+    cuda_build.launches["synergy_nms_greedy"] = 0
+    cuda_build.launches["synergy_crop_bilinear"] = 0
     t0 = time.perf_counter()
     frames_np = {hw: np.random.default_rng(1).integers(0, 256, (*hw, 3),
                                                        np.uint8)
@@ -3198,9 +3233,9 @@ def main():
     torch.cuda.reset_peak_memory_stats()
     out = eng.process_batch(frames, frames_s2d, hws)
     torch.cuda.synchronize()
-    launches = decode_dense_fused.launches
-    n1_launches = greedy_nms_mask.launches
-    c1_launches = crop_resize_bilinear.launches
+    launches = cuda_build.launches["synergy_fused_decode"]
+    n1_launches = cuda_build.launches["synergy_nms_greedy"]
+    c1_launches = cuda_build.launches["synergy_crop_bilinear"]
     log(f"main path: fused_decode launched {launches} times, nms_greedy "
         f"{n1_launches} times, crop_bilinear {c1_launches} times (__call__ "
         f"x2, process_batch x1)")
@@ -3226,8 +3261,8 @@ def main():
 
     # The same path with the fused stem: launches over its own calls.
     eng_p = FusedFrameEngine(api, detector=det_p, max_faces=FACES)
-    fused_stem1_s2d8.launches = 0
-    decode_dense_fused.launches = 0
+    cuda_build.launches["synergy_stem_s2d8"] = 0
+    cuda_build.launches["synergy_fused_decode"] = 0
     t0 = time.perf_counter()
     same_calls = 0
     for hw, img in frames_np.items():
@@ -3236,13 +3271,14 @@ def main():
         same_calls += len(pts_p) == n_xla[hw]
     out_p = eng_p.process_batch(frames, frames_s2d, hws)
     torch.cuda.synchronize()
-    s_launches = fused_stem1_s2d8.launches
+    s_launches = cuda_build.launches["synergy_stem_s2d8"]
+    b1_launches = cuda_build.launches["synergy_fused_decode"]
     log(f"fused-stem path: stem_s2d8 launched {s_launches} times, "
-        f"fused_decode {decode_dense_fused.launches} times (__call__ x2, "
+        f"fused_decode {b1_launches} times (__call__ x2, "
         f"process_batch x1), {time.perf_counter() - t0:.1f} s")
     if s_launches <= 0:
         fail("the fused-stem serving path never launched the stem kernel")
-    if decode_dense_fused.launches <= 0:
+    if b1_launches <= 0:
         fail("the fused-stem serving path never launched fused_decode")
     if [tuple(x.shape) for x in out_p] != want_shapes:
         fail(f"fused-stem process_batch shapes "
@@ -3272,18 +3308,19 @@ def main():
     imgs = {hw: np.random.default_rng(2).integers(0, 256, (*hw, 3), np.uint8)
             for hw in OVERLAY_FRAMES}
     # Launches count over the overlay path's own calls only.
-    decode_dense_fused.launches = 0
-    rasterize_mesh.launches = 0
+    cuda_build.launches["synergy_fused_decode"] = 0
+    cuda_build.launches["synergy_raster_mesh"] = 0
     t0 = time.perf_counter()
     results = {hw: ov(img) for hw, img in imgs.items()}
     torch.cuda.synchronize()
-    r_launches = rasterize_mesh.launches
+    r_launches = cuda_build.launches["synergy_raster_mesh"]
+    b1_launches = cuda_build.launches["synergy_fused_decode"]
     log(f"overlay path: raster_tiled launched {r_launches} times, "
-        f"fused_decode {decode_dense_fused.launches} times (__call__ x"
+        f"fused_decode {b1_launches} times (__call__ x"
         f"{len(imgs)}), {time.perf_counter() - t0:.1f} s")
     if r_launches <= 0:
         fail("the overlay path never launched the raster_tiled kernel")
-    if decode_dense_fused.launches <= 0:
+    if b1_launches <= 0:
         fail("the overlay path never launched the fused_decode kernel")
 
     lit = {}
@@ -3336,12 +3373,12 @@ def main():
 
         # The deferred raster on the overlay's own lit meshes: launches
         # over these calls only, then the checks.
-        rasterize_mesh_ids.launches = 0
+        cuda_build.launches["synergy_raster_mesh_ids"] = 0
         deferred = {hw: rasterize_buffers_tiled(v, ov.tris_all, c, h=ch,
                                                 w=cw, deferred=True)
                     for hw, (v, c) in lit.items()}
         torch.cuda.synchronize()
-        r3_launches = rasterize_mesh_ids.launches
+        r3_launches = cuda_build.launches["synergy_raster_mesh_ids"]
         log(f"deferred path: raster ids launched {r3_launches} times over "
             f"{len(lit)} overlay frames' meshes")
         if r3_launches <= 0:
@@ -3464,7 +3501,6 @@ def main():
 
     # -- 7. device profile (opt-in) -------------------------------------------
     if args.profile:
-        from synergynet_tpu_torch.core.profiling import profile_calls
         os.makedirs(args.profile, exist_ok=True)
         summary = {"card": card}
         for b in (1, BATCH):

@@ -1,5 +1,5 @@
 """Profiling: device traces, the serving path's spans, stage stamps and
-counters, stage timers, busy time.
+counters, stage timers.
 
 Counterpart, for the card, of ``synergynet_tpu/core/profiling.py``
 (``:27-107``):
@@ -9,9 +9,7 @@ Counterpart, for the card, of ``synergynet_tpu/core/profiling.py``
   into a directory;
 - :class:`StageTimer` times named stages: CUDA events on the card, the
   host clock on the CPU; :func:`device_memory_stats` reads the card's
-  allocator;
-- :func:`profile_calls` runs a callable under the profiler and reads the
-  device's work back out of the trace with :func:`device_busy`.
+  allocator.
 
 The serving path measures itself through one process-wide
 :class:`Recorder`, :data:`recorder`:
@@ -49,7 +47,6 @@ import contextlib
 import ctypes
 import dataclasses
 import itertools
-import json
 import os
 import statistics
 import threading
@@ -164,60 +161,6 @@ def device_memory_stats(device: Optional[Any] = None) -> Dict[str, int]:
     if dev.type != "cuda":
         return {}
     return dict(torch.cuda.memory_stats(dev))
-
-
-# Chrome-trace categories of work that occupies the device.
-DEVICE_CATS = ("kernel", "gpu_memcpy", "gpu_memset")
-
-
-def device_busy(events: Iterable[dict]) -> Dict:
-    """Chrome-trace events -> ``{"busy_us", "ops", "per_op_us"}``: the
-    union of the device intervals (overlapping streams count once), how
-    many device ops ran, and each op name's summed duration."""
-    dev = [e for e in events
-           if e.get("ph") == "X" and e.get("cat") in DEVICE_CATS]
-    busy, end = 0.0, float("-inf")
-    for s, e in sorted((e["ts"], e["ts"] + e["dur"]) for e in dev):
-        if e > end:
-            busy += e - max(s, end)
-            end = e
-    per_op = collections.Counter()
-    for e in dev:
-        per_op[e["name"]] += e["dur"]
-    return {"busy_us": busy, "ops": len(dev), "per_op_us": dict(per_op)}
-
-
-def profile_calls(fn: Callable[[], object], n: int, trace_path: str,
-                  top: int = 10) -> Dict:
-    """Run ``fn()`` once to warm up, then ``n`` times under the profiler.
-
-    Writes the Chrome trace to ``trace_path`` and returns per-call
-    ``wall_ms`` (host clock over the window, device synchronised at its
-    end), ``busy_ms``, ``idle_share`` = 1 - busy / wall, ``ops`` and the
-    ``top`` device ops by time as ``[(name, ms per call), ...]``. The
-    profiler itself slows the host, so ``wall_ms`` exceeds an unprofiled
-    call's time."""
-    cuda = torch.cuda.is_available()
-    sync = torch.cuda.synchronize if cuda else (lambda: None)
-    acts = _activities()
-    fn()
-    sync()
-    with torch.profiler.profile(activities=acts) as prof:
-        t0 = time.perf_counter()
-        for _ in range(n):
-            fn()
-        sync()
-        wall = time.perf_counter() - t0
-    prof.export_chrome_trace(trace_path)
-    with open(trace_path) as f:
-        trace = json.load(f)
-    events = trace["traceEvents"] if isinstance(trace, dict) else trace
-    d = device_busy(events)
-    wall_ms, busy_ms = wall * 1e3 / n, d["busy_us"] / 1e3 / n
-    leaders = sorted(d["per_op_us"].items(), key=lambda kv: -kv[1])[:top]
-    return {"wall_ms": wall_ms, "busy_ms": busy_ms,
-            "idle_share": 1.0 - busy_ms / wall_ms, "ops": d["ops"] / n,
-            "top": [(name, us / 1e3 / n) for name, us in leaders]}
 
 
 # -- the serving path's spans, stage stamps and counters ----------------------

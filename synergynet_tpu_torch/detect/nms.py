@@ -24,8 +24,7 @@ test runs every ``_CHECK_EVERY`` steps; extra steps past the fixpoint
 change nothing. :func:`greedy_nms_walk_reference` is N1's own algorithm in
 plain PyTorch (:func:`suppression_rows` with N1's IoU test
 :func:`iou_at_least`, in N1's layout :func:`n1_word_index`, then the tiled
-walk), which the tests hold against both. ``greedy_nms_mask.launches``
-counts N1's launches.
+walk), which the tests hold against both.
 """
 
 from __future__ import annotations
@@ -36,8 +35,8 @@ import numpy as np
 import torch
 
 from synergynet_tpu_torch.core.device import resolve_device
-from synergynet_tpu_torch.ops.cuda_build import (check_tensor,
-                                                 kernel_entry, require_sm90)
+from synergynet_tpu_torch.ops.cuda_build import (check_tensor, launch,
+                                                 require_sm90)
 
 _WORD = 32
 # Frames per block of the (frames, K, K) IoU temporaries in greedy_nms_mask.
@@ -262,23 +261,15 @@ def _launch(boxes: torch.Tensor, valid: torch.Tensor,
         raise ValueError(f"{f} frames: kernel N1 takes at most "
                          f"{N1_MAX_FRAMES}")
     require_sm90(dev, "greedy-NMS")
-    fn = kernel_entry("nms_greedy", "synergy_nms_greedy",
-                      [ctypes.c_void_p] * 4 + [ctypes.c_int] * 2
-                      + [ctypes.c_float, ctypes.c_void_p])
     keep = torch.empty((f, k), dtype=torch.bool, device=dev)
     if keep.numel() == 0:
         return keep
     if boxes.data_ptr() % 16:            # the kernel reads boxes as float4
         boxes = boxes.clone()
     sup = torch.empty((f, n1_layout(k)[1]), dtype=torch.int64, device=dev)
-    with torch.cuda.device(dev):
-        rc = fn(boxes.data_ptr(), valid.data_ptr(), sup.data_ptr(),
-                keep.data_ptr(), f, k, float(iou_threshold),
-                torch.cuda.current_stream(dev).cuda_stream)
-    if rc != 0:
-        raise RuntimeError(f"greedy-NMS kernel launch failed: CUDA error "
-                           f"{rc}")
-    greedy_nms_mask.launches += 1
+    launch("nms_greedy", "synergy_nms_greedy",
+           [ctypes.c_void_p] * 4 + [ctypes.c_int] * 2 + [ctypes.c_float], dev,
+           boxes, valid, sup, keep, f, k, float(iou_threshold))
     return keep
 
 
@@ -300,9 +291,6 @@ def greedy_nms_mask(boxes: torch.Tensor, valid: torch.Tensor,
     if boxes.device.type == "cpu":
         return greedy_nms_mask_reference(boxes, valid, iou_threshold)
     raise ValueError(f"no greedy NMS for device {boxes.device}")
-
-
-greedy_nms_mask.launches = 0
 
 
 def nms_indices(dets, iou_threshold: float = 0.3, device="cuda"):

@@ -16,8 +16,6 @@ because VMEM is small; the Hopper kernel takes any H8 and W8.
 
 :func:`fused_stem1_s2d8` launches the kernel on a CUDA tensor, or raises;
 on a CPU tensor it runs the plain twin :func:`fused_stem1_s2d8_reference`.
-``fused_stem1_s2d8.launches`` counts the launches of the bf16 entry and
-``fused_stem1_s2d8.launches_f32`` those of the f32 entry.
 """
 
 from __future__ import annotations
@@ -29,8 +27,7 @@ import torch.nn.functional as F
 
 from synergynet_tpu_torch.detect.net import phase_maxpool_s2d8
 from synergynet_tpu_torch.mm3d.codec import full_fp32
-from synergynet_tpu_torch.ops.cuda_build import (check_tensor,
-                                                 kernel_entry,
+from synergynet_tpu_torch.ops.cuda_build import (check_tensor, launch,
                                                  require_sm90)
 
 CIN = 192
@@ -90,27 +87,18 @@ def _launch(x: torch.Tensor, weight4: torch.Tensor, bias: torch.Tensor,
                 or not stamps.is_contiguous() or stamps.numel() < sms * 8 * 4:
             raise ValueError("stamps: a contiguous int64 tensor of SMs x 8 x "
                              "4 values on x's device, for the f32 entry")
-    # The f32 entry takes the stamps pointer before the stream.
-    fn = kernel_entry("stem_s2d8",
-                      "synergy_stem_s2d8_f32" if f32 else "synergy_stem_s2d8",
-                      [ctypes.c_void_p] * 4 + [ctypes.c_int] * 3
-                      + [ctypes.c_void_p] * (2 if f32 else 1))
     bias32 = bias.float().contiguous()
     out = torch.empty((b, h8, w8, COUT), dtype=x.dtype, device=dev)
     if out.numel() == 0:
         return out
-    args = (x.data_ptr(), weight4.data_ptr(), bias32.data_ptr(),
-            out.data_ptr(), b, h8, w8)
-    if f32:
-        args += (None if stamps is None else stamps.data_ptr(),)
-    with torch.cuda.device(dev):
-        rc = fn(*args, torch.cuda.current_stream(dev).cuda_stream)
-    if rc != 0:
-        raise RuntimeError(f"stem kernel launch failed: CUDA error {rc}")
-    if f32:
-        fused_stem1_s2d8.launches_f32 += 1
+    argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 3
+    if f32:     # the f32 entry takes the stamps pointer before the stream
+        launch("stem_s2d8", "synergy_stem_s2d8_f32",
+               argtypes + [ctypes.c_void_p], dev,
+               x, weight4, bias32, out, b, h8, w8, stamps)
     else:
-        fused_stem1_s2d8.launches += 1
+        launch("stem_s2d8", "synergy_stem_s2d8", argtypes, dev,
+               x, weight4, bias32, out, b, h8, w8)
     return out
 
 
@@ -119,10 +107,8 @@ def fused_stem1_s2d8(x: torch.Tensor, weight4: torch.Tensor,
     """(B, H8, W8, 192) s2d8 frames + (4, 192, 4*cout) tap weights (see
     :func:`taps_from_oihw`) + (4*cout,) bias -> (B, H8, W8, cout) pooled
     stem output, NHWC, in ``x``'s dtype, bf16 or f32 (any other raises). On
-    a CUDA tensor the kernel ``csrc/stem_s2d8.cu`` (cout = 48): its bf16
-    entry, counted in ``fused_stem1_s2d8.launches``, or its f32 entry,
-    counted in ``fused_stem1_s2d8.launches_f32``; or an error. On a CPU
-    tensor the plain twin."""
+    a CUDA tensor the kernel ``csrc/stem_s2d8.cu`` (cout = 48), its bf16
+    or its f32 entry, or an error. On a CPU tensor the plain twin."""
     if x.dtype not in DTYPES:
         raise TypeError(f"x is {x.dtype}; the stem takes one of {DTYPES}")
     if x.device.type == "cuda":
@@ -133,7 +119,3 @@ def fused_stem1_s2d8(x: torch.Tensor, weight4: torch.Tensor,
     if x.device.type == "cpu":
         return fused_stem1_s2d8_reference(x, weight4, bias, cout)
     raise ValueError(f"no stem kernel for device {x.device}")
-
-
-fused_stem1_s2d8.launches = 0
-fused_stem1_s2d8.launches_f32 = 0

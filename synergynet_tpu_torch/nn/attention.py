@@ -12,8 +12,9 @@ a card. In a device trace the kernels' names hold ``flash_fwd``
 kernel), the fragment the benchmark reads them by. On the CPU it runs the
 plain product in f32 and rounds the result once to the inputs' dtype.
 
-``attention.launches`` counts the calls, one fused launch each on a card;
-a captured program credits it on every replay
+``launches["attention"]``, in the launch table of
+:mod:`synergynet_tpu_torch.ops.cuda_build`, counts the calls, one fused
+launch each on a card; a captured program credits it on every replay
 (:mod:`synergynet_tpu_torch.pipeline.program`).
 """
 
@@ -21,6 +22,8 @@ from __future__ import annotations
 
 import torch
 import torch.nn.functional as F
+
+from synergynet_tpu_torch.ops.cuda_build import launches
 
 
 def attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor
@@ -35,8 +38,5 @@ def attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor
         scores = torch.matmul(q.float(), k.float().transpose(-1, -2))
         weights = torch.softmax(scores * q.shape[-1] ** -0.5, dim=-1)
         out = torch.matmul(weights, v.float()).to(q.dtype)
-    attention.launches += 1
+    launches["attention"] += 1
     return out
-
-
-attention.launches = 0

@@ -6,10 +6,16 @@ with nvcc alone in seconds, without PyTorch's headers. The shared library
 goes to :func:`synergynet_tpu_torch.core.paths.build_dir`, named by a hash
 of its source and flags, so an edited source never loads a stale build.
 The build happens at first use, never at import.
+
+Every kernel wrapper launches its entries through :func:`launch`, which
+counts each successful launch in :data:`launches` by its C symbol; a
+captured program credits the table on every replay
+(:mod:`synergynet_tpu_torch.pipeline.program`).
 """
 
 from __future__ import annotations
 
+import collections
 import ctypes
 import hashlib
 import os
@@ -27,6 +33,10 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
 
 _LOADED: dict = {}
 _ENTRIES: dict = {}
+
+# Launches per C symbol ("synergy_fused_decode", ...), and the attention's
+# SDPA calls under "attention".
+launches: collections.Counter = collections.Counter()
 
 
 def nvcc_path() -> str:
@@ -83,6 +93,24 @@ def kernel_entry(name: str, symbol: str, argtypes) -> ctypes._CFuncPtr:
         fn.restype = ctypes.c_int
         _ENTRIES[(name, symbol)] = fn
     return fn
+
+
+def launch(library: str, symbol: str, argtypes, device, *args) -> None:
+    """Launch the C entry ``symbol`` of ``csrc/<library>.cu`` on
+    ``device``'s current stream: ``args`` as ``argtypes`` take them (a
+    tensor passes its data pointer, None a null pointer, an int or a float
+    itself), then the stream. Raises ``RuntimeError`` when the entry
+    returns a CUDA error; counts a launch in ``launches[symbol]``."""
+    import torch
+
+    fn = kernel_entry(library, symbol, (*argtypes, ctypes.c_void_p))
+    values = [a.data_ptr() if isinstance(a, torch.Tensor) else a
+              for a in args]
+    with torch.cuda.device(device):
+        rc = fn(*values, torch.cuda.current_stream(device).cuda_stream)
+    if rc != 0:
+        raise RuntimeError(f"kernel {symbol} failed: CUDA error {rc}")
+    launches[symbol] += 1
 
 
 def check_tensor(name: str, t, dtypes, shape, device) -> None:

@@ -10,7 +10,7 @@ in the JAX package: ``w`` (3, Npad, 50) for x, y, z and means ``u``
 (the tiny (B, 62) prologue stays outside the kernel, as in the JAX
 package), then launches ``csrc/fused_decode.cu`` on a CUDA tensor — or
 raises — and runs the plain twin :func:`decode_dense_fused_reference` on a
-CPU tensor. ``decode_dense_fused.launches`` counts kernel launches.
+CPU tensor.
 :func:`decode_dense_fast` is the same decode on a basis built once per
 pack (:func:`get_decode_basis`).
 """
@@ -26,8 +26,7 @@ import torch
 
 from synergynet_tpu_torch.mm3d.assets import ParamPack, STD_SIZE
 from synergynet_tpu_torch.mm3d.codec import dewhiten, full_fp32
-from synergynet_tpu_torch.ops.cuda_build import (check_tensor,
-                                                 kernel_entry,
+from synergynet_tpu_torch.ops.cuda_build import (check_tensor, launch,
                                                  require_sm90)
 
 LANE = 128
@@ -121,21 +120,13 @@ def _launch(alpha, p9, off, basis: DecodeBasis) -> torch.Tensor:
         raise ValueError(f"batch {b} x {nver} vertices exceeds the kernel's "
                          "32-bit extents")
     require_sm90(dev, "fused-decode")
-    fn = kernel_entry("fused_decode", "synergy_fused_decode",
-                      [ctypes.c_void_p] * 6 + [ctypes.c_int] * 4
-                      + [ctypes.c_void_p])
     out = torch.empty((b, 3, nver), dtype=torch.float32, device=dev)
     if b == 0:
         return out
-    with torch.cuda.device(dev):
-        stream = torch.cuda.current_stream(dev).cuda_stream
-        rc = fn(alpha.data_ptr(), p9.data_ptr(), off.data_ptr(),
-                basis.w.data_ptr(), basis.u.data_ptr(), out.data_ptr(),
-                b, nver, npad, decode_variant(b), stream)
-    if rc != 0:
-        raise RuntimeError(f"fused-decode kernel launch failed: CUDA error "
-                           f"{rc}")
-    decode_dense_fused.launches += 1
+    launch("fused_decode", "synergy_fused_decode",
+           [ctypes.c_void_p] * 6 + [ctypes.c_int] * 4, dev,
+           alpha, p9, off, basis.w, basis.u, out, b, nver, npad,
+           decode_variant(b))
     return out
 
 
@@ -153,9 +144,6 @@ def decode_dense_fused(param: torch.Tensor, basis: DecodeBasis,
     if param.device.type == "cpu":
         return _decode_plain(alpha, p9, off, basis)
     raise ValueError(f"no fused decode for device {param.device}")
-
-
-decode_dense_fused.launches = 0
 
 
 # pack.w_shp's id -> (a weak reference to it, its basis on its device). The

@@ -19,9 +19,7 @@ bf16 or 4 in f32) or raises; on a CPU tensor each runs its plain twin
 expressions as written before R1). R1 rounds where the twins round, so the
 two differ only by the order of the spatial sum. Where autograd records the
 call, R1 runs under a ``torch.autograd.Function`` whose backward is the
-twin's, recomputed. ``radix_pool.launches`` and ``radix_combine.launches``
-count R1's launches; a captured program credits them on every replay
-(:mod:`synergynet_tpu_torch.pipeline.program`).
+twin's, recomputed.
 """
 
 from __future__ import annotations
@@ -31,7 +29,7 @@ import ctypes
 import torch
 
 from synergynet_tpu_torch.nn.layers import spatial_mean
-from synergynet_tpu_torch.ops.cuda_build import (check_tensor, kernel_entry,
+from synergynet_tpu_torch.ops.cuda_build import (check_tensor, launch,
                                                  require_sm90)
 
 # R1's weights (radix x c floats) live in 48 KB of shared memory. The C
@@ -85,21 +83,6 @@ def _check_y(y: torch.Tensor, radix: int) -> int:
     return c
 
 
-def _call(dev: torch.device, symbol: str, tensors, ints) -> None:
-    """Launch ``csrc/split_attention.cu``'s C entry ``symbol`` on
-    ``tensors``' pointers and ``ints``, on the current stream; raise if it
-    fails."""
-    fn = kernel_entry("split_attention", symbol,
-                      [ctypes.c_void_p] * len(tensors)
-                      + [ctypes.c_int] * len(ints) + [ctypes.c_void_p])
-    with torch.cuda.device(dev):
-        rc = fn(*(t.data_ptr() for t in tensors), *ints,
-                torch.cuda.current_stream(dev).cuda_stream)
-    if rc != 0:
-        raise RuntimeError(f"split-attention kernel {symbol} failed: CUDA "
-                           f"error {rc}")
-
-
 def _pool(y: torch.Tensor, radix: int) -> torch.Tensor:
     """Check, allocate, launch R1's pool on the current stream. No host
     read and no synchronisation: safe under a CUDA graph capture."""
@@ -107,9 +90,9 @@ def _pool(y: torch.Tensor, radix: int) -> torch.Tensor:
     b, _, h, w = y.shape
     out = torch.empty((b, c, 1, 1), dtype=y.dtype, device=y.device)
     if out.numel() and h * w:
-        _call(y.device, "synergy_splat_pool", (y, out),
-              (b, h * w, radix, c, y.element_size()))
-        radix_pool.launches += 1
+        launch("split_attention", "synergy_splat_pool",
+               [ctypes.c_void_p] * 2 + [ctypes.c_int] * 5, y.device,
+               y, out, b, h * w, radix, c, y.element_size())
     return out
 
 
@@ -129,9 +112,9 @@ def _combine(y: torch.Tensor, logits: torch.Tensor, radix: int,
     out = torch.empty((b, c, h, w), dtype=y.dtype, device=y.device,
                       memory_format=torch.channels_last)
     if out.numel():
-        _call(y.device, "synergy_splat_combine", (y, flat, out),
-              (b, h * w, radix, c, groups, y.element_size()))
-        radix_combine.launches += 1
+        launch("split_attention", "synergy_splat_combine",
+               [ctypes.c_void_p] * 3 + [ctypes.c_int] * 6, y.device,
+               y, flat, out, b, h * w, radix, c, groups, y.element_size())
     return out
 
 
@@ -195,7 +178,3 @@ def radix_combine(y: torch.Tensor, logits: torch.Tensor, radix: int,
     if y.device.type == "cpu":
         return radix_combine_reference(y, logits, radix, groups)
     raise ValueError(f"no split-attention combine for device {y.device}")
-
-
-radix_pool.launches = 0
-radix_combine.launches = 0

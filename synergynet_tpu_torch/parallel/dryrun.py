@@ -119,7 +119,7 @@ def rank_main(device: str) -> dict:
     from synergynet_tpu_torch.core.mesh import (DATA_AXIS, make_mesh,
                                                 replicate, shard_batch)
     from synergynet_tpu_torch.mm3d.codec import full_fp32
-    from synergynet_tpu_torch.ops.fused_decode import decode_dense_fused
+    from synergynet_tpu_torch.ops.cuda_build import launches
     from synergynet_tpu_torch.parallel import (shard_fused_engine,
                                                tp_dense_decode,
                                                warm_mesh_cliques)
@@ -149,22 +149,23 @@ def rank_main(device: str) -> dict:
         out[f"step_bn{bn_groups}"] = _state_dict(state)
 
     # 2. the tensor-parallel dense decode
-    before = decode_dense_fused.launches
+    b1 = "synergy_fused_decode"
+    before = launches[b1]
     decode = tp_dense_decode(tp_mesh, pack)
     p62 = _decode_params(tp_mesh.shape[DATA_AXIS])
     tp_rows = slice(tp_mesh.data_index * 2, (tp_mesh.data_index + 1) * 2)
     slab, checksum = decode(torch.from_numpy(p62[tp_rows]).to(dev))
     out["tp"] = {"slab": slab.cpu(), "checksum": checksum.cpu(),
                  "range": decode.vertex_range,
-                 "launches": decode_dense_fused.launches - before,
+                 "launches": launches[b1] - before,
                  "row": tp_mesh.data_index}
 
     # 3. sharded serving
     engine = _engine(dev)
-    before = decode_dense_fused.launches
+    before = launches[b1]
     outs = shard_fused_engine(engine, mesh)(*_frames(d, dev))
     out["serve"] = [x.cpu() for x in outs]
-    out["serve_launches"] = decode_dense_fused.launches - before
+    out["serve_launches"] = launches[b1] - before
 
     # 4. a one-step generative resident epoch
     out["gen_start"] = _state_dict(state)

@@ -11,12 +11,11 @@ crop border, and samples from outside the image are zero.
 value: on a CUDA tensor kernel C1 (``csrc/crop_bilinear.cu``), on a CPU
 tensor the plain twin :func:`crop_resize_reference`, which repeats C1's
 arithmetic op for op (:func:`crop_taps` the taps, then the two rows' blend
-at each column tap, then the two columns'). ``crop_resize_bilinear.launches``
-counts C1's launches. The JAX package's ``crop_resize_matmul`` (two products
-with per-roi interpolation matrices) and ``crop_resize_hybrid`` (a row
-gather, then the column matmul) compute the same function in other shapes
-of TPU work, for its ``crop_mode`` selector; the port has one
-implementation and keeps their names for it.
+at each column tap, then the two columns'). The JAX package's
+``crop_resize_matmul`` (two products with per-roi interpolation matrices)
+and ``crop_resize_hybrid`` (a row gather, then the column matmul) compute
+the same function in other shapes of TPU work, for its ``crop_mode``
+selector; the port has one implementation and keeps their names for it.
 """
 
 from __future__ import annotations
@@ -25,7 +24,7 @@ import ctypes
 
 import torch
 
-from synergynet_tpu_torch.ops.cuda_build import (check_tensor, kernel_entry,
+from synergynet_tpu_torch.ops.cuda_build import (check_tensor, launch,
                                                  require_sm90)
 
 # The largest output side C1 takes (its shared tap arrays).
@@ -76,8 +75,9 @@ def crop_taps(rois: torch.Tensor, size_hw, out_size: int = 120):
         idx = torch.empty((len(flat), 2, out_size, 2), dtype=torch.int32,
                           device=dev)
         f = torch.empty((len(flat), 2, out_size), device=dev)
-        _call(dev, "synergy_crop_taps", (flat, idx, f),
-              (len(flat), h, w, out_size))
+        launch("crop_bilinear", "synergy_crop_taps",
+               [ctypes.c_void_p] * 3 + [ctypes.c_int] * 4, dev,
+               flat, idx, f, len(flat), h, w, out_size)
         return (idx.reshape(*lead, 2, out_size, 2),
                 f.reshape(*lead, 2, out_size))
     ys, fy = _axis_taps(rois[..., 1], rois[..., 3], h, out_size)
@@ -116,19 +116,6 @@ def _check(dev: torch.device, out_size: int) -> None:
     require_sm90(dev, "crop")
 
 
-def _call(dev: torch.device, symbol: str, tensors, ints) -> None:
-    """Launch ``csrc/crop_bilinear.cu``'s C entry ``symbol`` on ``tensors``'
-    pointers and ``ints``, on the current stream; raise if it fails."""
-    fn = kernel_entry("crop_bilinear", symbol,
-                      [ctypes.c_void_p] * len(tensors)
-                      + [ctypes.c_int] * len(ints) + [ctypes.c_void_p])
-    with torch.cuda.device(dev):
-        rc = fn(*(t.data_ptr() for t in tensors), *ints,
-                torch.cuda.current_stream(dev).cuda_stream)
-    if rc != 0:
-        raise RuntimeError(f"crop kernel {symbol} failed: CUDA error {rc}")
-
-
 def _launch(image: torch.Tensor, rois: torch.Tensor,
             out_size: int) -> torch.Tensor:
     """Check what C1 takes, allocate its output, launch on the current
@@ -144,9 +131,9 @@ def _launch(image: torch.Tensor, rois: torch.Tensor,
     out = torch.empty((b, n, out_size, out_size, c), device=dev)
     if out.numel() == 0:
         return out
-    _call(dev, "synergy_crop_bilinear", (image, rois, out),
-          (b * n, n, h, w, c, out_size))
-    crop_resize_bilinear.launches += 1
+    launch("crop_bilinear", "synergy_crop_bilinear",
+           [ctypes.c_void_p] * 3 + [ctypes.c_int] * 6, dev,
+           image, rois, out, b * n, n, h, w, c, out_size)
     return out
 
 
@@ -165,5 +152,4 @@ def crop_resize_bilinear(image: torch.Tensor, rois: torch.Tensor,
     raise ValueError(f"no crop for device {image.device}")
 
 
-crop_resize_bilinear.launches = 0
 crop_resize_hybrid = crop_resize_matmul = crop_resize_bilinear

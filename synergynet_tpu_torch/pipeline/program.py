@@ -18,11 +18,11 @@ replayed after:
   call's outputs survive the next call, as JAX's fresh arrays do;
 - one lock around set-up, copy-in, replay and clone-out, so concurrent
   callers serialize instead of racing on the static buffers;
-- launch accounting: a kernel wrapper's ``launches`` counter runs in
-  Python, which a replay skips. The capture records each counter's
-  increase, and every replay credits it again; the set-up's own calls
-  leave the counters as they were. So a counter reads one call's launches
-  per call, replayed or eager.
+- launch accounting: the launch table ``launches`` of
+  :mod:`synergynet_tpu_torch.ops.cuda_build` counts in Python, which a
+  replay skips. The capture records each entry's increase, and every
+  replay credits it again; the set-up's own calls leave the table as it
+  was. So an entry reads one call's launches per call, replayed or eager.
 - measurement (:mod:`synergynet_tpu_torch.core.profiling`): each program
   has its own record in the recorder, named by its key and its engine
   (:class:`ProgramCache`'s ``engine``): every call adds its bytes in and
@@ -53,41 +53,9 @@ import torch
 
 from synergynet_tpu_torch.core.profiling import (ProgramStats, annotate,
                                                  recorder)
+from synergynet_tpu_torch.ops.cuda_build import launches, load_kernel_library
 
 WARMUP = 2
-
-
-def launch_counters() -> Tuple[Tuple[object, str], ...]:
-    """Every kernel wrapper's launch counter, as (holder, attribute)."""
-    from synergynet_tpu_torch.detect.nms import greedy_nms_mask
-    from synergynet_tpu_torch.detect.stem_fused import fused_stem1_s2d8
-    from synergynet_tpu_torch.nn.attention import attention
-    from synergynet_tpu_torch.ops.fused_decode import decode_dense_fused
-    from synergynet_tpu_torch.ops.split_attention import (radix_combine,
-                                                          radix_pool)
-    from synergynet_tpu_torch.pipeline.device_crop import crop_resize_bilinear
-    from synergynet_tpu_torch.render.raster_tiled import (rasterize_mesh,
-                                                          rasterize_mesh_ids)
-    return ((decode_dense_fused, "launches"),
-            (fused_stem1_s2d8, "launches"),
-            (fused_stem1_s2d8, "launches_f32"),
-            (greedy_nms_mask, "launches"),
-            (crop_resize_bilinear, "launches"),
-            (attention, "launches"),
-            (radix_pool, "launches"),
-            (radix_combine, "launches"),
-            (rasterize_mesh, "launches"),
-            (rasterize_mesh_ids, "launches"))
-
-
-def _read(counters) -> Tuple[int, ...]:
-    return tuple(getattr(h, a) for h, a in counters)
-
-
-def _credit(counters, amounts) -> None:
-    for (h, a), n in zip(counters, amounts):
-        if n:
-            setattr(h, a, getattr(h, a) + n)
 
 
 # The process captures one graph at a time (torch.cuda.graph's rule).
@@ -108,8 +76,7 @@ class CapturedProgram:
     def __init__(self, fn: Callable, inputs: Sequence[torch.Tensor],
                  stats: ProgramStats):
         dev = inputs[0].device
-        counters = launch_counters()
-        before = _read(counters)
+        before = launches.copy()
         self.stats = stats
         seq = stats.sequence
         self.inputs = [x.clone() for x in inputs]
@@ -125,7 +92,7 @@ class CapturedProgram:
             torch.cuda.synchronize(dev)
             torch.cuda.empty_cache()
             reserved = _reserved(dev)
-            start = _read(counters)
+            start = launches.copy()
             # The warm-up's stream, whose cuBLAS workspace exists already;
             # thread_local: another thread's eager work (an allocation, a
             # sync) does not invalidate this capture.
@@ -135,14 +102,13 @@ class CapturedProgram:
                 if seq is not None:         # the copy-in ends here
                     seq.done(seq.stages[0])
                 outputs = fn(*self.inputs)
-            end = _read(counters)
+            end = launches.copy()
             self.pool_bytes = _reserved(dev) - reserved
         torch.cuda.current_stream(dev).wait_stream(side)
         self.outputs = tuple(outputs)
         # What one replay launches; the set-up itself is not counted.
-        self.credits = tuple(e - s for e, s in zip(end, start))
-        _credit(counters, [b - e for b, e in zip(before, end)])
-        self.counters = counters
+        self.credits = end - start
+        launches.subtract(end - before)
         self.stream = torch.cuda.current_stream(dev)
         self.bytes_in, self.bytes_out = (_nbytes(self.inputs),
                                          _nbytes(self.outputs))
@@ -167,7 +133,7 @@ class CapturedProgram:
             out = tuple(o.clone() for o in self.outputs)
         if seq is not None:
             seq.done(seq.stages[-1])
-        _credit(self.counters, self.credits)
+        launches.update(self.credits)
         st.calls += 1
         st.bytes_in += self.bytes_in
         st.bytes_out += self.bytes_out
@@ -223,8 +189,6 @@ class ProgramCache:
         self.programs: dict = {}
         self.lock = threading.Lock()
         if self.device.type == "cuda":
-            from synergynet_tpu_torch.ops.cuda_build import (
-                load_kernel_library)
             for name in (*kernels, "stage_stamp"):
                 load_kernel_library(name)
 

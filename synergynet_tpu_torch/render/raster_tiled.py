@@ -49,8 +49,7 @@ them with :func:`rasterize_records_reference` /
 :func:`rasterize_ids_reference`: enumerate each triangle's bbox pixels,
 evaluate the same planes in the same operation order and keep the key's
 max with ``scatter_reduce_(..., "amax")``, so kernels and twins agree bit
-for bit. ``rasterize_mesh.launches`` and ``rasterize_mesh_ids.launches``
-count the kernels' launches.
+for bit.
 """
 
 from __future__ import annotations
@@ -62,8 +61,8 @@ import numpy as np
 import torch
 
 from synergynet_tpu_torch.core.device import resolve_device
-from synergynet_tpu_torch.ops.cuda_build import (check_tensor,
-                                                 kernel_entry, require_sm90)
+from synergynet_tpu_torch.ops.cuda_build import (check_tensor, launch,
+                                                 require_sm90)
 from synergynet_tpu_torch.render.raster import (DEPTH_INIT, as_tensor,
                                                 blend_uint8, no_window)
 
@@ -302,11 +301,10 @@ def eval_deferred_payloads(tri_id: torch.Tensor, drawn: torch.Tensor,
     return torch.where(drawn[..., None], val, torch.zeros_like(val))
 
 
-# The C entries of csrc/raster_tiled.cu: pointers, then ints, then the
-# stream.
-_MESH_ARGS = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 6 + [ctypes.c_void_p]
-_MESH_IDS_ARGS = ([ctypes.c_void_p] * 6 + [ctypes.c_int] * 5
-                  + [ctypes.c_void_p])
+# The C entries of csrc/raster_tiled.cu: pointers, then ints (the stream
+# follows).
+_MESH_ARGS = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 6
+_MESH_IDS_ARGS = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 5
 
 
 def _check_mesh(vertices: torch.Tensor, triangles: torch.Tensor,
@@ -333,10 +331,6 @@ def _check_mesh(vertices: torch.Tensor, triangles: torch.Tensor,
                          "canvas exceed the kernels' 32-bit extents")
 
 
-def _stream(dev: torch.device) -> int:
-    return torch.cuda.current_stream(dev).cuda_stream
-
-
 def rasterize_mesh(vertices: torch.Tensor, triangles: torch.Tensor,
                    payloads: torch.Tensor, *, h: int, w: int
                    ) -> Tuple[torch.Tensor, torch.Tensor]:
@@ -354,24 +348,15 @@ def rasterize_mesh(vertices: torch.Tensor, triangles: torch.Tensor,
     if dev.type != "cuda":
         raise ValueError(f"no raster kernel for device {dev}")
     require_sm90(dev, "raster")
-    fn = kernel_entry("raster_tiled", "synergy_raster_mesh", _MESH_ARGS)
     n_payload = payloads.shape[1]
     keys = torch.empty((h * w,), dtype=torch.int64, device=dev)
     zbuf = torch.empty((h, w), dtype=torch.float32, device=dev)
     out = torch.empty((h, w, n_payload), dtype=torch.float32, device=dev)
-    with torch.cuda.device(dev):
-        rc = fn(vertices.data_ptr(), triangles.data_ptr(),
-                payloads.data_ptr(), keys.data_ptr(), zbuf.data_ptr(),
-                out.data_ptr(), int(triangles.dtype == torch.int64),
-                vertices.shape[0], triangles.shape[0], n_payload, h, w,
-                _stream(dev))
-    if rc != 0:
-        raise RuntimeError(f"raster kernel launch failed: CUDA error {rc}")
-    rasterize_mesh.launches += 1
+    launch("raster_tiled", "synergy_raster_mesh", _MESH_ARGS, dev,
+           vertices, triangles, payloads, keys, zbuf, out,
+           int(triangles.dtype == torch.int64), vertices.shape[0],
+           triangles.shape[0], n_payload, h, w)
     return zbuf, out
-
-
-rasterize_mesh.launches = 0
 
 
 def rasterize_mesh_ids(vertices: torch.Tensor, triangles: torch.Tensor, *,
@@ -390,25 +375,15 @@ def rasterize_mesh_ids(vertices: torch.Tensor, triangles: torch.Tensor, *,
     if dev.type != "cuda":
         raise ValueError(f"no raster kernel for device {dev}")
     require_sm90(dev, "raster")
-    fn = kernel_entry("raster_tiled", "synergy_raster_mesh_ids",
-                      _MESH_IDS_ARGS)
     keys = torch.empty((h * w,), dtype=torch.int64, device=dev)
     zbuf = torch.empty((h, w), dtype=torch.float32, device=dev)
     ids = torch.empty((h, w), dtype=torch.int32, device=dev)
     bary = torch.empty((h, w), dtype=torch.float32, device=dev) if w0 else None
-    with torch.cuda.device(dev):
-        rc = fn(vertices.data_ptr(), triangles.data_ptr(), keys.data_ptr(),
-                zbuf.data_ptr(), ids.data_ptr(),
-                bary.data_ptr() if w0 else None,
-                int(triangles.dtype == torch.int64), vertices.shape[0],
-                triangles.shape[0], h, w, _stream(dev))
-    if rc != 0:
-        raise RuntimeError(f"raster ids kernel launch failed: CUDA error {rc}")
-    rasterize_mesh_ids.launches += 1
+    launch("raster_tiled", "synergy_raster_mesh_ids", _MESH_IDS_ARGS, dev,
+           vertices, triangles, keys, zbuf, ids, bary,
+           int(triangles.dtype == torch.int64), vertices.shape[0],
+           triangles.shape[0], h, w)
     return (zbuf, ids, bary) if w0 else (zbuf, ids)
-
-
-rasterize_mesh_ids.launches = 0
 
 
 def rasterize_mesh_ids_reference(vertices: torch.Tensor,

@@ -30,6 +30,7 @@ from synergynet_tpu.render.raster_tiled import \
 from synergynet_tpu.render.raster_tiled import \
     rasterize_triangles_tiled as jax_visibility
 from synergynet_tpu.render.raster_tiled import replication_for
+from synergynet_tpu_torch.ops.cuda_build import launches
 from synergynet_tpu_torch.render import (
     DEPTH_INIT, compact_records, eval_deferred_payloads,
     rasterize_buffers_tiled, rasterize_ids_reference, rasterize_mesh_ids,
@@ -94,9 +95,9 @@ def test_ids_twin_matches_jax_compact_kernel(mesh):
     np.testing.assert_allclose(zt.numpy(), np.asarray(zj), **DEPTH)
     # The mesh entry of kernel B3 on the CPU: the twin on the port's own
     # records, with the same winners; it counts no launch.
-    before = rasterize_mesh_ids.launches
+    before = launches["synergy_raster_mesh_ids"]
     zm, idm = rasterize_mesh_ids(*_t(v, t), h=h, w=w)
-    assert rasterize_mesh_ids.launches == before
+    assert launches["synergy_raster_mesh_ids"] == before
     np.testing.assert_array_equal(idm.numpy(), np.asarray(idj))
     np.testing.assert_allclose(zm.numpy(), np.asarray(zj), **DEPTH)
 

@@ -15,9 +15,15 @@ from synergynet_tpu_torch.mm3d import load_param_pack
 from synergynet_tpu_torch.mm3d.codec import full_fp32
 from synergynet_tpu_torch.ops import (build_decode_basis, decode_dense_fused,
                                       decode_dense_fused_reference)
+from synergynet_tpu_torch.ops.cuda_build import launches
 from tests.nms_cases import CASES as NMS_CASES
 
 torch.set_num_threads(2)
+
+
+def _counts(*symbols):
+    """The launch table's counts of the C entries ``symbols``."""
+    return tuple(launches[s] for s in symbols)
 
 RTOL, ATOL = 1e-4, 1e-3     # the dense decode's tolerance (f32)
 
@@ -49,10 +55,10 @@ def test_fused_decode_matches_plain_twin(cuda, full, b):
     rng = np.random.default_rng(b)
     p = torch.tensor(rng.normal(0, 1, (b, 62)).astype(np.float32),
                      device=cuda)
-    before = decode_dense_fused.launches
+    before = launches["synergy_fused_decode"]
     got = decode_dense_fused(p, basis, pack)
     torch.cuda.synchronize()
-    assert decode_dense_fused.launches == before + 1
+    assert launches["synergy_fused_decode"] == before + 1
     assert got.shape == (b, 3, 53215)
     torch.testing.assert_close(got, decode_dense_fused_reference(p, basis,
                                                                  pack),
@@ -186,11 +192,11 @@ def _assert_raster_twins(verts, tris, pay, h, w):
         rasterize_buffers_reference, rasterize_buffers_tiled, rasterize_mesh,
         rasterize_mesh_ids, rasterize_mesh_ids_reference,
         rasterize_triangles_tiled)
-    before = rasterize_mesh.launches, rasterize_mesh_ids.launches
+    before = _counts("synergy_raster_mesh", "synergy_raster_mesh_ids")
     z, p = rasterize_mesh(verts, tris, pay, h=h, w=w)
     z3, ids, w0 = rasterize_mesh_ids(verts, tris, h=h, w=w, w0=True)
     torch.cuda.synchronize()
-    assert (rasterize_mesh.launches, rasterize_mesh_ids.launches) == (
+    assert _counts("synergy_raster_mesh", "synergy_raster_mesh_ids") == (
         before[0] + 1, before[1] + 1)
     zr, pr = rasterize_buffers_reference(verts, tris, pay, h=h, w=w)
     assert z.shape == (h, w) and p.shape == (h, w, pay.shape[1])
@@ -329,8 +335,7 @@ def test_card_paths_build_no_plane_records(cuda, monkeypatch):
     from synergynet_tpu_torch.pipeline import (FusedFrameEngine,
                                                FusedOverlayEngine,
                                                SynergyNet3DMM)
-    from synergynet_tpu_torch.render import (raster_tiled, rasterize_mesh,
-                                             rasterize_mesh_ids)
+    from synergynet_tpu_torch.render import raster_tiled
 
     def refuse(*args, **kwargs):
         raise AssertionError("a plane record was built on the card")
@@ -356,20 +361,20 @@ def test_card_paths_build_no_plane_records(cuda, monkeypatch):
     ntri.extend(ov.tris_all.shape[0] // 8 * f for f in (1, 2, 4, 8))
     assert ov.tris_all.dtype == torch.int32
     img = np.random.default_rng(2).integers(0, 256, (720, 1088, 3), np.uint8)
-    before = rasterize_mesh.launches
+    before = launches["synergy_raster_mesh"]
     pts, _, _, overlay = ov(img)
     assert len(pts) > 0 and overlay.shape == img.shape
-    assert rasterize_mesh.launches == before + 1
+    assert launches["synergy_raster_mesh"] == before + 1
     verts, tris, colors = _full_width_mesh(cuda, seed=3)
     tris = tris.int()
     ntri.append(tris.shape[0])
-    before = rasterize_mesh_ids.launches
+    before = launches["synergy_raster_mesh_ids"]
     z, c = raster_tiled.rasterize_buffers_tiled(verts, tris, colors, h=720,
                                                 w=1088, deferred=True)
     tri, zv, w0 = raster_tiled.rasterize_triangles_tiled(verts, tris, h=720,
                                                          w=1088)
     torch.cuda.synchronize()
-    assert rasterize_mesh_ids.launches == before + 2
+    assert launches["synergy_raster_mesh_ids"] == before + 2
     assert torch.equal(z, zv) and ((tri >= 0) == (z > -1e8)).all()
     with pytest.raises(AssertionError):
         raster_tiled.rasterize_buffers_reference(verts, tris, colors, h=720,
@@ -483,10 +488,10 @@ def test_stem_kernel_matches_plain_twin(cuda, shape):
     from synergynet_tpu_torch.detect.stem_fused import (
         fused_stem1_s2d8, fused_stem1_s2d8_reference)
     x, k4, bias = _stem_case(cuda, *shape)
-    before = fused_stem1_s2d8.launches
+    before = launches["synergy_stem_s2d8"]
     got = fused_stem1_s2d8(x, k4, bias)
     torch.cuda.synchronize()
-    assert fused_stem1_s2d8.launches == before + 1
+    assert launches["synergy_stem_s2d8"] == before + 1
     assert got.shape == (*shape, 48) and got.dtype == torch.bfloat16
     want = fused_stem1_s2d8_reference(x, k4, bias)
     torch.testing.assert_close(got.float(), want.float(), **STEM_TOL)
@@ -576,16 +581,15 @@ def test_stem_kernel_is_deterministic(cuda, shape):
 @pytest.mark.gpu
 def test_stem_net_mode_runs_the_kernel(cuda):
     from synergynet_tpu_torch.detect.net import StemS2D8
-    from synergynet_tpu_torch.detect.stem_fused import fused_stem1_s2d8
     stem = StemS2D8().to(cuda, torch.bfloat16)
     with torch.no_grad():
         stem.weight.normal_(0, 0.02)
         stem.bias.normal_(0, 0.5)
         x = (torch.randn((2, 192, 16, 40), device=cuda) * 60).to(
             torch.bfloat16).contiguous(memory_format=torch.channels_last)
-        before = fused_stem1_s2d8.launches
+        before = launches["synergy_stem_s2d8"]
         got = stem(x, "pallas")
-        assert fused_stem1_s2d8.launches == before + 1
+        assert launches["synergy_stem_s2d8"] == before + 1
         with full_fp32():
             want = stem.float()(x.float(), "xla")
     # The f32 XLA stem on the same bf16 values; the kernel rounds its
@@ -644,10 +648,10 @@ def test_stem_f32_kernel_matches_plain_twin(cuda, shape):
     from synergynet_tpu_torch.detect.stem_fused import (
         fused_stem1_s2d8, fused_stem1_s2d8_reference)
     x, k4, bias = _stem_case_f32(cuda, *shape)
-    before = (fused_stem1_s2d8.launches, fused_stem1_s2d8.launches_f32)
+    before = _counts("synergy_stem_s2d8", "synergy_stem_s2d8_f32")
     got = fused_stem1_s2d8(x, k4, bias)
     torch.cuda.synchronize()
-    assert (fused_stem1_s2d8.launches, fused_stem1_s2d8.launches_f32) == (
+    assert _counts("synergy_stem_s2d8", "synergy_stem_s2d8_f32") == (
         before[0], before[1] + 1)
     assert got.shape == (*shape, 48) and got.dtype == torch.float32
     want = fused_stem1_s2d8_reference(x, k4, bias)
@@ -734,7 +738,6 @@ def test_f32_fused_stem_detector_card_matches_cpu(cuda, tmp_path):
     from synergynet_tpu_torch.detect import FaceBoxes
     from synergynet_tpu_torch.detect.detector import (VIS_THRESHOLD,
                                                       prepare_frame)
-    from synergynet_tpu_torch.detect.stem_fused import fused_stem1_s2d8
     path = _seeded_faceboxes_pth(tmp_path)
     card = FaceBoxes(weights_path=path, device=cuda, stem_mode="pallas")
     cpu = FaceBoxes(weights_path=path, device="cpu", stem_mode="pallas")
@@ -743,9 +746,9 @@ def test_f32_fused_stem_detector_card_matches_cpu(cuda, tmp_path):
     with torch.inference_mode():
         s, _ = cpu.candidates(packed[None], hw[None])
     assert (s[s > 0] - VIS_THRESHOLD).abs().min() > 1e-3
-    before = fused_stem1_s2d8.launches_f32
+    before = launches["synergy_stem_s2d8_f32"]
     raw_g, n_g = card.detect_raw(img)
-    assert fused_stem1_s2d8.launches_f32 == before + 1
+    assert launches["synergy_stem_s2d8_f32"] == before + 1
     raw_c, n_c = cpu.detect_raw(img)
     assert n_g == n_c > 0
     np.testing.assert_allclose(raw_g[:n_g, :4], raw_c[:n_c, :4], rtol=1e-4,
@@ -776,10 +779,10 @@ def test_imported_family_card_matches_cpu(cuda, arch, tmp_path):
     img = np.random.default_rng(3).integers(0, 256, (240, 320, 3), np.uint8)
     rects = [[40.0, 50.0, 140.0, 160.0, 0.99], [-20.5, 150.5, 60.5, 260.5],
              [250.0, -30.0, 340.0, 70.0]]
-    before = decode_dense_fused.launches
+    before = launches["synergy_fused_decode"]
     got = SynergyNet3DMM(variables=tree, arch=arch, pack=pack,
                          device=cuda).get_all_outputs(img, rects=rects)
-    assert decode_dense_fused.launches > before
+    assert launches["synergy_fused_decode"] > before
     want = SynergyNet3DMM(variables=tree, arch=arch, pack=pack,
                           device="cpu").get_all_outputs(img, rects=rects)
     for g, w in zip(got[0] + got[1], want[0] + want[1]):
@@ -1123,10 +1126,10 @@ def test_get_all_outputs_card_matches_cpu(cuda, apis_card_cpu,
     within CHAIN of the CPU's, the dense decode through kernel B1."""
     card, cpu = apis_card_cpu
     img = _frame((720, 1088), 5)
-    before = decode_dense_fused.launches
+    before = launches["synergy_fused_decode"]
     got = card.get_all_outputs(img, rects=RECTS8,
                                interpolation=interpolation)
-    assert decode_dense_fused.launches == before + 1
+    assert launches["synergy_fused_decode"] == before + 1
     want = cpu.get_all_outputs(img, rects=RECTS8,
                                interpolation=interpolation)
     assert len(got[0]) == len(want[0]) == 8
@@ -1160,16 +1163,15 @@ def _assert_render_close(got, want, bg):
 @pytest.mark.gpu
 @pytest.mark.parametrize("textured", [False, True])
 def test_render_pipeline_card_equals_cpu(cuda, bfm_faces, textured):
-    from synergynet_tpu_torch.render import (OVERLAY_LIGHT_CFG,
-                                             RenderPipeline, rasterize_mesh)
+    from synergynet_tpu_torch.render import OVERLAY_LIGHT_CFG, RenderPipeline
     img, verts, tri = bfm_faces
     v = np.ascontiguousarray(verts[0].T)
     tex = (np.random.default_rng(1).uniform(0, 1, v.shape).astype(np.float32)
            if textured else None)
-    before = rasterize_mesh.launches
+    before = launches["synergy_raster_mesh"]
     got = RenderPipeline(device=cuda, **OVERLAY_LIGHT_CFG)(v, tri.T, img,
                                                            texture=tex)
-    assert rasterize_mesh.launches == before + 1
+    assert launches["synergy_raster_mesh"] == before + 1
     want = RenderPipeline(device="cpu", **OVERLAY_LIGHT_CFG)(v, tri.T, img,
                                                              texture=tex)
     _assert_render_close(got, want, img)
@@ -1178,12 +1180,11 @@ def test_render_pipeline_card_equals_cpu(cuda, bfm_faces, textured):
 @pytest.mark.gpu
 def test_render_overlay_card_equals_cpu(cuda, bfm_faces):
     from synergynet_tpu_torch.render import (OVERLAY_LIGHT_CFG,
-                                             RenderPipeline, rasterize_mesh,
-                                             render_overlay)
+                                             RenderPipeline, render_overlay)
     img, verts, tri = bfm_faces
-    before = rasterize_mesh.launches
+    before = launches["synergy_raster_mesh"]
     ov, solid = render_overlay(img, verts, tri)     # the default: the card
-    assert rasterize_mesh.launches == before + len(verts)
+    assert launches["synergy_raster_mesh"] == before + len(verts)
     ov_c, solid_c = render_overlay(img, verts, tri, pipeline=RenderPipeline(
         device="cpu", **OVERLAY_LIGHT_CFG))
     _assert_render_close(solid, solid_c, img)
@@ -1194,16 +1195,16 @@ def test_render_overlay_card_equals_cpu(cuda, bfm_faces):
 @pytest.mark.parametrize("bilinear", [True, False])
 def test_render_texture_card_equals_cpu(cuda, bfm_faces, bilinear):
     from synergynet_tpu_torch.pipeline import UVTextureMapper
-    from synergynet_tpu_torch.render import rasterize_mesh, render_texture
+    from synergynet_tpu_torch.render import render_texture
     img, verts, tri = bfm_faces
     m = UVTextureMapper.synthetic(verts[0].shape[1])
     uv = (np.stack([m.coord_v, m.coord_u], 1) / 255.0).astype(np.float32)
     tex = np.random.default_rng(2).integers(0, 256, (256, 256, 3), np.uint8)
     v = np.ascontiguousarray(verts[0].T)
-    before = rasterize_mesh.launches
+    before = launches["synergy_raster_mesh"]
     got = render_texture(v, tri.T, uv, tex, img, alpha=0.8, bilinear=bilinear,
                          device=cuda)
-    assert rasterize_mesh.launches == before + 1
+    assert launches["synergy_raster_mesh"] == before + 1
     want = render_texture(v, tri.T, uv, tex, img, alpha=0.8,
                           bilinear=bilinear, device="cpu")
     assert np.array_equal(got, want)
@@ -1213,9 +1214,7 @@ def test_render_texture_card_equals_cpu(cuda, bfm_faces, bilinear):
 def test_rasterize_apis_card_equal_cpu(cuda, bfm_faces):
     """rasterize / rasterize_tiled (B2) and rasterize_triangles (B3) on the
     card equal their CPU twins bit for bit, on all three meshes at once."""
-    from synergynet_tpu_torch.render import (rasterize, rasterize_mesh,
-                                             rasterize_mesh_ids,
-                                             rasterize_tiled,
+    from synergynet_tpu_torch.render import (rasterize, rasterize_tiled,
                                              rasterize_triangles)
     img, verts, tri = bfm_faces
     n = tri.shape[1]
@@ -1224,7 +1223,7 @@ def test_rasterize_apis_card_equal_cpu(cuda, bfm_faces):
                         for i in range(len(verts))]).astype(np.int32)
     c = np.random.default_rng(4).uniform(0, 1, v.shape).astype(np.float32)
     assert t.shape == (3 * n, 3)
-    b2, b3 = rasterize_mesh.launches, rasterize_mesh_ids.launches
+    b2, b3 = _counts("synergy_raster_mesh", "synergy_raster_mesh_ids")
     for fn in (rasterize, rasterize_tiled):
         got = fn(v, t, c, bg=img, alpha=0.7, reverse=True, device=cuda)
         assert np.array_equal(got, fn(v, t, c, bg=img, alpha=0.7,
@@ -1233,8 +1232,8 @@ def test_rasterize_apis_card_equal_cpu(cuda, bfm_faces):
     want = rasterize_triangles(v, t, h=240, w=320, device="cpu")
     for g, w_ in zip(got, want):
         assert torch.equal(g.cpu(), w_)
-    assert rasterize_mesh.launches == b2 + 2
-    assert rasterize_mesh_ids.launches == b3 + 1
+    assert launches["synergy_raster_mesh"] == b2 + 2
+    assert launches["synergy_raster_mesh_ids"] == b3 + 1
 
 
 BOXES = dict(rtol=1e-4, atol=0.05)      # f32 logits' 1e-4 through exp(0.2 x)
@@ -1277,14 +1276,14 @@ def test_host_detector_launches_the_stem_kernel(cuda):
     dets = {mode: FaceBoxes(variables, dtype=torch.bfloat16, device=cuda,
                             stem_mode=mode) for mode in ("xla", "pallas")}
     img = _frame((480, 640), 8)
-    before = fused_stem1_s2d8.launches
+    before = launches["synergy_stem_s2d8"]
     faces = dets["pallas"](img)
-    assert fused_stem1_s2d8.launches == before + 1
+    assert launches["synergy_stem_s2d8"] == before + 1
     raw, count = dets["pallas"].detect_raw(img)
     assert raw.shape == (750, 5) and count == len(faces) > 0
     assert np.isfinite(raw).all()
     xla = dets["xla"](img)
-    assert fused_stem1_s2d8.launches == before + 2
+    assert launches["synergy_stem_s2d8"] == before + 2
     assert abs(len(xla) - len(faces)) <= max(2, len(faces) // 20)
     stem = dets["pallas"].net.conv1_s2d8
     _, packed, _, _ = prepare_frame(img, 8, cuda)
@@ -1375,12 +1374,12 @@ def tp_rank(n_faces: int) -> dict:
     warm_mesh_cliques(mesh)
     p = torch.tensor(np.random.default_rng(3).normal(
         0, 1, (n_faces, 62)).astype(np.float32), device=mesh.device)
-    before = decode_dense_fused.launches
+    before = launches["synergy_fused_decode"]
     decode = tp_dense_decode(mesh, load_param_pack())
     slab, checksum = decode(p)
     return {"slab": slab.cpu(), "checksum": checksum.cpu(),
             "range": decode.vertex_range,
-            "launches": decode_dense_fused.launches - before}
+            "launches": launches["synergy_fused_decode"] - before}
 
 
 @pytest.mark.gpu
@@ -1506,10 +1505,10 @@ def test_nms_kernel_matches_plain_twin(cuda, case):
     from synergynet_tpu_torch.detect.nms import (greedy_nms_mask,
                                                  greedy_nms_mask_reference)
     boxes, valid = _nms_inputs(cuda, case)
-    before = greedy_nms_mask.launches
+    before = launches["synergy_nms_greedy"]
     got = greedy_nms_mask(boxes, valid, 0.3)
     torch.cuda.synchronize()
-    assert greedy_nms_mask.launches == before + 1
+    assert launches["synergy_nms_greedy"] == before + 1
     assert got.dtype == torch.bool and got.shape == valid.shape
     assert torch.equal(got, greedy_nms_mask_reference(boxes, valid, 0.3))
     assert torch.equal(got.cpu(), greedy_nms_mask_reference(
@@ -1656,10 +1655,10 @@ def test_crop_kernel_matches_plain_twin(cuda, shape):
     rois = torch.tensor(_crop_rois(rng, b, n), device=cuda)
     g = torch.Generator(device=cuda).manual_seed(b)
     frames = torch.rand((b, 720, 1088, c), generator=g, device=cuda) * 255
-    before = crop_resize_bilinear.launches
+    before = launches["synergy_crop_bilinear"]
     got = crop_resize_bilinear(frames, rois, s)
     torch.cuda.synchronize()
-    assert crop_resize_bilinear.launches == before + 1
+    assert launches["synergy_crop_bilinear"] == before + 1
     assert got.shape == (b, n, s, s, c) and got.dtype == torch.float32
     idx, f = crop_taps(rois, (720, 1088), s)
     want_idx, want_f = crop_taps(rois.cpu(), (720, 1088), s)
@@ -1710,7 +1709,7 @@ def test_crop_kernel_rejects_what_it_does_not_take(cuda):
     frames = torch.zeros((2, 64, 80, 3), device=cuda)
     rois = torch.tensor(_crop_rois(np.random.default_rng(0), 2, 3, (64, 80)),
                         device=cuda)
-    before = crop_resize_bilinear.launches
+    before = launches["synergy_crop_bilinear"]
     with pytest.raises(TypeError):
         crop_resize_bilinear(frames.double(), rois)
     with pytest.raises(TypeError):
@@ -1731,7 +1730,7 @@ def test_crop_kernel_rejects_what_it_does_not_take(cuda):
     for side in (0, C1_MAX_SIZE + 1):
         with pytest.raises(ValueError, match="C1 takes"):
             crop_resize_bilinear(frames, rois, side)
-    assert crop_resize_bilinear.launches == before
+    assert launches["synergy_crop_bilinear"] == before
     # At the cap it runs.
     out = crop_resize_bilinear(frames, rois, C1_MAX_SIZE)
     torch.cuda.synchronize()
@@ -1778,27 +1777,24 @@ def test_graph_replay_equals_eager_body(cuda, graph_engines, which, b):
     its outputs equal the eager body's bit for bit, and the launch
     counters credit one call's launches per replay (the crop's C1 among
     them)."""
-    from synergynet_tpu_torch.detect.nms import greedy_nms_mask
-    from synergynet_tpu_torch.detect.stem_fused import fused_stem1_s2d8
-    from synergynet_tpu_torch.pipeline.device_crop import crop_resize_bilinear
     eng = graph_engines[which]
     args = _batch(cuda, b, seed=b)
     want = eng.process_batch_eager(*args)
-    before = (decode_dense_fused.launches, greedy_nms_mask.launches,
-              fused_stem1_s2d8.launches, crop_resize_bilinear.launches)
+    symbols = ("synergy_fused_decode", "synergy_nms_greedy",
+               "synergy_stem_s2d8", "synergy_crop_bilinear")
+    before = _counts(*symbols)
     got = eng.process_batch(*args)
     torch.cuda.synchronize()
     assert any(k[1][0][0] == (b, 720, 1088, 3)
                for k in eng.programs.programs)
-    after = (decode_dense_fused.launches, greedy_nms_mask.launches,
-             fused_stem1_s2d8.launches, crop_resize_bilinear.launches)
+    after = _counts(*symbols)
     assert after == (before[0] + 1, before[1] + 1,
                      before[2] + (which == "fused"), before[3] + 1)
     assert int(got[1].sum()) > 0
     for g, w in zip(got, want):
         assert g.dtype == w.dtype and torch.equal(g, w)
     again = eng.process_batch(*args)
-    assert decode_dense_fused.launches == after[0] + 1
+    assert launches["synergy_fused_decode"] == after[0] + 1
     for g, w in zip(again, want):
         assert torch.equal(g, w)
 
@@ -1949,13 +1945,12 @@ def test_overlay_through_graphs_equals_eager_overlay(cuda, graph_engines, hw):
     from synergynet_tpu_torch.detect.detector import prepare_frame
     from synergynet_tpu_torch.ops.resize import _resize_linear
     from synergynet_tpu_torch.pipeline import FusedOverlayEngine
-    from synergynet_tpu_torch.render import rasterize_mesh
     eng = graph_engines["xla"]
     ov = FusedOverlayEngine(eng)
     img = _frame(hw, 2)
-    before = rasterize_mesh.launches
+    before = launches["synergy_raster_mesh"]
     pts, verts, poses, overlay = ov(img)
-    assert rasterize_mesh.launches == before + 1
+    assert launches["synergy_raster_mesh"] == before + 1
     assert ov.programs.programs
     canvas, packed, true_hw, scale = prepare_frame(img, 8, cuda)
     with torch.inference_mode():
@@ -2054,7 +2049,6 @@ def test_vit_process_batch_captures_at_224(cuda):
     the attention's launches credited 12 a replay."""
     from synergynet_tpu_torch.detect import FaceBoxes
     from synergynet_tpu_torch.detect.detector import random_init_variables
-    from synergynet_tpu_torch.nn.attention import attention
     from synergynet_tpu_torch.pipeline import FusedFrameEngine, SynergyNet3DMM
     api = SynergyNet3DMM("vit_b16", dtype=torch.bfloat16, device=cuda,
                          crop=224)
@@ -2063,11 +2057,11 @@ def test_vit_process_batch_captures_at_224(cuda):
         stem_mode="pallas"), max_faces=8)
     args = _batch(cuda, 2, seed=5)
     want = eng.process_batch_eager(*args)
-    before = attention.launches
+    before = launches["attention"]
     got = eng.process_batch(*args)                # captured, then replayed
     again = eng.process_batch(*args)
     torch.cuda.synchronize()
-    assert attention.launches == before + 2 * 12
+    assert launches["attention"] == before + 2 * 12
     assert int(got[1].sum()) > 0
     for g, a, w in zip(got, again, want):
         assert torch.equal(g, w) and torch.equal(a, w)
@@ -2112,11 +2106,11 @@ def _check_r1(cuda, b, radix, groups, c, h, w, dtype, seed):
         radix_combine, radix_combine_reference, radix_pool,
         radix_pool_reference)
     y, logits = _splat_inputs(cuda, b, radix, c, h, w, dtype, seed)
-    before = radix_pool.launches, radix_combine.launches
+    before = _counts("synergy_splat_pool", "synergy_splat_combine")
     pooled = radix_pool(y, radix)
     out = radix_combine(y, logits, radix, groups)
     torch.cuda.synchronize()
-    assert (radix_pool.launches, radix_combine.launches) == (
+    assert _counts("synergy_splat_pool", "synergy_splat_combine") == (
         before[0] + 1, before[1] + 1)
     assert pooled.shape == (b, c, 1, 1)
     assert out.is_contiguous(memory_format=torch.channels_last)
@@ -2164,9 +2158,9 @@ def test_splat_gradient_is_the_twins(cuda, radix, groups):
          + (combine(yy, ll, radix, groups) * gc).sum()).backward()
         return yy.grad, ll.grad
 
-    before = radix_pool.launches, radix_combine.launches
+    before = _counts("synergy_splat_pool", "synergy_splat_combine")
     got = grads(radix_pool, radix_combine)
-    assert (radix_pool.launches, radix_combine.launches) == (
+    assert _counts("synergy_splat_pool", "synergy_splat_combine") == (
         before[0] + 1, before[1] + 1)
     want = grads(radix_pool_reference, radix_combine_reference)
     assert all(torch.equal(a, b) for a, b in zip(got, want))
@@ -2198,8 +2192,11 @@ def test_splat_wrapper_and_kernel_share_one_limit(cuda):
     past it, or a branch of c not a multiple of 16 bytes, the wrapper
     raises and each C entry, called past the wrapper, returns
     cudaErrorInvalidValue (1)."""
+    import ctypes
+
+    from synergynet_tpu_torch.ops.cuda_build import launch
     from synergynet_tpu_torch.ops.split_attention import (
-        R1_MAX_WEIGHTS, _call, radix_combine, radix_pool)
+        R1_MAX_WEIGHTS, radix_combine, radix_pool)
     _check_r1(cuda, 1, 2, 1, R1_MAX_WEIGHTS // 2, 1, 1, torch.bfloat16,
               seed=3)
     for c in (R1_MAX_WEIGHTS // 2 + 8, 12):
@@ -2211,10 +2208,13 @@ def test_splat_wrapper_and_kernel_share_one_limit(cuda):
             radix_combine(y, logits, 2, 1)
         out = torch.empty((1, c), dtype=y.dtype, device=cuda)
         with pytest.raises(RuntimeError, match="CUDA error 1$"):
-            _call(y.device, "synergy_splat_pool", (y, out), (1, 1, 2, c, 2))
+            launch("split_attention", "synergy_splat_pool",
+                   [ctypes.c_void_p] * 2 + [ctypes.c_int] * 5, y.device,
+                   y, out, 1, 1, 2, c, 2)
         with pytest.raises(RuntimeError, match="CUDA error 1$"):
-            _call(y.device, "synergy_splat_combine",
-                  (y, logits.view(1, 2 * c), out), (1, 1, 2, c, 1, 2))
+            launch("split_attention", "synergy_splat_combine",
+                   [ctypes.c_void_p] * 3 + [ctypes.c_int] * 6, y.device,
+                   y, logits.view(1, 2 * c), out, 1, 1, 2, c, 1, 2)
 
 
 @pytest.mark.gpu
@@ -2224,8 +2224,6 @@ def test_resnest_process_batch_credits_r1_a_replay(cuda):
     credited 32 launches a replay (16 blocks, a pool and a combine each)."""
     from synergynet_tpu_torch.detect import FaceBoxes
     from synergynet_tpu_torch.detect.detector import random_init_variables
-    from synergynet_tpu_torch.ops.split_attention import (radix_combine,
-                                                          radix_pool)
     from synergynet_tpu_torch.pipeline import FusedFrameEngine, SynergyNet3DMM
     api = SynergyNet3DMM("resnest50", dtype=torch.bfloat16, device=cuda)
     eng = FusedFrameEngine(api, detector=FaceBoxes(
@@ -2233,11 +2231,12 @@ def test_resnest_process_batch_credits_r1_a_replay(cuda):
         stem_mode="pallas"), max_faces=8)
     args = _batch(cuda, 2, seed=7)
     want = eng.process_batch_eager(*args)
-    before = radix_pool.launches + radix_combine.launches
+    before = sum(_counts("synergy_splat_pool", "synergy_splat_combine"))
     got = eng.process_batch(*args)                # captured, then replayed
     again = eng.process_batch(*args)
     torch.cuda.synchronize()
-    assert radix_pool.launches + radix_combine.launches == before + 2 * 32
+    assert sum(_counts("synergy_splat_pool", "synergy_splat_combine")) \
+        == before + 2 * 32
     assert int(got[1].sum()) > 0
     for g, a, w in zip(got, again, want):
         assert torch.equal(g, w) and torch.equal(a, w)

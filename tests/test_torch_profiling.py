@@ -1,10 +1,14 @@
-"""``core/profiling.py``: the device's busy time read out of a Chrome trace,
-a profiled window of calls, ``trace`` / ``annotate``, ``StageTimer`` and
+"""``core/profiling.py``: ``trace`` / ``annotate``, ``StageTimer`` and
 ``device_memory_stats`` on the CPU; the recorder's spans, stage stamps and
-counters, alone and in the serving engine's CPU body."""
+counters, alone and in the serving engine's CPU body; the launch table of
+``ops/cuda_build.py``, which the captured programs credit and no kernel
+wrapper bypasses."""
 
+import ast
+import collections
 import json
 import os
+import sys
 import time
 
 import pytest
@@ -13,57 +17,90 @@ import torch
 import numpy as np
 
 from synergynet_tpu_torch.core.profiling import (RING_ROWS, StageTimer,
-                                                 annotate, device_busy,
+                                                 annotate,
                                                  device_memory_stats,
-                                                 profile_calls, recorder,
-                                                 stage_done, tally, trace)
+                                                 recorder, stage_done, tally,
+                                                 trace)
+from synergynet_tpu_torch.detect.nms import greedy_nms_mask
+from synergynet_tpu_torch.detect.stem_fused import fused_stem1_s2d8
+from synergynet_tpu_torch.mm3d import load_param_pack
+from synergynet_tpu_torch.nn.attention import attention
+from synergynet_tpu_torch.ops.cuda_build import launches
+from synergynet_tpu_torch.ops.fused_decode import (decode_dense_fast,
+                                                   decode_dense_fused)
+from synergynet_tpu_torch.ops.split_attention import (radix_combine,
+                                                      radix_pool)
+from synergynet_tpu_torch.pipeline import program
+from synergynet_tpu_torch.pipeline.device_crop import crop_resize_bilinear
 from synergynet_tpu_torch.pipeline.program import ProgramCache
+from synergynet_tpu_torch.render.raster_tiled import (rasterize_mesh,
+                                                      rasterize_mesh_ids)
 
 torch.set_num_threads(2)
 
 
-def _ev(cat, ts, dur, name="k"):
-    return {"ph": "X", "cat": cat, "ts": ts, "dur": dur, "name": name}
+def test_program_module_imports_no_kernel_wrapper():
+    """The captured programs reach the kernels only through the launch
+    table: ``pipeline/program.py`` imports torch, the standard library,
+    ``core.profiling`` and ``ops.cuda_build``, and no kernel wrapper."""
+    allowed = {"synergynet_tpu_torch.core.profiling",
+               "synergynet_tpu_torch.ops.cuda_build"}
+    with open(program.__file__) as f:
+        tree = ast.parse(f.read())
+    names = []
+    for node in ast.walk(tree):
+        if isinstance(node, ast.Import):
+            names += [a.name for a in node.names]
+        elif isinstance(node, ast.ImportFrom):
+            assert node.level == 0, "a relative import"
+            names.append(node.module)
+    assert "synergynet_tpu_torch.ops.cuda_build" in names
+    for name in names:
+        top = name.split(".")[0]
+        assert top == "torch" or top in sys.stdlib_module_names \
+            or name in allowed, name
 
 
-def test_device_busy_unions_overlapping_intervals():
-    events = [
-        _ev("kernel", 0, 10, "a"),
-        _ev("kernel", 5, 10, "b"),        # overlaps a: counts once
-        _ev("gpu_memcpy", 30, 4, "copy"),
-        _ev("gpu_memset", 32, 1, "set"),  # inside the copy
-        _ev("cpu_op", 0, 100, "host"),    # host work is not device time
-        {"ph": "i", "cat": "kernel", "ts": 50, "name": "instant"},
-    ]
-    d = device_busy(events)
-    assert d["busy_us"] == 15 + 4
-    assert d["ops"] == 4
-    assert d["per_op_us"] == {"a": 10, "b": 10, "copy": 4, "set": 1}
+def _mesh():
+    verts = torch.tensor([[1.0, 1.0, 0.5], [6.0, 1.5, 0.5], [3.0, 6.0, 0.5]])
+    return verts, torch.tensor([[0, 1, 2]], dtype=torch.int32)
 
 
-def test_device_busy_of_no_device_work_is_zero():
-    assert device_busy([_ev("cpu_op", 0, 9)]) == {
-        "busy_us": 0.0, "ops": 0, "per_op_us": {}}
+# Each kernel wrapper and a call of its CPU twin at a tiny size.
+WRAPPERS = {
+    "C1": (crop_resize_bilinear, lambda: crop_resize_bilinear(
+        torch.rand(1, 8, 8, 3), torch.tensor([[[1.0, 1.0, 6.0, 6.0]]]), 4)),
+    "R1 pool": (radix_pool, lambda: radix_pool(torch.rand(1, 16, 3, 3), 2)),
+    "R1 combine": (radix_combine, lambda: radix_combine(
+        torch.rand(1, 16, 3, 3), torch.rand(1, 16, 1, 1), 2, 1)),
+    "B1": (decode_dense_fused, lambda: decode_dense_fast(
+        torch.zeros(1, 62), load_param_pack())),
+    "N1": (greedy_nms_mask, lambda: greedy_nms_mask(
+        torch.tensor([[[0.0, 0.0, 4.0, 4.0], [1.0, 1.0, 4.0, 4.0]]]),
+        torch.ones(1, 2, dtype=torch.bool))),
+    "B4": (fused_stem1_s2d8, lambda: fused_stem1_s2d8(
+        torch.rand(1, 2, 2, 192), torch.rand(4, 192, 192), torch.rand(192))),
+    "B2": (rasterize_mesh, lambda: rasterize_mesh(
+        *_mesh(), torch.rand(3, 2), h=8, w=8)),
+    "B3": (rasterize_mesh_ids, lambda: rasterize_mesh_ids(
+        *_mesh(), h=8, w=8, w0=True)),
+    "attention": (attention, lambda: attention(
+        *torch.rand(3, 1, 2, 4, 8))),
+}
 
 
-@pytest.mark.parametrize("n", [1, 3])
-def test_profile_calls_on_cpu_writes_a_trace(tmp_path, n):
-    x = torch.ones(64, 64)
-    calls = []
-
-    def fn():
-        calls.append(1)
-        return x @ x
-
-    path = str(tmp_path / "trace.json")
-    p = profile_calls(fn, n, path)
-    assert len(calls) == n + 1                  # one warm-up, n profiled
-    with open(path) as f:
-        json.load(f)
-    assert p["wall_ms"] > 0
-    assert p["busy_ms"] == 0 and p["ops"] == 0  # no device here
-    assert p["idle_share"] == 1.0
-    assert p["top"] == []
+@pytest.mark.parametrize("kernel", list(WRAPPERS))
+def test_wrappers_keep_no_launch_attribute(kernel):
+    """Launches are counted in one table, keyed by the C symbol, and in no
+    attribute of a wrapper. On the CPU each wrapper runs its twin and
+    launches nothing; the attention counts its call."""
+    fn, call = WRAPPERS[kernel]
+    assert not hasattr(fn, "launches")
+    before = launches.copy()
+    call()
+    want = before + collections.Counter(
+        {"attention": 1} if kernel == "attention" else {})
+    assert launches == want
 
 
 def test_stage_timer_on_the_host_clock():

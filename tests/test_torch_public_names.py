@@ -34,6 +34,7 @@ from synergynet_tpu_torch.mm3d import load_param_pack
 from synergynet_tpu_torch.ops import (decode_dense_fast,
                                       decode_dense_fused_reference,
                                       fused_decode, get_decode_basis)
+from synergynet_tpu_torch.ops.cuda_build import launches
 
 torch.set_num_threads(2)
 
@@ -115,9 +116,9 @@ def test_decode_dense_fast_matches_jax_on_the_full_pack():
     p = np.random.default_rng(4).normal(0, 1, (9, 62)).astype(np.float32)
     want = np.asarray(jax_decode_dense_fast(jnp.asarray(p),
                                             jax_load_param_pack()))
-    before = fused_decode.decode_dense_fused.launches
+    before = launches["synergy_fused_decode"]
     got = decode_dense_fast(torch.from_numpy(p), pack)
-    assert fused_decode.decode_dense_fused.launches == before   # CPU: twin
+    assert launches["synergy_fused_decode"] == before   # CPU: twin
     assert got.shape == (9, 3, 53215) == want.shape
     np.testing.assert_allclose(got.numpy(), want, **DENSE)
     np.testing.assert_array_equal(got.numpy(), decode_dense_fused_reference(

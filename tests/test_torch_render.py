@@ -25,6 +25,7 @@ from synergynet_tpu.render.raster_tiled import \
     rasterize_buffers_tiled as jax_raster
 from synergynet_tpu.render.raster_tiled import replication_for
 from synergynet_tpu_torch.mm3d import load_param_pack
+from synergynet_tpu_torch.ops.cuda_build import launches
 from synergynet_tpu_torch.render import (
     DEPTH_INIT, OVERLAY_LIGHT_CFG, blend_uint8, compute_vertex_light,
     get_normal_rings, one_ring_table, plane_records,
@@ -180,9 +181,9 @@ def test_reference_matches_jax_kernel(case):
     assert same.mean() >= 0.995
     np.testing.assert_allclose(ct.numpy()[same], cj[same], atol=1e-4)
     # the CPU entry point is the plain twin, and counts no launch
-    before = rasterize_mesh.launches
+    before = launches["synergy_raster_mesh"]
     z2, c2 = rasterize_buffers_tiled(*_t(verts, tris, colors), h=h, w=w)
-    assert rasterize_mesh.launches == before
+    assert launches["synergy_raster_mesh"] == before
     assert torch.equal(z2, zt) and torch.equal(c2, ct)
 
 

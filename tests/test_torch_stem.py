@@ -28,6 +28,7 @@ from synergynet_tpu_torch.detect import FaceBoxes
 from synergynet_tpu_torch.detect.net import StemS2D8, phase_maxpool_s2d8
 from synergynet_tpu_torch.detect.stem_fused import (
     fused_stem1_s2d8, fused_stem1_s2d8_reference, taps_from_oihw)
+from synergynet_tpu_torch.ops.cuda_build import launches
 
 torch.set_num_threads(2)
 
@@ -67,9 +68,9 @@ def test_twin_matches_jax_pallas_stem(dtype):
     tol = F32 if dtype == "float32" else BF16
     torch.testing.assert_close(got.float(), torch.from_numpy(want), **tol)
     # On a CPU tensor the entry point is the twin and counts no launch.
-    before = fused_stem1_s2d8.launches
+    before = launches["synergy_stem_s2d8"]
     assert torch.equal(fused_stem1_s2d8(xt, k4, bt), got)
-    assert fused_stem1_s2d8.launches == before
+    assert launches["synergy_stem_s2d8"] == before
 
 
 @pytest.mark.parametrize("shape", [(2, 5, 17), (1, 1, 3), (1, 16, 136)])

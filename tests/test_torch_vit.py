@@ -9,7 +9,7 @@ API.
 - the weight bridge both ways with the learned embeddings ``cls`` and
   ``pos_embedding``, and the seeded init of the new leaves;
 - the attention function against an explicit softmax product, and its
-  ``launches`` counter;
+  count in the launch table;
 - the API's crop: ``process_batch`` and ``get_all_outputs`` feed the
   backbone crops of the API's side (96 through MobileNetV2, 120 as
   before), and a ViT whose position embedding does not fit the API's crop
@@ -32,6 +32,7 @@ from synergynet_tpu_torch.nn import SynergyNet
 from synergynet_tpu_torch.nn.attention import attention
 from synergynet_tpu_torch.nn.layers import cast_layers_
 from synergynet_tpu_torch.nn.synergy import init_synergy_variables
+from synergynet_tpu_torch.ops.cuda_build import launches
 
 torch.set_num_threads(2)
 
@@ -125,9 +126,9 @@ def test_attention_is_the_softmax_product_and_counts(dtype, tol):
     g = torch.Generator().manual_seed(0)
     qkv = torch.randn(2, 17, 3, 3, 8, generator=g).to(dtype)
     q, k, v = qkv.permute(2, 0, 3, 1, 4)               # strided, as served
-    before = attention.launches
+    before = launches["attention"]
     out = attention(q, k, v)
-    assert attention.launches == before + 1
+    assert launches["attention"] == before + 1
     assert out.shape == (2, 3, 17, 8) and out.dtype == dtype
     q64, k64, v64 = (t.double() for t in (q, k, v))
     want = torch.softmax(q64 @ k64.transpose(-1, -2) / 8 ** 0.5, -1) @ v64
@@ -221,9 +222,9 @@ def test_vit_process_batch_counts_a_launch_a_block(small_vit, detector):
                          crop=32)
     engine = FusedFrameEngine(api, detector=detector, max_faces=2)
     seen = _spy(api)
-    before = attention.launches
+    before = launches["attention"]
     out = engine.process_batch(*_frames(8)[1])
-    assert attention.launches == before + SMALL["depth"]
+    assert launches["attention"] == before + SMALL["depth"]
     assert seen == [(2, 32, 32, 3)]
     assert out[3].shape == (1, 2, 62) and torch.isfinite(out[3]).all()
 
