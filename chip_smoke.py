@@ -10,7 +10,7 @@ each fatal on failure:
 1. the card: ``nvidia-smi`` name and power limit;
 2. build every kernel of the serving, overlay, fused-stem and deferred
    paths from ``synergynet_tpu_torch/csrc`` (nvcc, sm_90a, one nvcc per
-   source, all started together), greedy NMS's N1, the crop's C1 and R1
+   source, all started together), greedy NMS's N1, the crop's C1, R1 and BN1
    included, and print the build seconds and ptxas resource lines;
 3. each kernel against its plain PyTorch twin on the card, at its path's
    shapes, with kernel and plain times (CUDA events, L2 flushed between
@@ -189,8 +189,16 @@ each fatal on failure:
    combined tensor written once: 3.46 GB); beside them the same two steps
    in plain PyTorch on the radix tensor's channels-last view (the
    layout-only rewrite, no kernel of its own).
+16. kernel BN1, the conv backbones' BatchNorm + activation + residual
+   pass (``bnact_phase``): every BN site of the served MobileNetV2 (52)
+   and ResNeSt-50 (51) at 1,024 faces in bf16 against the twin (the chain
+   before BN1) bit for bit; BN1's time (median of 20, L2 flushed) and the
+   twin's, summed over each backbone's sites, against the bytes bound
+   (each operand read once, each result written once). Phase 14's trace
+   counts BN1's launches in the replay against the credited table, and
+   phase 11 the launches of the resnest50 and mobilenet_v2_1.4 calls.
 
-Prints the kernels as one JSON line (B1-B4, N1, C1 and R1, each with its
+Prints the kernels as one JSON line (B1-B4, N1, C1, R1 and BN1, each with its
 launches on its path,
 error against its twin, kernel, plain and library ms, and the least time
 the card could take, from this run's shapes; each kernel's ``ms`` is the
@@ -222,7 +230,7 @@ RTOL, ATOL = 1e-4, 1e-3     # the dense decode's tolerance (f32)
 STEM_TOL = dict(rtol=1.6e-2, atol=1e-5)     # bf16's own tolerance
 DEVICE = "cuda:0"
 KERNELS = ("fused_decode", "raster_tiled", "stem_s2d8", "nms_greedy",
-           "crop_bilinear", "split_attention")
+           "crop_bilinear", "split_attention", "bn_act")
 # Published H100 SXM peaks (dense): HBM bytes/s, bf16 tensor-core and f32
 # (outside the tensor cores) FLOP/s, and TF32 tensor-core FLOP/s (NVIDIA's
 # H100 SXM data sheet, dense TF32).
@@ -1420,6 +1428,9 @@ def api_phase(torch, dev, card):
 # One representative of each backbone family at its published widths.
 FAMILY_ARCHS = ("mobilenet_1", "resnet50", "resnext50_32x4d", "ghostnet",
                 "resnest50", "mobilenet_v2_1.4")
+# BN1 launches a forward of the backbones that route through it (the
+# served MobileNetV2 has 52 at every width).
+BN1_SITES = {"resnest50": 51, "mobilenet_v2_1.4": 52, "mobilenet_v2": 52}
 # The detector phase's parity frame: seeded reference-layout weights
 # (seed 0) on this 120x160 frame keep every candidate score more than 1e-3
 # from the 0.5 visibility threshold (checked in the run), so the card's
@@ -1517,6 +1528,7 @@ def families_phase(torch, dev, card, frames, frames_s2d, hws, det_bf16):
         got = api32.get_all_outputs(img, rects=API_RECTS)
         cuda_build.launches["synergy_splat_pool"] = 0
         cuda_build.launches["synergy_splat_combine"] = 0
+        cuda_build.launches["synergy_bn_act"] = 0
         out = eng.process_batch(frames, frames_s2d, hws)
         torch.cuda.synchronize()
         launches = cuda_build.launches["synergy_fused_decode"]
@@ -1529,6 +1541,14 @@ def families_phase(torch, dev, card, frames, frames_s2d, hws, det_bf16):
         if arch == "resnest50" and (r1_launches <= 0 or r1_launches % 32):
             fail(f"phase 11 resnest50: process_batch credited kernel R1 "
                  f"{r1_launches} launches, not a positive multiple of 32")
+        # BN1 on the served path: every BN site of the two conv backbones
+        # that route through it, none in the other families.
+        bn1_launches = cuda_build.launches["synergy_bn_act"]
+        sites = BN1_SITES.get(arch, 0)
+        if not (bn1_launches > 0 and bn1_launches % sites == 0 if sites
+                else bn1_launches == 0):
+            fail(f"phase 11 {arch}: process_batch credited kernel BN1 "
+                 f"{bn1_launches} launches, {sites} sites a call")
         want = SynergyNet3DMM(variables=tree, arch=arch, pack=pack,
                               device="cpu").get_all_outputs(
                                   img, rects=API_RECTS)
@@ -1568,6 +1588,7 @@ def families_phase(torch, dev, card, frames, frames_s2d, hws, det_bf16):
         families[arch] = {
             "params_m": sum(v.numel() for v in sd.values()) / 1e6,
             "launches_b1": launches, "launches_r1": r1_launches,
+            "launches_bn1": bn1_launches,
             "card_vs_cpu_err": err,
             "get_all_outputs_ms": ms_api,
             "get_all_outputs_faces_per_s": FACES / ms_api * 1e3,
@@ -1575,7 +1596,8 @@ def families_phase(torch, dev, card, frames, frames_s2d, hws, det_bf16):
             "process_batch_faces_per_s": b * FACES / ms_b * 1e3}
         log(f"phase 11 {arch} ({families[arch]['params_m']:.1f}M values in "
             f"a seeded best.pth.tar, imported): B1 launched "
-            f"{launches} times, R1 {r1_launches}; get_all_outputs 8 rects f32 (TF32 off) card "
+            f"{launches} times, R1 {r1_launches}, BN1 {bn1_launches}; "
+            f"get_all_outputs 8 rects f32 (TF32 off) card "
             f"vs CPU max |difference| {err:.3e} (rtol {CHAIN_TOL['rtol']}, "
             f"atol {CHAIN_TOL['atol']}), {ms_api:.3f} ms per call, "
             f"{FACES / ms_api * 1e3:.1f} faces/s; process_batch B={b} bf16 "
@@ -2279,7 +2301,8 @@ TRACE_NAMES = {"B1 fused_decode": "decode_kernel",
                "N1 nms_greedy": "nms_tile_walk_kernel",
                "C1 crop_bilinear": "crop_bilinear_kernel",
                "B4 stem_s2d8": "stem_kernel",
-               "B2 raster_tiled": "resolve_mesh_kernel"}
+               "B2 raster_tiled": "resolve_mesh_kernel",
+               "BN1 bn_act": "bnact_"}
 
 
 def sm_clock_mhz():
@@ -2555,6 +2578,111 @@ def splat_phase(torch, dev, card):
         f"{bnd2:.4f} ms) | {bnd / ms:.3f} of bound | within {worst} bf16 "
         f"step of the twin | {card}")
     log(f"phase 15 (kernel R1): {time.perf_counter() - t_phase:.1f} s")
+    return out
+
+
+# -- 16. kernel BN1, the conv backbones' BatchNorm + activation + residual ----
+
+BN1_ARCHS = ("mobilenet_v2", "resnest50")
+
+
+def bnact_sites(torch, dev, arch):
+    """The served backbone's BN1 sites at 120 pixels, {(C, H, W, act,
+    residual form): sites}, from one forward on the card with a tally in
+    BN1's place."""
+    import collections
+
+    from synergynet_tpu_torch.nn.backbones import mobilenet_v2, resnest
+    from synergynet_tpu_torch.ops.bn_act import bn_act_sites
+    model = (mobilenet_v2.MobileNetV2() if arch == "mobilenet_v2"
+             else resnest.make_resnest(arch)).to(dev).eval()
+    return collections.Counter(bn_act_sites(
+        model, torch.zeros((1, 120, 120, 3), device=dev)))
+
+
+def bnact_phase(torch, dev, card):
+    """Kernel BN1 (phase 16) at every site of the served MobileNetV2 and
+    ResNeSt-50, 1,024 faces in bf16: against its twin bit for bit (the
+    count of differing values), its time (min / median / max of 20
+    L2-flushed runs on the device clock) and the twin's (the chain before
+    BN1: ``F.batch_norm``, the clamps, the add; mean of 3), summed over
+    each backbone's sites, against the bound: each operand read once and
+    each result written once over 3.35 TB/s. Returns the numbers for the
+    JSON line."""
+    from synergynet_tpu_torch.nn.batchnorm import BatchNorm
+    from synergynet_tpu_torch.ops import cuda_build
+    from synergynet_tpu_torch.ops.bn_act import bn_act, bn_act_reference
+
+    t_phase = time.perf_counter()
+    flush = torch.empty(256 * 2 ** 20, dtype=torch.uint8, device=dev)
+    faces = FACES * BATCH
+    g = torch.Generator(device=dev).manual_seed(16)
+
+    def operand(c, h, w):
+        x = 3 * torch.randn((faces, c, h, w), generator=g, device=dev)
+        return x.to(torch.bfloat16).contiguous(
+            memory_format=torch.channels_last)
+
+    def drawn_bn(c):
+        bn = BatchNorm(c).to(dev).eval()
+        with torch.no_grad():
+            bn.running_mean.normal_(generator=g)
+            bn.running_var.uniform_(0.05, 2.0, generator=g)
+            bn.weight.normal_(generator=g)
+            bn.bias.normal_(generator=g)
+        return bn
+
+    before = cuda_build.launches["synergy_bn_act"]
+    out = {}
+    for arch in BN1_ARCHS:
+        sites = bnact_sites(torch, dev, arch)
+        total = {"ms": 0.0, "plain_ms": 0.0, "min_bytes": 0, "differ": 0,
+                 "sites": sum(sites.values()), "shapes": []}
+        for (c, h, w, act, form), n in sorted(sites.items()):
+            x = operand(c, h, w)
+            r = operand(c, h, w) if form != "none" else None
+            bn = drawn_bn(c)
+            rbn = drawn_bn(c) if form == "bn" else None
+
+            def bn1():
+                return bn_act(x, bn, act, r, rbn)
+
+            def twin():
+                return bn_act_reference(x, bn, act, r, rbn)
+
+            with torch.inference_mode():
+                differ = int((bn1() != twin()).sum())
+                ms = time_spread(bn1, 20, torch, flush.zero_)
+                plain = time_ms(twin, 3, torch, flush.zero_)
+            nbytes = x.numel() * 2 * (2 if r is None else 3)
+            total["ms"] += n * ms[1]
+            total["plain_ms"] += n * plain
+            total["min_bytes"] += n * nbytes
+            total["differ"] += differ
+            total["shapes"].append({"c": c, "h": h, "w": w, "act": act,
+                                    "residual": form, "sites": n,
+                                    "ms": ms, "plain_ms": plain,
+                                    "differ": differ})
+            log(f"phase 16 BN1 {arch} {faces} faces at {h}x{w}x{c}, {act}, "
+                f"residual {form} (x{n}): min/median/max {ms[0]:.4f} / "
+                f"{ms[1]:.4f} / {ms[2]:.4f} ms over 20 (L2 flushed), "
+                f"{nbytes / ms[1] / 1e6:.0f} GB/s | twin {plain:.4f} ms | "
+                f"{differ} values differ from the twin | {card}")
+            del x, r
+        if total["differ"]:
+            fail(f"phase 16 BN1 {arch}: {total['differ']} values differ "
+                 f"from the twin")
+        bnd, _ = bound(total["min_bytes"], 0, BF16_FLOPS)
+        total["bound_ms"] = bnd
+        out[arch] = total
+        log(f"phase 16 BN1, the {total['sites']} sites of the served {arch} "
+            f"at {faces} faces: {total['ms']:.4f} ms | twin "
+            f"{total['plain_ms']:.4f} ms | bound {bnd:.4f} ms "
+            f"({total['min_bytes'] / 1e9:.3f} GB once) | "
+            f"{bnd / total['ms']:.3f} of bound | bit for bit | {card}")
+    torch.cuda.synchronize()
+    out["launches_phase16"] = cuda_build.launches["synergy_bn_act"] - before
+    log(f"phase 16 (kernel BN1): {time.perf_counter() - t_phase:.1f} s")
     return out
 
 
@@ -2847,7 +2975,8 @@ def programs_phase(torch, dev, card, eng, eng_p, ov, frames, frames_s2d, hws,
                 "N1 nms_greedy": "synergy_nms_greedy",
                 "C1 crop_bilinear": "synergy_crop_bilinear",
                 "B4 stem_s2d8": "synergy_stem_s2d8",
-                "B2 raster_tiled": "synergy_raster_mesh"}
+                "B2 raster_tiled": "synergy_raster_mesh",
+                "BN1 bn_act": "synergy_bn_act"}
     a = (frames, frames_s2d, hws)
     checks = {}
     with torch.inference_mode():
@@ -3218,6 +3347,7 @@ def main():
     cuda_build.launches["synergy_fused_decode"] = 0
     cuda_build.launches["synergy_nms_greedy"] = 0
     cuda_build.launches["synergy_crop_bilinear"] = 0
+    cuda_build.launches["synergy_bn_act"] = 0
     t0 = time.perf_counter()
     frames_np = {hw: np.random.default_rng(1).integers(0, 256, (*hw, 3),
                                                        np.uint8)
@@ -3236,15 +3366,21 @@ def main():
     launches = cuda_build.launches["synergy_fused_decode"]
     n1_launches = cuda_build.launches["synergy_nms_greedy"]
     c1_launches = cuda_build.launches["synergy_crop_bilinear"]
+    bn1_launches = cuda_build.launches["synergy_bn_act"]
     log(f"main path: fused_decode launched {launches} times, nms_greedy "
-        f"{n1_launches} times, crop_bilinear {c1_launches} times (__call__ "
-        f"x2, process_batch x1)")
+        f"{n1_launches} times, crop_bilinear {c1_launches} times, bn_act "
+        f"{bn1_launches} times (__call__ x2, process_batch x1)")
     if launches <= 0:
         fail("the serving path never launched the fused_decode kernel")
     if n1_launches <= 0:
         fail("the serving path never launched the nms_greedy kernel")
     if c1_launches <= 0:
         fail("the serving path never launched the crop_bilinear kernel")
+    # BN1: each of the default MobileNetV2's 52 BN sites in every forward.
+    bn1_sites = BN1_SITES["mobilenet_v2"]
+    if bn1_launches <= 0 or bn1_launches % bn1_sites:
+        fail(f"the serving path credited kernel BN1 {bn1_launches} "
+             f"launches, not a positive multiple of {bn1_sites}")
     peak_gb = torch.cuda.max_memory_allocated() / 2 ** 30
     scores, n_faces, rois, p62, lmk, dense, angles, t3d = out
     want_shapes = [(BATCH, FACES), (BATCH,), (BATCH, FACES, 4),
@@ -3568,6 +3704,9 @@ def main():
     # -- 15. kernel R1 at the served ResNeSt-50's shapes ----------------------
     r1 = splat_phase(torch, dev, card)
 
+    # -- 16. kernel BN1 at the served conv backbones' sites -------------------
+    bn1 = bnact_phase(torch, dev, card)
+
     log(f"chip_smoke: all phases in {time.perf_counter() - t_start:.1f} s")
 
     ms8, plain8, lib8, bound8, _, spread8, entry8 = kernel_stats[FACES]
@@ -3739,7 +3878,33 @@ def main():
         "layout_ms: both steps in plain PyTorch on the channels-last view, "
         "median of 20 a shape; launches: phase 11's resnest50 "
         "process_batch call (launches_phase15: phase 15's own calls)",
-        "faces": FACES * BATCH, "shapes": r1["shapes"]}],
+        "faces": FACES * BATCH, "shapes": r1["shapes"]}, {
+        "name": "bn_act", "route": "cuda",
+        "source": "synergynet_tpu_torch/csrc/bn_act.cu",
+        "replaces": "nn/backbones/mobilenet_v2.py and resnest.py: "
+        "F.batch_norm in eval, F.relu, torch.minimum and the residual add",
+        "note": "not a TPU kernel: the JAX package leaves BatchNorm, the "
+        "activation and the residual add to XLA, which fuses them into the "
+        "convolution; BN1 replaces the port's separate passes",
+        "launches": bn1_launches,
+        "launches_profile": programs["profile"][
+            f"fused stem B={BATCH} replay"]["credited"]["BN1 bn_act"],
+        "launches_resnest50": fam["families"]["resnest50"]["launches_bn1"],
+        "launches_phase16": bn1["launches_phase16"],
+        "differ": sum(bn1[a]["differ"] for a in BN1_ARCHS),
+        "ms": {a: bn1[a]["ms"] for a in BN1_ARCHS},
+        "plain_ms": {a: bn1[a]["plain_ms"] for a in BN1_ARCHS},
+        "bound_ms": {a: bn1[a]["bound_ms"] for a in BN1_ARCHS},
+        "bound_by": "bytes", "library_ms": None,
+        "timing": spread_timing.split("; ms_entry")[0]
+        + "; ms: the medians summed over each backbone's sites; plain_ms: "
+        "the twin (the chain before BN1) on the card, mean of 3 a site; "
+        "launches: the main path's own calls (__call__ x2, process_batch "
+        "x1); launches_profile: phase 14's fused-stem replay, credited and "
+        "seen in its trace; launches_resnest50: phase 11's process_batch "
+        "call",
+        "faces": FACES * BATCH,
+        "sites": {a: bn1[a]["shapes"] for a in BN1_ARCHS}}],
         "e2e_faces_per_s": {str(b): v[1] for b, v in e2e.items()},
         "e2e_ms": {str(b): v[0] for b, v in e2e.items()},
         "e2e_fused_stem_ms": {str(b): v[0] for b, v in e2e_p.items()},

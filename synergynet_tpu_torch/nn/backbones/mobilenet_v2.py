@@ -14,6 +14,11 @@ in fp32 and rounds once to the module dtype; ``F.batch_norm`` on a bf16
 input with fp32 statistics does the same in eval, and
 :class:`~synergynet_tpu_torch.nn.batchnorm.BatchNorm` follows flax's train
 mode. ``module.train()`` selects train mode, as for any torch module.
+
+Each conv's BatchNorm, ReLU6 and residual add go through
+:func:`~synergynet_tpu_torch.ops.bn_act.bn_act`: in eval mode on a card one
+pass of kernel BN1, else the expressions ``relu6(BatchNorm(conv))`` and
+``x + BatchNorm(conv)`` as before.
 """
 
 from __future__ import annotations
@@ -21,12 +26,12 @@ from __future__ import annotations
 from typing import Optional, Sequence, Tuple
 
 import torch
-import torch.nn.functional as F
 from torch import nn
 
 from synergynet_tpu_torch.nn.batchnorm import BatchNorm
 from synergynet_tpu_torch.nn.heads import ParamHead
 from synergynet_tpu_torch.nn.layers import Conv2d, spatial_mean, to_nchw
+from synergynet_tpu_torch.ops.bn_act import bn_act, relu6  # noqa: F401
 
 # (expand_ratio t, out_channels c, repeats n, stride s)
 _DEFAULT_SETTING: Tuple[Tuple[int, int, int, int], ...] = (
@@ -50,13 +55,6 @@ def make_divisible(v: float, divisor: int = 8, min_value: int | None = None) -> 
     return new_v
 
 
-def relu6(x: torch.Tensor) -> torch.Tensor:
-    """``minimum(relu(x), 6)`` as the JAX package writes it: at exactly 6
-    the gradient splits half and half like ``jnp.minimum``'s, where
-    ``F.relu6`` (hardtanh) passes none; 6.0 is common in bf16."""
-    return torch.minimum(F.relu(x), torch.tensor(6.0, dtype=x.dtype))
-
-
 class ConvBNReLU6(nn.Module):
     def __init__(self, cin: int, cout: int, kernel: int = 3, stride: int = 1,
                  groups: int = 1):
@@ -66,7 +64,7 @@ class ConvBNReLU6(nn.Module):
         self.BatchNorm_0 = BatchNorm(cout)
 
     def forward(self, x):
-        return relu6(self.BatchNorm_0(self.Conv_0(x)))
+        return bn_act(self.Conv_0(x), self.BatchNorm_0, "relu6")
 
 
 class InvertedResidual(nn.Module):
@@ -89,14 +87,16 @@ class InvertedResidual(nn.Module):
         y = x
         for i in range(self._n_cbr):
             y = getattr(self, f"ConvBNReLU6_{i}")(y)
-        y = self.BatchNorm_0(self.Conv_0(y))
-        return x + y if self.use_res else y
+        return bn_act(self.Conv_0(y), self.BatchNorm_0,
+                      residual=x if self.use_res else None)
 
 
 class MobileNetV2(nn.Module):
     """NHWC (B, H, W, 3) normalized images -> ``(param62 (B, 62) fp32,
     pooled feature (B, 1280) fp32)``. In train mode the head's dropout
     (rate ``dropout``) draws from the ``generator`` passed to ``forward``."""
+
+    kernels = ("bn_act",)       # the csrc library BN1 launches
 
     def __init__(self, width_mult: float = 1.0,
                  setting: Sequence[Tuple[int, int, int, int]] = _DEFAULT_SETTING,

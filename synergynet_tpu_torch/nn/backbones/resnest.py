@@ -7,7 +7,11 @@ per-channel rSoftMax attention), the ``avd`` average-pool downsampling and
 the ``avg_down`` shortcut, global average pool and the shared head;
 returns ``(param62, pooled_feature_2048)``. Submodules carry the flax
 auto-names (``Conv_0``, ``BatchNorm_0``, ``ResNeStBottleneck_k``,
-``SplAtConv2d_0``, ``ParamHead_0``).
+``SplAtConv2d_0``, ``ParamHead_0``). Each conv's BatchNorm with the ReLU
+and the residual add after it goes through
+:func:`~synergynet_tpu_torch.ops.bn_act.bn_act` (kernel BN1 in eval mode
+on a card); the split attention's BatchNorm on its pooled vector stays a
+module call.
 """
 
 from __future__ import annotations
@@ -21,6 +25,7 @@ from torch import nn
 from synergynet_tpu_torch.nn.batchnorm import BatchNorm
 from synergynet_tpu_torch.nn.heads import ParamHead
 from synergynet_tpu_torch.nn.layers import Conv2d, spatial_mean, to_nchw
+from synergynet_tpu_torch.ops.bn_act import bn_act
 from synergynet_tpu_torch.ops.split_attention import (radix_combine,
                                                       radix_pool)
 
@@ -53,7 +58,7 @@ class SplAtConv2d(nn.Module):
                              bias=True)
 
     def forward(self, x):
-        y = F.relu(self.BatchNorm_0(self.Conv_0(x)))    # radix branches
+        y = bn_act(self.Conv_0(x), self.BatchNorm_0, "relu")  # radix branches
         gap = radix_pool(y, self.radix)                 # (B, C, 1, 1)
         gap = F.relu(self.BatchNorm_1(self.Conv_1(gap)))
         atten = self.Conv_2(gap)                        # (B, C*r, 1, 1)
@@ -90,27 +95,30 @@ class ResNeStBottleneck(nn.Module):
         return F.avg_pool2d(z, 3, self.stride, 1, count_include_pad=True)
 
     def forward(self, x):
-        y = F.relu(self.BatchNorm_0(self.Conv_0(x)))
+        y = bn_act(self.Conv_0(x), self.BatchNorm_0, "relu")
         if self.avd and self.avd_first:
             y = self._avd_pool(y)
         y = self.SplAtConv2d_0(y)
         if self.avd and not self.avd_first:
             y = self._avd_pool(y)
-        y = self.BatchNorm_1(self.Conv_1(y))
-        if self.project:
-            if self.stride != 1:
-                # avg_down: the reference's AvgPool2d(s, s, ceil_mode=True,
-                # count_include_pad=False), which the JAX package emulates
-                # with right/bottom padding left out of the average.
-                x = F.avg_pool2d(x, self.stride, self.stride, ceil_mode=True,
-                                 count_include_pad=False)
-            x = self.BatchNorm_2(self.Conv_2(x))
-        return F.relu(x + y)
+        y = self.Conv_1(y)
+        if not self.project:
+            return bn_act(y, self.BatchNorm_1, "relu", x)
+        if self.stride != 1:
+            # avg_down: the reference's AvgPool2d(s, s, ceil_mode=True,
+            # count_include_pad=False), which the JAX package emulates
+            # with right/bottom padding left out of the average.
+            x = F.avg_pool2d(x, self.stride, self.stride, ceil_mode=True,
+                             count_include_pad=False)
+        return bn_act(y, self.BatchNorm_1, "relu", self.Conv_2(x),
+                      self.BatchNorm_2)
 
 
 class ResNeSt(nn.Module):
     """NHWC (B, H, W, 3) normalized images -> ``(param62 (B, 62) fp32,
     pooled feature (B, 2048) fp32)``."""
+
+    kernels = ("bn_act",)       # the csrc library BN1 launches
 
     def __init__(self, layers: Sequence[int] = (3, 4, 6, 3), radix: int = 2,
                  groups: int = 1, bottleneck_width: int = 64,
@@ -146,8 +154,8 @@ class ResNeSt(nn.Module):
                 ) -> Tuple[torch.Tensor, torch.Tensor]:
         x = to_nchw(x, self.dtype)
         for i in range(3):
-            x = F.relu(getattr(self, f"BatchNorm_{i}")(
-                getattr(self, f"Conv_{i}")(x)))
+            x = bn_act(getattr(self, f"Conv_{i}")(x),
+                       getattr(self, f"BatchNorm_{i}"), "relu")
         x = F.max_pool2d(x, 3, stride=2, padding=1)
         for i in range(self._n_blocks):
             x = getattr(self, f"ResNeStBottleneck_{i}")(x)

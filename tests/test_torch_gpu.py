@@ -7,6 +7,8 @@ and no JAX it runs as
     python -m pytest --noconftest -p no:cacheprovider tests/test_torch_gpu.py
 """
 
+import contextlib
+
 import numpy as np
 import pytest
 import torch
@@ -2046,7 +2048,7 @@ def test_attention_runs_flash_attention_and_nothing_else(cuda):
 def test_vit_process_batch_captures_at_224(cuda):
     """``process_batch`` of 2 canvases through a seeded ViT-B/16 API at
     crop 224: captured and replayed, equal to the eager body bit for bit,
-    the attention's launches credited 12 a replay."""
+    the attention's launches credited 12 a replay, BN1's none."""
     from synergynet_tpu_torch.detect import FaceBoxes
     from synergynet_tpu_torch.detect.detector import random_init_variables
     from synergynet_tpu_torch.pipeline import FusedFrameEngine, SynergyNet3DMM
@@ -2057,11 +2059,12 @@ def test_vit_process_batch_captures_at_224(cuda):
         stem_mode="pallas"), max_faces=8)
     args = _batch(cuda, 2, seed=5)
     want = eng.process_batch_eager(*args)
-    before = launches["attention"]
+    before = _counts("attention", "synergy_bn_act")
     got = eng.process_batch(*args)                # captured, then replayed
     again = eng.process_batch(*args)
     torch.cuda.synchronize()
-    assert launches["attention"] == before + 2 * 12
+    assert _counts("attention", "synergy_bn_act") == (before[0] + 2 * 12,
+                                                      before[1])
     assert int(got[1].sum()) > 0
     for g, a, w in zip(got, again, want):
         assert torch.equal(g, w) and torch.equal(a, w)
@@ -2237,6 +2240,242 @@ def test_resnest_process_batch_credits_r1_a_replay(cuda):
     torch.cuda.synchronize()
     assert sum(_counts("synergy_splat_pool", "synergy_splat_combine")) \
         == before + 2 * 32
+    assert int(got[1].sum()) > 0
+    for g, a, w in zip(got, again, want):
+        assert torch.equal(g, w) and torch.equal(a, w)
+
+
+# -- kernel BN1: the conv backbones' BatchNorm + activation + residual -------
+
+BN1_FORMS = [(act, res) for act in ("none", "relu", "relu6")
+             for res in ("none", "raw", "bn")]
+
+
+def _bn1_bn(cuda, c, seed):
+    from synergynet_tpu_torch.nn.batchnorm import BatchNorm
+    g = torch.Generator(device=cuda).manual_seed(seed)
+    bn = BatchNorm(c).to(cuda).eval()
+    with torch.no_grad():
+        bn.running_mean.copy_(torch.randn(c, generator=g, device=cuda))
+        bn.running_var.copy_(torch.rand(c, generator=g, device=cuda) * 2
+                             + 0.05)
+        bn.weight.copy_(torch.randn(c, generator=g, device=cuda))
+        bn.bias.copy_(torch.randn(c, generator=g, device=cuda))
+    return bn
+
+
+def _bn1_operand(cuda, b, c, h, w, dtype, seed):
+    g = torch.Generator(device=cuda).manual_seed(seed)
+    x = 3 * torch.randn((b, c, h, w), generator=g, device=cuda)
+    return x.to(dtype).contiguous(memory_format=torch.channels_last)
+
+
+def _bn1_twin_flags(dtype):
+    """The twin on the card computes as the served chain computed before
+    BN1: a bf16 ``F.batch_norm`` runs PyTorch's channels-last transform; an
+    f32 one goes to cuDNN unless it is disabled, so f32 holds BN1 to the
+    same transform with cuDNN off (and to cuDNN's within f32 rounding,
+    ``test_bn1_f32_within_rounding_of_cudnn``)."""
+    if dtype == torch.float32:
+        return torch.backends.cudnn.flags(enabled=False)
+    return contextlib.nullcontext()
+
+
+def _check_bn1(cuda, b, c, h, w, dtype, act, res, seed):
+    """BN1 against its twin on one site shape, bit for bit; -> BN1's
+    output."""
+    from synergynet_tpu_torch.ops.bn_act import bn_act, bn_act_reference
+    x = _bn1_operand(cuda, b, c, h, w, dtype, seed)
+    r = _bn1_operand(cuda, b, c, h, w, dtype, seed + 1) \
+        if res != "none" else None
+    bn = _bn1_bn(cuda, c, seed + 2)
+    rbn = _bn1_bn(cuda, c, seed + 3) if res == "bn" else None
+    before = launches["synergy_bn_act"]
+    with torch.inference_mode():
+        got = bn_act(x, bn, act, r, rbn)
+        with _bn1_twin_flags(dtype):
+            want = bn_act_reference(x, bn, act, r, rbn)
+    torch.cuda.synchronize()
+    assert launches["synergy_bn_act"] == before + 1
+    assert got.shape == want.shape and got.dtype == want.dtype
+    assert got.is_contiguous(memory_format=torch.channels_last)
+    differ = int((got != want).sum())
+    assert differ == 0, f"{differ} of {got.numel()} values differ"
+    assert torch.equal(bn_act(x, bn, act, r, rbn), got)     # deterministic
+    return got
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("act,res", BN1_FORMS)
+def test_bn1_kernel_matches_twin_every_form(cuda, act, res, dtype):
+    """Every activation and residual form at 3 faces of 7 x 5 positions and
+    40 channels: a batch, an extent and a width that fill no tile."""
+    _check_bn1(cuda, 3, 40, 7, 5, dtype, act, res, seed=len(act) + len(res))
+
+
+def _bn1_served_sites(cuda):
+    """The distinct BN1 sites of the served MobileNetV2 and ResNeSt-50 at
+    120 pixels: (arch, C, H, W, act, residual form), from one forward of
+    each on the card with a tally in BN1's place."""
+    from synergynet_tpu_torch.nn.backbones import mobilenet_v2
+    from synergynet_tpu_torch.nn.backbones.resnest import make_resnest
+    from synergynet_tpu_torch.ops.bn_act import bn_act_sites
+    sites = set()
+    for arch in ("mobilenet_v2", "resnest50"):
+        model = (mobilenet_v2.MobileNetV2() if arch == "mobilenet_v2"
+                 else make_resnest(arch)).to(cuda).eval()
+        sites.update((arch, *s) for s in bn_act_sites(
+            model, torch.zeros((1, 120, 120, 3), device=cuda)))
+    return sorted(sites)
+
+
+@pytest.fixture(scope="module")
+def bn1_sites(cuda):
+    return _bn1_served_sites(cuda)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("b", [1, 5])
+def test_bn1_kernel_matches_twin_at_served_sites(cuda, bn1_sites, b, dtype):
+    """Every distinct site of both served backbones (60 x 60 down to 4 x 4,
+    15 x 15 among them, 16 to 2,048 channels, ResNeSt's projected shortcut
+    under its own BatchNorm), at 1 and 5 faces."""
+    assert {s[2] for s in bn1_sites} == {60, 30, 15, 8, 4}
+    assert {s[1] for s in bn1_sites} >= {16, 1280, 2048}
+    assert any(s[-1] == "bn" for s in bn1_sites)
+    for k, (_, c, h, w, act, res) in enumerate(bn1_sites):
+        _check_bn1(cuda, b, c, h, w, dtype, act, res, seed=10 * k + b)
+
+
+@pytest.mark.gpu
+def test_bn1_f32_within_rounding_of_cudnn(cuda):
+    """cuDNN's f32 eval BatchNorm, which served the f32 regressor before
+    BN1, rounds its own way: BN1 stays within f32 rounding of it (rtol
+    1e-6), and the test says how many values differ."""
+    from synergynet_tpu_torch.ops.bn_act import bn_act, bn_act_reference
+    x = _bn1_operand(cuda, 4, 64, 15, 15, torch.float32, seed=1)
+    bn = _bn1_bn(cuda, 64, seed=2)
+    with torch.inference_mode():
+        got = bn_act(x, bn, "relu6")
+        with torch.backends.cudnn.flags(enabled=True):
+            want = bn_act_reference(x, bn, "relu6")
+    torch.cuda.synchronize()
+    differ = int((got != want).sum())
+    print(f"BN1 f32 against cuDNN: {differ} of {got.numel()} values differ")
+    torch.testing.assert_close(got, want, rtol=1e-6, atol=1e-6)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("res", ["none", "raw", "bn"])
+def test_bn1_gradient_is_the_twins(cuda, res):
+    """Under autograd BN1 runs in a Function whose backward recomputes the
+    twin: the gradients of x, the residual and the affine parameters equal
+    the twin's own bit for bit."""
+    from synergynet_tpu_torch.ops.bn_act import bn_act, bn_act_reference
+    g = torch.Generator(device=cuda).manual_seed(4)
+    grad = torch.randn((3, 16, 6, 5), generator=g, device=cuda)
+
+    def grads(fn):
+        bn, rbn = _bn1_bn(cuda, 16, 1), _bn1_bn(cuda, 16, 2)
+        x = _bn1_operand(cuda, 3, 16, 6, 5, torch.float32, 3)
+        x.requires_grad_()
+        r = _bn1_operand(cuda, 3, 16, 6, 5, torch.float32, 4) \
+            if res != "none" else None
+        if r is not None:
+            r.requires_grad_()
+        with _bn1_twin_flags(torch.float32):
+            out = fn(x, bn, "relu6", r, rbn if res == "bn" else None)
+            (out * grad).sum().backward()
+        return [t.grad for t in (x, r, bn.weight, bn.bias, rbn.weight,
+                                 rbn.bias) if t is not None]
+
+    before = launches["synergy_bn_act"]
+    got = grads(bn_act)
+    assert launches["synergy_bn_act"] == before + 1
+    want = grads(bn_act_reference)
+    assert len(got) == len(want)
+    for a, b in zip(got, want):
+        assert (a is None) == (b is None)
+        assert a is None or torch.equal(a, b)
+
+
+@pytest.mark.gpu
+def test_bn1_rejects_what_it_does_not_take(cuda):
+    """The wrapper raises before a launch; the C entry, called past it,
+    refuses a channel count off 16 bytes and an unknown form with
+    cudaErrorInvalidValue (1)."""
+    import ctypes
+
+    from synergynet_tpu_torch.ops.bn_act import bn_act
+    from synergynet_tpu_torch.ops.cuda_build import launch
+    x = _bn1_operand(cuda, 2, 16, 4, 4, torch.bfloat16, 0)
+    bn = _bn1_bn(cuda, 16, 1)
+    before = launches["synergy_bn_act"]
+    with pytest.raises(TypeError):
+        bn_act(x.half(), bn, "relu")
+    with pytest.raises(ValueError):
+        bn_act(x.contiguous(), bn, "relu")
+    with pytest.raises(ValueError):
+        bn_act(x, bn, "relu", x[:, :, :2])
+    with pytest.raises(ValueError):
+        bn_act(x, bn.cpu(), "relu")
+    with pytest.raises(ValueError):
+        bn_act(x[:, :12].contiguous(memory_format=torch.channels_last), bn,
+               "relu")
+    assert launches["synergy_bn_act"] == before
+    bn = bn.to(cuda)
+    out = torch.empty_like(x)
+    args = ([ctypes.c_void_p] * 7 + [ctypes.c_float]
+            + [ctypes.c_void_p] * 4 + [ctypes.c_float, ctypes.c_longlong]
+            + [ctypes.c_int] * 4)
+    stats = [bn.running_mean, bn.running_var, bn.weight, bn.bias, 1e-5]
+    for c, act, res in ((12, 1, 0), (16, 3, 0), (16, 1, 3), (16, 1, 1)):
+        # (16, 1, 1): a residual form without a residual pointer
+        with pytest.raises(RuntimeError, match="CUDA error 1$"):
+            launch("bn_act", "synergy_bn_act", args, cuda, x, None, out,
+                   *stats, *stats, 2 * 4 * 4, c, act, res, 2)
+
+
+def _conv_engine(cuda, arch):
+    from synergynet_tpu_torch.detect import FaceBoxes
+    from synergynet_tpu_torch.detect.detector import random_init_variables
+    from synergynet_tpu_torch.pipeline import FusedFrameEngine, SynergyNet3DMM
+    api = (SynergyNet3DMM(variables="trained", dtype=torch.bfloat16,
+                          device=cuda) if arch == "mobilenet_v2"
+           else SynergyNet3DMM(arch, dtype=torch.bfloat16, device=cuda))
+    return FusedFrameEngine(api, detector=FaceBoxes(
+        random_init_variables(0), dtype=torch.bfloat16, device=cuda,
+        stem_mode="pallas"), max_faces=8)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("arch,sites", [("mobilenet_v2", 52),
+                                        ("resnest50", 51)])
+def test_conv_process_batch_replay_equals_the_chain_before_bn1(cuda, arch,
+                                                               sites):
+    """``process_batch`` of 2 canvases through the served bf16 backbone:
+    its replay equals, bit for bit, the replay of an engine whose blocks
+    run the twin (the chain before BN1), and BN1 is credited ``sites``
+    launches a replay (52 in MobileNetV2, 51 in ResNeSt-50)."""
+    from synergynet_tpu_torch.nn.backbones import mobilenet_v2, resnest
+    from synergynet_tpu_torch.ops.bn_act import bn_act_reference
+    args = _batch(cuda, 2, seed=9)
+    with pytest.MonkeyPatch.context() as mp:
+        mp.setattr(mobilenet_v2, "bn_act", bn_act_reference)
+        mp.setattr(resnest, "bn_act", bn_act_reference)
+        chain = _conv_engine(cuda, arch)
+        before = launches["synergy_bn_act"]
+        want = chain.process_batch(*args)             # captured, replayed
+        want = chain.process_batch(*args)
+        assert launches["synergy_bn_act"] == before
+    eng = _conv_engine(cuda, arch)
+    got = eng.process_batch(*args)
+    before = launches["synergy_bn_act"]
+    again = eng.process_batch(*args)
+    torch.cuda.synchronize()
+    assert launches["synergy_bn_act"] == before + sites
     assert int(got[1].sum()) > 0
     for g, a, w in zip(got, again, want):
         assert torch.equal(g, w) and torch.equal(a, w)
