@@ -197,8 +197,18 @@ each fatal on failure:
    (each operand read once, each result written once). Phase 14's trace
    counts BN1's launches in the replay against the credited table, and
    phase 11 the launches of the resnest50 and mobilenet_v2_1.4 calls.
+   The served HRNetV2-W18's 243 sites at 256 pixels the same way, its 18,
+   36 and 270 channels on BN1's 4- and 8-byte vectors.
+17. kernel F1, HRNet's exchange unit (``hrfuse_phase``): every output of
+   the served HRNetV2-W18's three exchange-unit shapes at 1,024 faces in
+   bf16 against the twin bit for bit; F1's time (median of 20, L2
+   flushed) and the twin's, summed over the net's 26 outputs, against
+   the bytes bound (each term read once at its resolution, the identity
+   read once, the output written once: 6.12 GB); and a 128-frame
+   ``process_batch`` through the HRNetV2-W18 API at crop 256, credited
+   243 BN1 and 26 F1 launches a call.
 
-Prints the kernels as one JSON line (B1-B4, N1, C1, R1 and BN1, each with its
+Prints the kernels as one JSON line (B1-B4, N1, C1, R1, BN1 and F1, each with its
 launches on its path,
 error against its twin, kernel, plain and library ms, and the least time
 the card could take, from this run's shapes; each kernel's ``ms`` is the
@@ -230,7 +240,7 @@ RTOL, ATOL = 1e-4, 1e-3     # the dense decode's tolerance (f32)
 STEM_TOL = dict(rtol=1.6e-2, atol=1e-5)     # bf16's own tolerance
 DEVICE = "cuda:0"
 KERNELS = ("fused_decode", "raster_tiled", "stem_s2d8", "nms_greedy",
-           "crop_bilinear", "split_attention", "bn_act")
+           "crop_bilinear", "split_attention", "bn_act", "hr_fuse")
 # Published H100 SXM peaks (dense): HBM bytes/s, bf16 tensor-core and f32
 # (outside the tensor cores) FLOP/s, and TF32 tensor-core FLOP/s (NVIDIA's
 # H100 SXM data sheet, dense TF32).
@@ -1430,7 +1440,8 @@ FAMILY_ARCHS = ("mobilenet_1", "resnet50", "resnext50_32x4d", "ghostnet",
                 "resnest50", "mobilenet_v2_1.4")
 # BN1 launches a forward of the backbones that route through it (the
 # served MobileNetV2 has 52 at every width).
-BN1_SITES = {"resnest50": 51, "mobilenet_v2_1.4": 52, "mobilenet_v2": 52}
+BN1_SITES = {"resnest50": 51, "mobilenet_v2_1.4": 52, "mobilenet_v2": 52,
+             "hrnetv2_w18": 243}
 # The detector phase's parity frame: seeded reference-layout weights
 # (seed 0) on this 120x160 frame keep every candidate score more than 1e-3
 # from the 0.5 visibility threshold (checked in the run), so the card's
@@ -2583,26 +2594,26 @@ def splat_phase(torch, dev, card):
 
 # -- 16. kernel BN1, the conv backbones' BatchNorm + activation + residual ----
 
-BN1_ARCHS = ("mobilenet_v2", "resnest50")
+BN1_ARCHS = ("mobilenet_v2", "resnest50", "hrnetv2_w18")
 
 
 def bnact_sites(torch, dev, arch):
-    """The served backbone's BN1 sites at 120 pixels, {(C, H, W, act,
-    residual form): sites}, from one forward on the card with a tally in
-    BN1's place."""
+    """The served backbone's BN1 sites at its served crop (120 pixels, 256
+    for HRNetV2-W18), {(C, H, W, act, residual form): sites}, from one
+    forward on the card with a tally in BN1's place."""
     import collections
 
-    from synergynet_tpu_torch.nn.backbones import mobilenet_v2, resnest
+    from synergynet_tpu_torch.nn.backbones import make_backbone
     from synergynet_tpu_torch.ops.bn_act import bn_act_sites
-    model = (mobilenet_v2.MobileNetV2() if arch == "mobilenet_v2"
-             else resnest.make_resnest(arch)).to(dev).eval()
+    model = make_backbone(arch).to(dev).eval()
+    crop = getattr(model, "input_size", None) or 120
     return collections.Counter(bn_act_sites(
-        model, torch.zeros((1, 120, 120, 3), device=dev)))
+        model, torch.zeros((1, crop, crop, 3), device=dev)))
 
 
 def bnact_phase(torch, dev, card):
-    """Kernel BN1 (phase 16) at every site of the served MobileNetV2 and
-    ResNeSt-50, 1,024 faces in bf16: against its twin bit for bit (the
+    """Kernel BN1 (phase 16) at every site of the served MobileNetV2,
+    ResNeSt-50 and HRNetV2-W18, 1,024 faces in bf16: against its twin bit for bit (the
     count of differing values), its time (min / median / max of 20
     L2-flushed runs on the device clock) and the twin's (the chain before
     BN1: ``F.batch_norm``, the clamps, the add; mean of 3), summed over
@@ -2683,6 +2694,135 @@ def bnact_phase(torch, dev, card):
     torch.cuda.synchronize()
     out["launches_phase16"] = cuda_build.launches["synergy_bn_act"] - before
     log(f"phase 16 (kernel BN1): {time.perf_counter() - t_phase:.1f} s")
+    return out
+
+
+# -- 17. kernel F1, HRNet's exchange unit -------------------------------------
+
+HRNET_WIDTHS = (18, 36, 72, 144)
+# Modules of each branch count in the served HRNetV2-W18: stage 2's one
+# unit of 2 branches, stage 3's four of 3, stage 4's three of 4.
+HRNET_UNITS = {2: 1, 3: 4, 4: 3}
+F1_OUTPUTS = 26
+
+
+def hrfuse_phase(torch, dev, card, frames, frames_s2d, hws, det_bf16):
+    """Kernel F1 (phase 17): every output of the served HRNetV2-W18's three
+    exchange-unit shapes (branches at 64, 32, 16 and 8 of a 256 crop),
+    1,024 faces in bf16, against its twin bit for bit (the count of
+    differing values); its time (min / median / max of 20 L2-flushed runs
+    on the device clock) and the twin's (the module's BatchNorms, nearest
+    upsamples, adds and ReLU; mean of 3), summed over the net's 26 outputs,
+    against the bound: each term read once at its resolution, the identity
+    read once and the output written once over 3.35 TB/s. Then one
+    ``process_batch`` of the 128 frames through a seeded bf16 HRNetV2-W18
+    API at crop 256, which must credit 243 BN1 and 26 F1 launches, and its
+    time (mean of 3). Returns the numbers for the JSON line."""
+    from synergynet_tpu_torch.nn.batchnorm import BatchNorm
+    from synergynet_tpu_torch.ops import cuda_build
+    from synergynet_tpu_torch.ops.hr_fuse import hr_fuse, hr_fuse_reference
+    from synergynet_tpu_torch.pipeline import (FusedFrameEngine,
+                                               SynergyNet3DMM)
+
+    t_phase = time.perf_counter()
+    flush = torch.empty(256 * 2 ** 20, dtype=torch.uint8, device=dev)
+    faces = FACES * BATCH
+    side = 64
+    g = torch.Generator(device=dev).manual_seed(17)
+
+    def operand(c, h):
+        x = 2 * torch.randn((faces, c, h, h), generator=g, device=dev)
+        return x.to(torch.bfloat16).contiguous(
+            memory_format=torch.channels_last)
+
+    def drawn_bn(c):
+        bn = BatchNorm(c).to(dev).eval()
+        with torch.no_grad():
+            bn.running_mean.normal_(generator=g)
+            bn.running_var.uniform_(0.05, 2.0, generator=g)
+            bn.weight.normal_(generator=g)
+            bn.bias.normal_(generator=g)
+        return bn
+
+    before = cuda_build.launches["synergy_hr_fuse"]
+    out = {"ms": 0.0, "plain_ms": 0.0, "min_bytes": 0, "differ": 0,
+           "outputs": 0, "shapes": []}
+    for n, modules in HRNET_UNITS.items():
+        for i in range(n):
+            c = HRNET_WIDTHS[i]
+            ident = operand(c, side // 2 ** i)
+            terms = [(operand(c, side // 2 ** max(i, j)), drawn_bn(c),
+                      2 ** (j - i) if j > i else 1)
+                     for j in range(n) if j != i]
+
+            def f1():
+                return hr_fuse(ident, terms)
+
+            def twin():
+                return hr_fuse_reference(ident, terms)
+
+            with torch.inference_mode():
+                differ = int((f1() != twin()).sum())
+                ms = time_spread(f1, 20, torch, flush.zero_)
+                plain = time_ms(twin, 3, torch, flush.zero_)
+            nbytes = 2 * (2 * ident.numel()
+                          + sum(t.numel() for t, _, _ in terms))
+            out["ms"] += modules * ms[1]
+            out["plain_ms"] += modules * plain
+            out["min_bytes"] += modules * nbytes
+            out["differ"] += differ
+            out["outputs"] += modules
+            out["shapes"].append({"branches": n, "output": i, "c": c,
+                                  "h": side // 2 ** i,
+                                  "scales": [s for _, _, s in terms],
+                                  "units": modules, "ms": ms,
+                                  "plain_ms": plain, "differ": differ})
+            log(f"phase 17 F1 {faces} faces, output {i} of {n} branches at "
+                f"{side // 2 ** i}x{side // 2 ** i}x{c}, scales "
+                f"{[s for _, _, s in terms]} (x{modules}): min/median/max "
+                f"{ms[0]:.4f} / {ms[1]:.4f} / {ms[2]:.4f} ms over 20 (L2 "
+                f"flushed), {nbytes / ms[1] / 1e6:.0f} GB/s | twin "
+                f"{plain:.4f} ms | {differ} values differ from the twin | "
+                f"{card}")
+            del ident, terms
+    if out["outputs"] != F1_OUTPUTS:
+        fail(f"phase 17: {out['outputs']} exchange outputs, expected "
+             f"{F1_OUTPUTS}")
+    if out["differ"]:
+        fail(f"phase 17 F1: {out['differ']} values differ from the twin")
+    out["bound_ms"], _ = bound(out["min_bytes"], 0, BF16_FLOPS)
+    log(f"phase 17 F1, the {F1_OUTPUTS} exchange outputs of the served "
+        f"HRNetV2-W18 at {faces} faces: {out['ms']:.4f} ms | twin "
+        f"{out['plain_ms']:.4f} ms | bound {out['bound_ms']:.4f} ms "
+        f"({out['min_bytes'] / 1e9:.3f} GB once) | "
+        f"{out['bound_ms'] / out['ms']:.3f} of bound | bit for bit | {card}")
+    torch.cuda.synchronize()
+    out["launches_phase17"] = cuda_build.launches["synergy_hr_fuse"] - before
+
+    api = SynergyNet3DMM("hrnetv2_w18", dtype=torch.bfloat16, device=dev,
+                         crop=256)
+    eng = FusedFrameEngine(api, detector=det_bf16, max_faces=FACES)
+    cuda_build.launches["synergy_bn_act"] = 0
+    cuda_build.launches["synergy_hr_fuse"] = 0
+    res = eng.process_batch(frames, frames_s2d, hws)
+    torch.cuda.synchronize()
+    bn1, f1 = (cuda_build.launches["synergy_bn_act"],
+               cuda_build.launches["synergy_hr_fuse"])
+    if (bn1, f1) != (BN1_SITES["hrnetv2_w18"], F1_OUTPUTS):
+        fail(f"phase 17: process_batch credited BN1 {bn1} and F1 {f1} "
+             f"launches, not {BN1_SITES['hrnetv2_w18']} and {F1_OUTPUTS}")
+    if not all(torch.isfinite(x).all() for x in res[2:]):
+        fail("phase 17: non-finite process_batch outputs")
+    ms_b = time_ms(lambda: eng.process_batch(frames, frames_s2d, hws), 3,
+                   torch)
+    out["process_batch"] = {
+        "launches_bn1": bn1, "launches_f1": f1, "ms": ms_b,
+        "faces_per_s": frames.shape[0] * FACES / ms_b * 1e3}
+    log(f"phase 17 HRNetV2-W18 process_batch, {frames.shape[0]} frames at "
+        f"crop 256: BN1 {bn1} and F1 {f1} launches credited a call; "
+        f"{ms_b:.2f} ms a call (mean of 3), "
+        f"{out['process_batch']['faces_per_s']:.0f} face slots/s | {card}")
+    log(f"phase 17 (kernel F1): {time.perf_counter() - t_phase:.1f} s")
     return out
 
 
@@ -3707,6 +3847,9 @@ def main():
     # -- 16. kernel BN1 at the served conv backbones' sites -------------------
     bn1 = bnact_phase(torch, dev, card)
 
+    # -- 17. kernel F1 at the served HRNetV2-W18's exchange units -------------
+    f1 = hrfuse_phase(torch, dev, card, frames, frames_s2d, hws, det)
+
     log(f"chip_smoke: all phases in {time.perf_counter() - t_start:.1f} s")
 
     ms8, plain8, lib8, bound8, _, spread8, entry8 = kernel_stats[FACES]
@@ -3904,7 +4047,24 @@ def main():
         "seen in its trace; launches_resnest50: phase 11's process_batch "
         "call",
         "faces": FACES * BATCH,
-        "sites": {a: bn1[a]["shapes"] for a in BN1_ARCHS}}],
+        "sites": {a: bn1[a]["shapes"] for a in BN1_ARCHS}}, {
+        "name": "hr_fuse", "route": "cuda",
+        "source": "synergynet_tpu_torch/csrc/hr_fuse.cu",
+        "replaces": "nn/backbones/hrnet.py's exchange outputs: each term's "
+        "F.batch_norm in eval, F.interpolate (nearest), the adds and F.relu",
+        "note": "not a TPU kernel: the JAX package has no HRNet; XLA would "
+        "fuse the exchange unit into the convolutions around it",
+        "launches": f1["process_batch"]["launches_f1"],
+        "launches_phase17": f1["launches_phase17"],
+        "differ": f1["differ"], "ms": f1["ms"],
+        "plain_ms": f1["plain_ms"], "bound_ms": f1["bound_ms"],
+        "bound_by": "bytes", "library_ms": None,
+        "timing": spread_timing.split("; ms_entry")[0]
+        + "; ms: the medians summed over the net's 26 exchange outputs; "
+        "plain_ms: the twin on the card, mean of 3 an output; launches: "
+        "phase 17's process_batch call through the HRNetV2-W18 API",
+        "faces": FACES * BATCH, "shapes": f1["shapes"],
+        "process_batch": f1["process_batch"]}],
         "e2e_faces_per_s": {str(b): v[1] for b, v in e2e.items()},
         "e2e_ms": {str(b): v[0] for b, v in e2e.items()},
         "e2e_fused_stem_ms": {str(b): v[0] for b, v in e2e_p.items()},

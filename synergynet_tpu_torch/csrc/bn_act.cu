@@ -34,14 +34,18 @@
 // 2.47 ms and 5.64 ms at 3.35 TB/s. The operations, a few a value, are far
 // below any peak.
 //
-// Design. 256 threads a block; a thread moves 16 bytes at a time (8 bf16 or
-// 4 f32 channels of one row), so a warp's loads and stores are contiguous
-// runs of a row's channels. A block takes a tile of at most 32 such vectors
-// of the channels and 256 / tile rows at a time; each thread keeps its
-// channels' mean, invstd, weight and bias in registers, computed once, and
-// walks the rows, four in flight, over a grid sized to the card's SMs. No
-// shared memory, nothing allocated, no host read: a CUDA graph records the
-// launch as it records R1.
+// Design. 256 threads a block; a thread moves one vector of a row at a time,
+// the widest of 16, 8 or 4 bytes that divides the row (C x element bytes):
+// 16 bytes (8 bf16 or 4 f32 channels) wherever C is a multiple of 8 / 4, as
+// at every MobileNetV2 and ResNeSt site; 8 or 4 bytes at narrower rows, as
+// HRNet's 18, 36 and 270 channels in bf16. A warp's loads and stores are
+// contiguous runs of a row's channels. A block takes a tile of at most 32
+// such vectors of the channels and 256 / tile rows at a time; each thread
+// keeps its channels' mean, invstd, weight and bias in registers, computed
+// once, and walks the rows, 64 bytes of each operand in flight (four rows of
+// 16-byte vectors, sixteen of 4-byte ones), over a grid sized to the card's
+// SMs. No shared memory, nothing allocated, no host read: a CUDA graph
+// records the launch as it records R1.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -50,51 +54,64 @@ namespace {
 
 constexpr int THREADS = 256;
 constexpr int MAX_TILE = 32;        // vectors of a row a block
-constexpr int ROWS_IN_FLIGHT = 4;   // rows a thread loads before it stores
+constexpr int BYTES_IN_FLIGHT = 64; // of each operand a thread loads before
+                                    // it stores: 4 rows of 16-byte vectors
 constexpr int BLOCKS_PER_SM = 16;   // the grid: about two waves of blocks
 
 enum Act { ACT_NONE = 0, ACT_RELU = 1, ACT_RELU6 = 2 };
 enum Res { RES_NONE = 0, RES_RAW = 1, RES_BN = 2 };
 
-template <typename T>
+// A vector of VB bytes as one load or store.
+template <int VB>
+struct Raw;
+template <>
+struct Raw<16> { using type = uint4; };
+template <>
+struct Raw<8> { using type = uint2; };
+template <>
+struct Raw<4> { using type = unsigned int; };
+
+template <typename T, int VB>
 struct Io;
 
-template <>
-struct Io<float> {
-    static constexpr int V = 4;
-    __device__ __forceinline__ static void unpack(const uint4& raw,
-                                                  float* v) {
-        v[0] = __uint_as_float(raw.x);
-        v[1] = __uint_as_float(raw.y);
-        v[2] = __uint_as_float(raw.z);
-        v[3] = __uint_as_float(raw.w);
+template <int VB>
+struct Io<float, VB> {
+    static constexpr int V = VB / 4;
+    using R = typename Raw<VB>::type;
+    __device__ __forceinline__ static void unpack(const R& raw, float* v) {
+        const unsigned int* u = reinterpret_cast<const unsigned int*>(&raw);
+#pragma unroll
+        for (int i = 0; i < V; ++i) v[i] = __uint_as_float(u[i]);
     }
-    __device__ __forceinline__ static uint4 pack(const float* v) {
-        return make_uint4(__float_as_uint(v[0]), __float_as_uint(v[1]),
-                          __float_as_uint(v[2]), __float_as_uint(v[3]));
+    __device__ __forceinline__ static R pack(const float* v) {
+        R raw;
+        unsigned int* u = reinterpret_cast<unsigned int*>(&raw);
+#pragma unroll
+        for (int i = 0; i < V; ++i) u[i] = __float_as_uint(v[i]);
+        return raw;
     }
     __device__ __forceinline__ static float round(float x) { return x; }
 };
 
-template <>
-struct Io<__nv_bfloat16> {
-    static constexpr int V = 8;
-    __device__ __forceinline__ static void unpack(const uint4& raw,
-                                                  float* v) {
+template <int VB>
+struct Io<__nv_bfloat16, VB> {
+    static constexpr int V = VB / 2;
+    using R = typename Raw<VB>::type;
+    __device__ __forceinline__ static void unpack(const R& raw, float* v) {
         const __nv_bfloat162* h =
             reinterpret_cast<const __nv_bfloat162*>(&raw);
 #pragma unroll
-        for (int i = 0; i < 4; ++i) {
+        for (int i = 0; i < V / 2; ++i) {
             const float2 f = __bfloat1622float2(h[i]);
             v[2 * i] = f.x;
             v[2 * i + 1] = f.y;
         }
     }
-    __device__ __forceinline__ static uint4 pack(const float* v) {
-        uint4 raw;
+    __device__ __forceinline__ static R pack(const float* v) {
+        R raw;
         __nv_bfloat162* h = reinterpret_cast<__nv_bfloat162*>(&raw);
 #pragma unroll
-        for (int i = 0; i < 4; ++i)
+        for (int i = 0; i < V / 2; ++i)
             h[i] = __floats2bfloat162_rn(v[2 * i], v[2 * i + 1]);
         return raw;
     }
@@ -135,13 +152,15 @@ struct Channels {
 
 // x, r, out (rows, c) row-major; block (channel tile, row slice), thread
 // (lane, vector): lanes = THREADS / tile rows at a time.
-template <typename T, int ACT, int RES>
+template <typename T, int VB, int ACT, int RES>
 __global__ void __launch_bounds__(THREADS) bnact_kernel(
         const T* __restrict__ x, const T* __restrict__ r,
         T* __restrict__ out, Bn bn, Bn rbn, long long rows, int c,
         int tile) {
-    constexpr int V = Io<T>::V;
-    constexpr int U = ROWS_IN_FLIGHT;
+    using IO = Io<T, VB>;
+    using R = typename IO::R;
+    constexpr int V = IO::V;
+    constexpr int U = BYTES_IN_FLIGHT / VB;
     const int lanes = THREADS / tile;
     const int lane = threadIdx.x / tile;
     const int k = (blockIdx.x * tile + threadIdx.x - lane * tile) * V;
@@ -154,15 +173,14 @@ __global__ void __launch_bounds__(THREADS) bnact_kernel(
     const long long step = static_cast<long long>(gridDim.y) * lanes * U;
     for (long long p0 = static_cast<long long>(blockIdx.y) * lanes * U + lane;
          p0 < rows; p0 += step) {
-        uint4 xs[U], rs[U];
+        R xs[U], rs[U];
 #pragma unroll
         for (int u = 0; u < U; ++u) {
             const long long p = p0 + static_cast<long long>(u) * lanes;
             if (p < rows) {
-                xs[u] = __ldg(reinterpret_cast<const uint4*>(x + p * c + k));
+                xs[u] = __ldg(reinterpret_cast<const R*>(x + p * c + k));
                 if (RES != RES_NONE)
-                    rs[u] = __ldg(
-                        reinterpret_cast<const uint4*>(r + p * c + k));
+                    rs[u] = __ldg(reinterpret_cast<const R*>(r + p * c + k));
             }
         }
 #pragma unroll
@@ -170,29 +188,30 @@ __global__ void __launch_bounds__(THREADS) bnact_kernel(
             const long long p = p0 + static_cast<long long>(u) * lanes;
             if (p >= rows) break;
             float v[V], s[V];
-            Io<T>::unpack(xs[u], v);
-            if (RES != RES_NONE) Io<T>::unpack(rs[u], s);
+            IO::unpack(xs[u], v);
+            if (RES != RES_NONE) IO::unpack(rs[u], s);
 #pragma unroll
             for (int i = 0; i < V; ++i) {
-                float y = Io<T>::round(a.apply(i, v[i]));
+                float y = IO::round(a.apply(i, v[i]));
                 if (RES != RES_NONE) {
                     const float z =
-                        RES == RES_BN ? Io<T>::round(b.apply(i, s[i])) : s[i];
-                    y = Io<T>::round(__fadd_rn(z, y));
+                        RES == RES_BN ? IO::round(b.apply(i, s[i])) : s[i];
+                    y = IO::round(__fadd_rn(z, y));
                 }
                 if (ACT != ACT_NONE) y = isnan(y) ? y : fmaxf(y, 0.0f);
                 if (ACT == ACT_RELU6) y = isnan(y) ? y : fminf(y, 6.0f);
                 v[i] = y;
             }
-            *reinterpret_cast<uint4*>(out + p * c + k) = Io<T>::pack(v);
+            *reinterpret_cast<R*>(out + p * c + k) = IO::pack(v);
         }
     }
 }
 
-template <typename T, int ACT, int RES>
+template <typename T, int VB, int ACT, int RES>
 int launch(const void* x, const void* r, void* out, const Bn& bn,
            const Bn& rbn, long long rows, int c, cudaStream_t stream) {
-    constexpr int V = Io<T>::V;
+    constexpr int V = Io<T, VB>::V;
+    constexpr int U = BYTES_IN_FLIGHT / VB;
     const int cv = c / V;
     const int tiles = (cv + MAX_TILE - 1) / MAX_TILE;
     const int tile = (cv + tiles - 1) / tiles;
@@ -200,45 +219,56 @@ int launch(const void* x, const void* r, void* out, const Bn& bn,
     int device = 0, sms = 0;
     cudaGetDevice(&device);
     cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, device);
-    long long blocks_y = (rows + lanes * ROWS_IN_FLIGHT - 1) /
-                         (lanes * ROWS_IN_FLIGHT);
+    long long blocks_y = (rows + lanes * U - 1) / (lanes * U);
     const long long cap = (static_cast<long long>(sms) * BLOCKS_PER_SM +
                            tiles - 1) / tiles;
     if (blocks_y > cap) blocks_y = cap;
     if (blocks_y > 65535) blocks_y = 65535;
-    bnact_kernel<T, ACT, RES>
+    bnact_kernel<T, VB, ACT, RES>
         <<<dim3(tiles, static_cast<unsigned>(blocks_y)), THREADS, 0,
            stream>>>(static_cast<const T*>(x), static_cast<const T*>(r),
                      static_cast<T*>(out), bn, rbn, rows, c, tile);
     return static_cast<int>(cudaGetLastError());
 }
 
-template <typename T, int ACT>
+template <typename T, int VB, int ACT>
 int by_res(int res, const void* x, const void* r, void* out, const Bn& bn,
            const Bn& rbn, long long rows, int c, cudaStream_t s) {
     if (res == RES_NONE)
-        return launch<T, ACT, RES_NONE>(x, r, out, bn, rbn, rows, c, s);
+        return launch<T, VB, ACT, RES_NONE>(x, r, out, bn, rbn, rows, c, s);
     if (res == RES_RAW)
-        return launch<T, ACT, RES_RAW>(x, r, out, bn, rbn, rows, c, s);
-    return launch<T, ACT, RES_BN>(x, r, out, bn, rbn, rows, c, s);
+        return launch<T, VB, ACT, RES_RAW>(x, r, out, bn, rbn, rows, c, s);
+    return launch<T, VB, ACT, RES_BN>(x, r, out, bn, rbn, rows, c, s);
 }
 
-template <typename T>
+template <typename T, int VB>
 int by_act(int act, int res, const void* x, const void* r, void* out,
            const Bn& bn, const Bn& rbn, long long rows, int c,
            cudaStream_t s) {
     if (act == ACT_NONE)
-        return by_res<T, ACT_NONE>(res, x, r, out, bn, rbn, rows, c, s);
+        return by_res<T, VB, ACT_NONE>(res, x, r, out, bn, rbn, rows, c, s);
     if (act == ACT_RELU)
-        return by_res<T, ACT_RELU>(res, x, r, out, bn, rbn, rows, c, s);
-    return by_res<T, ACT_RELU6>(res, x, r, out, bn, rbn, rows, c, s);
+        return by_res<T, VB, ACT_RELU>(res, x, r, out, bn, rbn, rows, c, s);
+    return by_res<T, VB, ACT_RELU6>(res, x, r, out, bn, rbn, rows, c, s);
+}
+
+// The widest vector of 16, 8 or 4 bytes that divides a row of row_bytes.
+template <typename T>
+int by_vector(int row_bytes, int act, int res, const void* x, const void* r,
+              void* out, const Bn& bn, const Bn& rbn, long long rows, int c,
+              cudaStream_t s) {
+    if (row_bytes % 16 == 0)
+        return by_act<T, 16>(act, res, x, r, out, bn, rbn, rows, c, s);
+    if (row_bytes % 8 == 0)
+        return by_act<T, 8>(act, res, x, r, out, bn, rbn, rows, c, s);
+    return by_act<T, 4>(act, res, x, r, out, bn, rbn, rows, c, s);
 }
 
 }  // namespace
 
 // x, r (res 1 or 2; else unused) and out (rows, c) row-major on the device,
-// 16-byte aligned, in bf16 (elem 2) or f32 (elem 4); c a multiple of
-// 16 / elem. mean, var, weight, bias: x's BatchNorm, f32, c each; mean2 ..
+// 16-byte aligned, in bf16 (elem 2) or f32 (elem 4); a row of c x elem bytes
+// a multiple of 4 (c even in bf16). mean, var, weight, bias: x's BatchNorm, f32, c each; mean2 ..
 // bias2 and eps2: r's (res 2; else unused). act 0 none, 1 ReLU, 2 ReLU6;
 // res 0 none, 1 r as it is, 2 r under its BatchNorm. Returns
 // cudaGetLastError() after the launch.
@@ -250,8 +280,8 @@ extern "C" int synergy_bn_act(const void* x, const void* r, void* out,
                               const float* bias2, float eps2, long long rows,
                               int c, int act, int res, int elem,
                               void* stream) {
-    const int v = elem == 2 || elem == 4 ? 16 / elem : 0;
-    if (v == 0 || rows < 1 || c < v || c % v != 0 || act < ACT_NONE ||
+    if ((elem != 2 && elem != 4) || rows < 1 || c < 1 ||
+        (c * elem) % 4 != 0 || act < ACT_NONE ||
         act > ACT_RELU6 || res < RES_NONE || res > RES_BN ||
         (res != RES_NONE && r == nullptr))
         return static_cast<int>(cudaErrorInvalidValue);
@@ -259,7 +289,8 @@ extern "C" int synergy_bn_act(const void* x, const void* r, void* out,
     const Bn rbn{mean2, var2, weight2, bias2, eps2};
     cudaStream_t s = static_cast<cudaStream_t>(stream);
     if (elem == 2)
-        return by_act<__nv_bfloat16>(act, res, x, r, out, bn, rbn, rows, c,
-                                     s);
-    return by_act<float>(act, res, x, r, out, bn, rbn, rows, c, s);
+        return by_vector<__nv_bfloat16>(c * elem, act, res, x, r, out, bn,
+                                        rbn, rows, c, s);
+    return by_vector<float>(c * elem, act, res, x, r, out, bn, rbn, rows, c,
+                            s);
 }

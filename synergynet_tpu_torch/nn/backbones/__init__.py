@@ -4,7 +4,8 @@ The same names and factories as ``synergynet_tpu/nn/backbones/__init__.py``:
 MobileNetV2 at widths 1.0, 0.5 and 1.4; MobileNetV1 at six widen factors;
 GhostNet; the ResNet, ResNeXt and wide-ResNet variants; ResNeSt at four
 depths and its six "fast" ablations; and, in the port alone, the Vision
-Transformer ViT-B/16 (``vit_b16``, :mod:`.vit`). Each factory takes
+Transformer ViT-B/16 (``vit_b16``, :mod:`.vit`) and HRNetV2-W18 in its
+facial-landmark form (``hrnetv2_w18``, :mod:`.hrnet`). Each factory takes
 ``dtype`` and ``dropout`` (and the family's own options). :func:`register_backbone`
 adds a name: ``SynergyNet(arch=name)`` then builds it, and the
 checkpoint loaders take it wherever they build the net (a framework
@@ -20,6 +21,7 @@ from typing import Callable, Dict
 from torch import nn
 
 from synergynet_tpu_torch.nn.backbones.ghostnet import GhostNet
+from synergynet_tpu_torch.nn.backbones.hrnet import HRNet
 from synergynet_tpu_torch.nn.backbones.mobilenet_v1 import MobileNetV1
 from synergynet_tpu_torch.nn.backbones.mobilenet_v2 import MobileNetV2
 from synergynet_tpu_torch.nn.backbones.resnest import (
@@ -40,6 +42,7 @@ _REGISTRY: Dict[str, Callable[..., nn.Module]] = {
     **{n: (lambda n=n, **kw: make_resnest(n, **kw))
        for n in (*RESNEST_LAYERS, *RESNEST_FAST_VARIANTS)},
     "vit_b16": VisionTransformer,
+    "hrnetv2_w18": HRNet,
 }
 
 

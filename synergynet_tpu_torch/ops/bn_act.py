@@ -11,9 +11,10 @@ pass: kernel BN1 and its plain twin.
   :func:`bn_act_reference`, which calls the modules: their batch
   statistics and running updates, as the blocks computed before BN1.
 - In eval mode on a CUDA tensor it launches BN1 (``csrc/bn_act.cu``: bf16
-  or f32, ``x`` and ``residual`` channels-last and 16-byte aligned, C a
-  multiple of 8 in bf16 or 4 in f32, the BatchNorms' statistics and
-  parameters f32) or raises; on a CPU tensor it runs the twin.
+  or f32, ``x`` and ``residual`` channels-last and 16-byte aligned, a row
+  of C channels a multiple of 4 bytes: any even C in bf16, any C in f32;
+  the BatchNorms' statistics and parameters f32) or raises; on a CPU
+  tensor it runs the twin.
 
 BN1 rounds where the twin rounds on the card (``F.batch_norm`` once to the
 tensor's type, the add once, the clamps exact), so the two agree bit for
@@ -77,10 +78,10 @@ def check_bn_act(x: torch.Tensor, bn, act: str,
         raise ValueError(f"x has shape {tuple(x.shape)}, expected (B, C, H, "
                          f"W)")
     c = x.shape[1]
-    vec = 16 // x.element_size()
+    vec = 4 // x.element_size()
     if c % vec:
         raise ValueError(f"{c} channels: kernel BN1 takes a multiple of "
-                         f"{vec} in {x.dtype}")
+                         f"{vec} in {x.dtype} (rows of 4-byte multiples)")
     operands = [("x", x)]
     if residual is not None:
         if residual.dtype != x.dtype or residual.shape != x.shape:
@@ -185,8 +186,10 @@ def bn_act_sites(model, x: torch.Tensor) -> List[Tuple]:
     """Every :func:`bn_act` call of one forward of ``model`` on ``x``, in
     order: (C, H, W, act, residual form), the form ``"none"``, ``"raw"`` or
     ``"bn"``. The backbones' ``bn_act`` is swapped for a tally that runs the
-    twin for the length of the forward, so nothing launches."""
-    from synergynet_tpu_torch.nn.backbones import mobilenet_v2, resnest
+    twin for the length of the forward, and HRNet's exchange units run
+    theirs, so nothing launches."""
+    from synergynet_tpu_torch.nn.backbones import hrnet, mobilenet_v2, resnest
+    from synergynet_tpu_torch.ops.hr_fuse import hr_fuse_reference
     seen = []
 
     def tally(x, bn, act="none", residual=None, residual_bn=None):
@@ -195,13 +198,16 @@ def bn_act_sites(model, x: torch.Tensor) -> List[Tuple]:
         seen.append((*x.shape[1:], act, form))
         return bn_act_reference(x, bn, act, residual, residual_bn)
 
-    saved = {m: m.bn_act for m in (mobilenet_v2, resnest)}
+    saved = {m: m.bn_act for m in (mobilenet_v2, resnest, hrnet)}
+    fuse = hrnet.hr_fuse
     for m in saved:
         m.bn_act = tally
+    hrnet.hr_fuse = hr_fuse_reference
     try:
         with torch.inference_mode():
             model(x)
     finally:
         for m, f in saved.items():
             m.bn_act = f
+        hrnet.hr_fuse = fuse
     return seen

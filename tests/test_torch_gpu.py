@@ -2404,8 +2404,8 @@ def test_bn1_gradient_is_the_twins(cuda, res):
 @pytest.mark.gpu
 def test_bn1_rejects_what_it_does_not_take(cuda):
     """The wrapper raises before a launch; the C entry, called past it,
-    refuses a channel count off 16 bytes and an unknown form with
-    cudaErrorInvalidValue (1)."""
+    refuses a row off 4 bytes (an odd count in bf16) and an unknown form
+    with cudaErrorInvalidValue (1)."""
     import ctypes
 
     from synergynet_tpu_torch.ops.bn_act import bn_act
@@ -2422,7 +2422,7 @@ def test_bn1_rejects_what_it_does_not_take(cuda):
     with pytest.raises(ValueError):
         bn_act(x, bn.cpu(), "relu")
     with pytest.raises(ValueError):
-        bn_act(x[:, :12].contiguous(memory_format=torch.channels_last), bn,
+        bn_act(x[:, :13].contiguous(memory_format=torch.channels_last), bn,
                "relu")
     assert launches["synergy_bn_act"] == before
     bn = bn.to(cuda)
@@ -2431,7 +2431,7 @@ def test_bn1_rejects_what_it_does_not_take(cuda):
             + [ctypes.c_void_p] * 4 + [ctypes.c_float, ctypes.c_longlong]
             + [ctypes.c_int] * 4)
     stats = [bn.running_mean, bn.running_var, bn.weight, bn.bias, 1e-5]
-    for c, act, res in ((12, 1, 0), (16, 3, 0), (16, 1, 3), (16, 1, 1)):
+    for c, act, res in ((13, 1, 0), (16, 3, 0), (16, 1, 3), (16, 1, 1)):
         # (16, 1, 1): a residual form without a residual pointer
         with pytest.raises(RuntimeError, match="CUDA error 1$"):
             launch("bn_act", "synergy_bn_act", args, cuda, x, None, out,
@@ -2476,6 +2476,281 @@ def test_conv_process_batch_replay_equals_the_chain_before_bn1(cuda, arch,
     again = eng.process_batch(*args)
     torch.cuda.synchronize()
     assert launches["synergy_bn_act"] == before + sites
+    assert int(got[1].sum()) > 0
+    for g, a, w in zip(got, again, want):
+        assert torch.equal(g, w) and torch.equal(a, w)
+
+
+# -- HRNetV2-W18: BN1 at narrow rows, kernel F1, the served backbone ---------
+
+def _hrnet_sites(cuda):
+    """The distinct BN1 sites of the served HRNetV2-W18 at 256 pixels: (C,
+    H, W, act, residual form), from one forward on the card with a tally in
+    BN1's place."""
+    from synergynet_tpu_torch.nn.backbones.hrnet import HRNet
+    from synergynet_tpu_torch.ops.bn_act import bn_act_sites
+    model = HRNet().to(cuda).eval()
+    return sorted(set(bn_act_sites(
+        model, torch.zeros((1, 256, 256, 3), device=cuda))))
+
+
+@pytest.fixture(scope="module")
+def hrnet_sites(cuda):
+    return _hrnet_sites(cuda)
+
+
+# Rows off 16 bytes: (dtype, C) -> the vector BN1 moves.
+BN1_NARROW = [(torch.bfloat16, 18), (torch.bfloat16, 36),
+              (torch.bfloat16, 270), (torch.float32, 9),
+              (torch.float32, 6)]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype,c", BN1_NARROW)
+@pytest.mark.parametrize("act,res", BN1_FORMS)
+def test_bn1_narrow_rows_match_twin_every_form(cuda, act, res, dtype, c):
+    """Rows off 16 bytes, every form: 18 and 270 bf16 channels move 4-byte
+    vectors, 36 8-byte ones; 9 f32 channels 4-byte ones, 6 8-byte ones."""
+    _check_bn1(cuda, 3, c, 7, 5, dtype, act, res, seed=c + len(act))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("b", [1, 5])
+def test_bn1_kernel_matches_twin_at_hrnet_sites(cuda, hrnet_sites, b, dtype):
+    """Every distinct site of the served HRNetV2-W18 (128 x 128 down to 8 x
+    8, 18 to 270 channels, the projected shortcut of layer1), at 1 and 5
+    faces."""
+    assert {s[0] for s in hrnet_sites} == {18, 36, 64, 72, 144, 256, 270}
+    assert {s[1] for s in hrnet_sites} == {128, 64, 32, 16, 8}
+    assert any(s[-1] == "bn" for s in hrnet_sites)
+    for k, (c, h, w, act, res) in enumerate(hrnet_sites):
+        _check_bn1(cuda, b, c, h, w, dtype, act, res, seed=10 * k + b)
+
+
+@pytest.mark.gpu
+def test_bn1_refuses_odd_bf16_rows(cuda):
+    """An odd channel count in bf16 (a row off 4 bytes): the wrapper
+    raises before a launch, the C entry returns cudaErrorInvalidValue."""
+    import ctypes
+
+    from synergynet_tpu_torch.ops.bn_act import bn_act
+    from synergynet_tpu_torch.ops.cuda_build import launch
+    x = _bn1_operand(cuda, 2, 17, 4, 4, torch.bfloat16, 0)
+    bn = _bn1_bn(cuda, 17, 1)
+    before = launches["synergy_bn_act"]
+    with pytest.raises(ValueError, match="multiple of 2"):
+        bn_act(x, bn, "relu")
+    assert launches["synergy_bn_act"] == before
+    args = ([ctypes.c_void_p] * 7 + [ctypes.c_float]
+            + [ctypes.c_void_p] * 4 + [ctypes.c_float, ctypes.c_longlong]
+            + [ctypes.c_int] * 4)
+    stats = [bn.running_mean, bn.running_var, bn.weight, bn.bias, 1e-5]
+    with pytest.raises(RuntimeError, match="CUDA error 1$"):
+        launch("bn_act", "synergy_bn_act", args, cuda, x, None,
+               torch.empty_like(x), *stats, *stats, 2 * 4 * 4, 17, 1, 0, 2)
+
+
+HRNET_WIDTHS = (18, 36, 72, 144)
+
+
+def _f1_unit(cuda, b, n, i, dtype, side=64, seed=0):
+    """Output i of an n-branch exchange unit at branch 0's extent ``side``:
+    the identity and (raw, BatchNorm, scale) for each j != i in order."""
+    c = HRNET_WIDTHS[i]
+    h = side // 2 ** i
+    ident = _bn1_operand(cuda, b, c, h, h, dtype, seed)
+    terms = []
+    for j in range(n):
+        if j != i:
+            hj = side // 2 ** max(i, j)
+            terms.append((_bn1_operand(cuda, b, c, hj, hj, dtype,
+                                       seed + 1 + j),
+                          _bn1_bn(cuda, c, seed + 11 + j),
+                          2 ** (j - i) if j > i else 1))
+    return ident, terms
+
+
+def _check_f1(cuda, b, n, i, dtype, seed):
+    """F1 against its twin on one exchange output, bit for bit."""
+    from synergynet_tpu_torch.ops.hr_fuse import hr_fuse, hr_fuse_reference
+    ident, terms = _f1_unit(cuda, b, n, i, dtype, seed=seed)
+    before = launches["synergy_hr_fuse"]
+    with torch.inference_mode():
+        got = hr_fuse(ident, terms)
+        with _bn1_twin_flags(dtype):
+            want = hr_fuse_reference(ident, terms)
+    torch.cuda.synchronize()
+    assert launches["synergy_hr_fuse"] == before + 1
+    assert got.shape == want.shape and got.dtype == want.dtype
+    assert got.is_contiguous(memory_format=torch.channels_last)
+    differ = int((got != want).sum())
+    assert differ == 0, f"{differ} of {got.numel()} values differ"
+    assert torch.equal(hr_fuse(ident, terms), got)          # deterministic
+
+
+# The exchange outputs of the served net: stage 2's unit (2 branches),
+# stage 3's four (3) and stage 4's three (4) share three shapes.
+F1_UNITS = [(n, i) for n in (2, 3, 4) for i in range(n)]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("n,i", F1_UNITS)
+def test_f1_kernel_matches_twin_at_served_units(cuda, n, i):
+    """Every output of the three exchange-unit shapes at 1,024 faces of 256
+    pixels in bf16 (branches at 64, 32, 16 and 8; 1 to 3 terms at scales
+    1, 2, 4 and 8)."""
+    _check_f1(cuda, 1024, n, i, torch.bfloat16, seed=10 * n + i)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("n,i", F1_UNITS)
+@pytest.mark.parametrize("b", [1, 3])
+def test_f1_kernel_matches_twin_f32(cuda, n, i, b):
+    """The same in f32 (18 and 36 channels on 8- and 16-byte vectors), the
+    twin's BatchNorm with cuDNN off, as BN1's."""
+    _check_f1(cuda, b, n, i, torch.float32, seed=10 * n + i + b)
+
+
+@pytest.mark.gpu
+def test_f1_gradient_is_the_twins(cuda):
+    """Under autograd F1 runs in a Function whose backward recomputes the
+    twin: the gradients of the identity, each raw term and each BatchNorm's
+    affine parameters equal the twin's own bit for bit."""
+    from synergynet_tpu_torch.ops.hr_fuse import hr_fuse, hr_fuse_reference
+
+    def grads(fn):
+        ident, terms = _f1_unit(cuda, 2, 4, 1, torch.float32, side=16,
+                                seed=3)
+        leaves = [ident.requires_grad_()]
+        for raw, bn, _ in terms:
+            leaves += [raw.requires_grad_(), bn.weight, bn.bias]
+        with _bn1_twin_flags(torch.float32):
+            out = fn(ident, terms)
+            (out * out.detach().cos()).sum().backward()
+        return [t.grad for t in leaves]
+
+    before = launches["synergy_hr_fuse"]
+    got = grads(hr_fuse)
+    assert launches["synergy_hr_fuse"] == before + 1
+    want = grads(hr_fuse_reference)
+    assert len(got) == len(want) == 10
+    for a, b in zip(got, want):
+        assert a is not None and torch.equal(a, b)
+
+
+@pytest.mark.gpu
+def test_f1_rejects_what_it_does_not_take(cuda):
+    """The wrapper raises before a launch; the C entry, called past it,
+    refuses an odd bf16 row, no terms, a scale of 3 or one that does not
+    divide the extent, and more terms ahead of the identity than terms,
+    with cudaErrorInvalidValue (1)."""
+    import ctypes
+
+    from synergynet_tpu_torch.ops.cuda_build import launch
+    from synergynet_tpu_torch.ops.hr_fuse import MAX_TERMS, hr_fuse
+    ident, terms = _f1_unit(cuda, 2, 2, 0, torch.bfloat16, side=16)
+    before = launches["synergy_hr_fuse"]
+    with pytest.raises(TypeError):
+        hr_fuse(ident.half(), terms)
+    with pytest.raises(ValueError):
+        hr_fuse(ident.contiguous(), terms)
+    with pytest.raises(ValueError):
+        hr_fuse(ident, [])
+    with pytest.raises(ValueError):
+        hr_fuse(ident, [(terms[0][0].cpu(), terms[0][1], 2)])
+    assert launches["synergy_hr_fuse"] == before
+    raw, bn, _ = terms[0]
+    term = [raw, bn.running_mean, bn.running_var, bn.weight, bn.bias, 1e-5]
+    argtypes = ([ctypes.c_void_p] * 2
+                + ([ctypes.c_void_p] * 5 + [ctypes.c_float, ctypes.c_int])
+                * MAX_TERMS + [ctypes.c_int] * 7)
+    empty = [None] * 5 + [0.0, 1]
+    out = torch.empty_like(ident)
+    for c, n, before_, scale, h in ((17, 1, 0, 2, 16), (18, 0, 0, 2, 16),
+                                    (18, 1, 0, 3, 16), (18, 1, 0, 2, 15),
+                                    (18, 1, 2, 2, 16)):
+        with pytest.raises(RuntimeError, match="CUDA error 1$"):
+            launch("hr_fuse", "synergy_hr_fuse", argtypes, cuda, ident, out,
+                   *term, scale, *empty, *empty, n, before_, 2, h, 16, c, 2)
+
+
+# HRNetV2-W18 in bf16 against the float32 reference at the published
+# widths: bf16 rounds every conv operand and output, each BatchNorm and
+# each exchange sum at 2^-9 relative, which over ~300 convs reads a few %
+# of the 62 parameters' norm; the same reference in fp8 e4m3 (2^-4) reads
+# far more, and must fall outside.
+HRNET_REL = 0.1
+
+
+@pytest.mark.gpu
+def test_hrnet_card_matches_the_f32_reference(cuda):
+    """``hrnetv2_w18`` at its published widths, bf16 on the card, against
+    the benchmark's plain float32 reference (TF32 off) on 16 seeded crops
+    of 256, the tree drawn and its statistics calibrated as the benchmark
+    does."""
+    from perfbench import weights
+    from perfbench.reference.nets import merge
+    from perfbench.reference.precision import Precision, exact_f32
+    from perfbench.reference.regressors import hrnetv2_w18 as ref
+    from synergynet_tpu_torch.convert import synergy_state_dict
+    from synergynet_tpu_torch.nn import SynergyNet
+    from synergynet_tpu_torch.nn.layers import cast_layers_
+    g = torch.Generator(device=cuda).manual_seed(0)
+    x = (torch.randint(0, 256, (16, 256, 256, 3), generator=g,
+                       device=cuda).float() - 127.5) / 128.0
+    tree = weights.draw(ref.spec(), 11, cuda)
+    weights.calibrate("hrnetv2_w18", tree, x)
+    model = SynergyNet("hrnetv2_w18", dtype=torch.bfloat16)
+    model.load_state_dict(synergy_state_dict(weights.numpy_tree(tree)))
+    model = cast_layers_(model, torch.bfloat16).to(cuda).eval()
+    t = merge(tree["params"], tree["batch_stats"])["backbone"]
+    counts = _counts("synergy_bn_act", "synergy_hr_fuse")
+    with torch.no_grad():
+        got, feat = model(x)
+        with exact_f32():
+            want = ref.forward(Precision("f32"), t, x)
+            fp8 = ref.forward(Precision("fp8"), t, x)
+    assert _counts("synergy_bn_act", "synergy_hr_fuse") == (
+        counts[0] + 243, counts[1] + 26)
+
+    def rel(a):
+        return ((a - want).norm(dim=-1) / want.norm(dim=-1)).max().item()
+
+    print(f"HRNetV2-W18 bf16 against f32: {rel(got):.4f}, fp8 "
+          f"{rel(fp8):.4f}")
+    assert feat.shape == (16, 270) and got.dtype == torch.float32
+    assert rel(got) < HRNET_REL < rel(fp8), (rel(got), rel(fp8))
+
+
+@pytest.fixture(scope="module")
+def hrnet_engine(cuda):
+    from synergynet_tpu_torch.detect import FaceBoxes
+    from synergynet_tpu_torch.detect.detector import random_init_variables
+    from synergynet_tpu_torch.pipeline import FusedFrameEngine, SynergyNet3DMM
+    api = SynergyNet3DMM("hrnetv2_w18", dtype=torch.bfloat16, device=cuda,
+                         crop=256)
+    return FusedFrameEngine(api, detector=FaceBoxes(
+        random_init_variables(0), dtype=torch.bfloat16, device=cuda,
+        stem_mode="pallas"), max_faces=8)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("b", [1, 4])
+def test_hrnet_process_batch_replay_equals_eager_body(cuda, hrnet_engine, b):
+    """``process_batch`` of b canvases through a seeded bf16 HRNetV2-W18 API
+    at crop 256: captured and replayed, equal to the eager body bit for
+    bit, BN1 credited 243 launches a replay and F1 26."""
+    eng = hrnet_engine
+    args = _batch(cuda, b, seed=20 + b)
+    want = eng.process_batch_eager(*args)
+    before = _counts("synergy_bn_act", "synergy_hr_fuse")
+    got = eng.process_batch(*args)                # captured, then replayed
+    again = eng.process_batch(*args)
+    torch.cuda.synchronize()
+    assert _counts("synergy_bn_act", "synergy_hr_fuse") == (
+        before[0] + 2 * 243, before[1] + 2 * 26)
+    assert eng.api.crop == 256
     assert int(got[1].sum()) > 0
     for g, a, w in zip(got, again, want):
         assert torch.equal(g, w) and torch.equal(a, w)
