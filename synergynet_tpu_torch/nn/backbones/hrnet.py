@@ -35,6 +35,15 @@ maps a flax tree by path. Every BatchNorm of the trunk goes through
 (kernel BN1 in eval mode on a card), and every exchange output through
 :func:`~synergynet_tpu_torch.ops.hr_fuse.hr_fuse` (kernel F1). Channels-last
 throughout; the crop side must be a multiple of 32.
+
+To serve, :meth:`HRNet.pad_channels_` stores every width rounded up to
+``ALIGN`` channels (18 -> 24, 36 -> 40, the head's 270 -> 272 over a
+280-channel concatenation), the pad channels' weights zero, so each
+activation reaches cuDNN's NHWC tensor-core convolutions aligned and is
+not copied into a padded buffer first; the pad channels stay exactly 0
+and the pooled feature keeps its 270 channels. Every other reader of the
+parameters (conversion, training, ``load_state_dict``) sees the published
+widths.
 """
 
 from __future__ import annotations
@@ -52,6 +61,9 @@ from synergynet_tpu_torch.ops.bn_act import bn_act
 from synergynet_tpu_torch.ops.hr_fuse import hr_fuse
 
 WIDTHS = (18, 36, 72, 144)      # W18's branches
+# Channels a served activation is stored in multiples of: a 16-byte NHWC
+# row of bf16, what cuDNN's tensor-core convolutions take unpadded.
+ALIGN = 8
 BLOCKS = 4                      # BasicBlocks a branch of a module
 STEM = 64
 LAYER1 = 4                      # Bottlenecks, 64 -> 256
@@ -97,6 +109,47 @@ class Bottleneck(nn.Module):
             return bn_act(self.Conv_2(y), self.BatchNorm_2, "relu",
                           self.Conv_3(x), self.BatchNorm_3)
         return bn_act(self.Conv_2(y), self.BatchNorm_2, "relu", x)
+
+
+def stored(c: int) -> int:
+    """A published width as the served net stores it (module doc)."""
+    return -(-c // ALIGN) * ALIGN
+
+
+def _pad_(t: torch.Tensor, shape, at=None, fill=0.0) -> torch.Tensor:
+    """``t`` placed in a tensor of ``shape`` filled with ``fill``: at the
+    start of every axis, or, along axis 1, at ``at`` (pairs of source and
+    destination slices)."""
+    out = torch.full(shape, fill, dtype=t.dtype, device=t.device)
+    if at is None:
+        out[tuple(slice(0, n) for n in t.shape)] = t
+    else:
+        for src, dst in at:
+            out[:t.shape[0], dst] = t[:, src]
+    return out
+
+
+def _pad_conv_(conv: nn.Conv2d, cin: int, cout: int, at=None) -> None:
+    if at is None and (cin, cout) == (conv.in_channels, conv.out_channels):
+        return
+    w = conv.weight
+    conv.weight = nn.Parameter(_pad_(w, (cout, cin) + w.shape[2:], at),
+                               w.requires_grad)
+    if conv.bias is not None:
+        conv.bias = nn.Parameter(_pad_(conv.bias, (cout,)),
+                                 conv.bias.requires_grad)
+    conv.in_channels, conv.out_channels = cin, cout
+
+
+def _pad_bn_(bn: BatchNorm, c: int) -> None:
+    """Pad channels of weight 0, bias 0, mean 0 and variance 1: they give 0
+    on a 0 input."""
+    if bn.weight.shape[0] == c:
+        return
+    bn.weight = nn.Parameter(_pad_(bn.weight, (c,)), bn.weight.requires_grad)
+    bn.bias = nn.Parameter(_pad_(bn.bias, (c,)), bn.bias.requires_grad)
+    bn.running_mean = _pad_(bn.running_mean, (c,))
+    bn.running_var = _pad_(bn.running_var, (c,), fill=1.0)
 
 
 def exchange_paths(n: int):
@@ -167,6 +220,7 @@ class HRNet(nn.Module):
         super().__init__()
         self.dtype = dtype
         widths = self.widths = WIDTHS
+        self.padded = False
         self.Conv_0 = Conv2d(3, STEM, 3, 2, 1)
         self.BatchNorm_0 = BatchNorm(STEM)
         self.Conv_1 = Conv2d(STEM, STEM, 3, 2, 1)
@@ -209,6 +263,32 @@ class HRNet(nn.Module):
         self.add_module(f"BatchNorm_{conv}", BatchNorm(head))
         self.ParamHead_0 = ParamHead(head, dropout=dropout)
 
+    @torch.no_grad()
+    def pad_channels_(self) -> "HRNet":
+        """Store every conv's and BatchNorm's channels rounded up to
+        ``ALIGN`` for serving, in place and once (module doc): conv weights
+        and biases zero-padded in their output and input channels (the
+        stem's 3 image channels as they are), BatchNorms padded by
+        :func:`_pad_bn_`, the head conv's input channels moved to the
+        padded concatenation's offsets."""
+        if self.padded:
+            return self
+        head = getattr(self, f"Conv_{self._head}")
+        for m in self.modules():
+            if isinstance(m, BatchNorm):
+                _pad_bn_(m, stored(m.weight.shape[0]))
+            elif isinstance(m, nn.Conv2d) and m is not head:
+                cin = m.in_channels
+                _pad_conv_(m, cin if m is self.Conv_0 else stored(cin),
+                           stored(m.out_channels))
+        at, src, dst = [], 0, 0
+        for c in self.widths:
+            at.append((slice(src, src + c), slice(dst, dst + c)))
+            src, dst = src + c, dst + stored(c)
+        _pad_conv_(head, dst, stored(head.out_channels), at)
+        self.padded = True
+        return self
+
     def _transition(self, b: int, x):
         k = self._transitions[b]
         return bn_act(getattr(self, f"Conv_{k}")(x),
@@ -236,5 +316,5 @@ class HRNet(nn.Module):
                 memory_format=torch.channels_last)
         y = bn_act(getattr(self, f"Conv_{self._head}")(y),
                    getattr(self, f"BatchNorm_{self._head}"), "relu")
-        feat = spatial_mean(y).float()
+        feat = spatial_mean(y)[:, :sum(self.widths)].float()
         return self.ParamHead_0(feat, generator), feat

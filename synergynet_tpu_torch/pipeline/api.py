@@ -163,6 +163,9 @@ class SynergyNet3DMM:
         else:
             model.load_state_dict(synergy_state_dict(variables))
         cast_layers_(model, dtype)
+        # A backbone may store other widths to serve than it publishes
+        # (HRNet's narrow branches); ``variables`` keeps the published.
+        getattr(model.backbone, "pad_channels_", lambda: None)()
         self.variables = variables
         self.model = model.to(self.device).eval()
         self.basis = build_decode_basis(self.pack).to(self.device)

@@ -2483,13 +2483,15 @@ def test_conv_process_batch_replay_equals_the_chain_before_bn1(cuda, arch,
 
 # -- HRNetV2-W18: BN1 at narrow rows, kernel F1, the served backbone ---------
 
-def _hrnet_sites(cuda):
-    """The distinct BN1 sites of the served HRNetV2-W18 at 256 pixels: (C,
-    H, W, act, residual form), from one forward on the card with a tally in
-    BN1's place."""
+def _hrnet_sites(cuda, padded=False):
+    """The distinct BN1 sites of HRNetV2-W18 at 256 pixels, at its published
+    widths or as served (``padded``): (C, H, W, act, residual form), from
+    one forward on the card with a tally in BN1's place."""
     from synergynet_tpu_torch.nn.backbones.hrnet import HRNet
     from synergynet_tpu_torch.ops.bn_act import bn_act_sites
     model = HRNet().to(cuda).eval()
+    if padded:
+        model.pad_channels_()
     return sorted(set(bn_act_sites(
         model, torch.zeros((1, 256, 256, 3), device=cuda))))
 
@@ -2529,6 +2531,18 @@ def test_bn1_kernel_matches_twin_at_hrnet_sites(cuda, hrnet_sites, b, dtype):
 
 
 @pytest.mark.gpu
+@pytest.mark.parametrize("b", [1, 5])
+def test_bn1_kernel_matches_twin_at_served_hrnet_sites(cuda, b):
+    """Every distinct site of HRNetV2-W18 as served, its branches stored at
+    24 and 40 channels and its head at 272: all on 16-byte rows in bf16."""
+    sites = _hrnet_sites(cuda, padded=True)
+    assert {s[0] for s in sites} == {24, 40, 64, 72, 144, 256, 272}
+    for k, (c, h, w, act, res) in enumerate(sites):
+        _check_bn1(cuda, b, c, h, w, torch.bfloat16, act, res,
+                   seed=10 * k + b)
+
+
+@pytest.mark.gpu
 def test_bn1_refuses_odd_bf16_rows(cuda):
     """An odd channel count in bf16 (a row off 4 bytes): the wrapper
     raises before a launch, the C entry returns cudaErrorInvalidValue."""
@@ -2552,12 +2566,13 @@ def test_bn1_refuses_odd_bf16_rows(cuda):
 
 
 HRNET_WIDTHS = (18, 36, 72, 144)
+HRNET_STORED = (24, 40, 72, 144)        # as the served net stores them
 
 
-def _f1_unit(cuda, b, n, i, dtype, side=64, seed=0):
+def _f1_unit(cuda, b, n, i, dtype, side=64, seed=0, widths=HRNET_WIDTHS):
     """Output i of an n-branch exchange unit at branch 0's extent ``side``:
     the identity and (raw, BatchNorm, scale) for each j != i in order."""
-    c = HRNET_WIDTHS[i]
+    c = widths[i]
     h = side // 2 ** i
     ident = _bn1_operand(cuda, b, c, h, h, dtype, seed)
     terms = []
@@ -2571,10 +2586,10 @@ def _f1_unit(cuda, b, n, i, dtype, side=64, seed=0):
     return ident, terms
 
 
-def _check_f1(cuda, b, n, i, dtype, seed):
+def _check_f1(cuda, b, n, i, dtype, seed, widths=HRNET_WIDTHS):
     """F1 against its twin on one exchange output, bit for bit."""
     from synergynet_tpu_torch.ops.hr_fuse import hr_fuse, hr_fuse_reference
-    ident, terms = _f1_unit(cuda, b, n, i, dtype, seed=seed)
+    ident, terms = _f1_unit(cuda, b, n, i, dtype, seed=seed, widths=widths)
     before = launches["synergy_hr_fuse"]
     with torch.inference_mode():
         got = hr_fuse(ident, terms)
@@ -2595,12 +2610,16 @@ F1_UNITS = [(n, i) for n in (2, 3, 4) for i in range(n)]
 
 
 @pytest.mark.gpu
+@pytest.mark.parametrize("widths", [HRNET_WIDTHS, HRNET_STORED],
+                         ids=["published", "stored"])
 @pytest.mark.parametrize("n,i", F1_UNITS)
-def test_f1_kernel_matches_twin_at_served_units(cuda, n, i):
+def test_f1_kernel_matches_twin_at_served_units(cuda, n, i, widths):
     """Every output of the three exchange-unit shapes at 1,024 faces of 256
     pixels in bf16 (branches at 64, 32, 16 and 8; 1 to 3 terms at scales
-    1, 2, 4 and 8)."""
-    _check_f1(cuda, 1024, n, i, torch.bfloat16, seed=10 * n + i)
+    1, 2, 4 and 8), at the published widths and as the served net stores
+    them."""
+    _check_f1(cuda, 1024, n, i, torch.bfloat16, seed=10 * n + i,
+              widths=widths)
 
 
 @pytest.mark.gpu
@@ -2723,6 +2742,85 @@ def test_hrnet_card_matches_the_f32_reference(cuda):
     assert rel(got) < HRNET_REL < rel(fp8), (rel(got), rel(fp8))
 
 
+# cuDNN copies a conv's input and its filter into padded buffers where their
+# channels are off a multiple of 8, or copies neither, as the engine it
+# picks goes: in the served HRNet only the stem conv's 3 image channels are
+# off, so at most these two copies.
+STEM_PADS = 2
+
+
+def _pad_kernels(fn, path):
+    """cuDNN's NHWC channel-pad launches (``nhwcAddPaddingKernel``) while
+    ``fn`` runs on the card: the kernels of a profiler trace written to
+    ``path``."""
+    import json
+    torch.cuda.synchronize()
+    with torch.profiler.profile(activities=[
+            torch.profiler.ProfilerActivity.CPU,
+            torch.profiler.ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    prof.export_chrome_trace(str(path))
+    with open(path) as f:
+        trace = json.load(f)
+    events = trace["traceEvents"] if isinstance(trace, dict) else trace
+    return sum(e.get("cat") == "kernel" and "nhwcAddPaddingKernel" in
+               e.get("name", "") for e in events)
+
+
+@pytest.mark.gpu
+def test_hrnet_served_layout_equals_the_published_net(cuda, tmp_path):
+    """HRNetV2-W18 in bf16 on the card as the API serves it (every width
+    stored at a multiple of 8 channels, ``pad_channels_``) against the net
+    at its published widths, the same calibrated tree and 16 crops of 256.
+    cuDNN runs other kernels on 24- and 40-channel inputs than on its own
+    padded copies of 18 and 36, so the two round apart (~0.03 of the 62
+    parameters' norm on an H100): each within ``HRNET_REL`` of the other
+    and of the float32 reference. cuDNN pads the published net's narrow
+    branches before its convolutions (two copies a conv); the served net's
+    only at the stem's 3 image channels."""
+    import copy
+
+    from perfbench import weights
+    from perfbench.reference.nets import merge
+    from perfbench.reference.precision import Precision, exact_f32
+    from perfbench.reference.regressors import hrnetv2_w18 as ref
+    from synergynet_tpu_torch.convert import synergy_state_dict
+    from synergynet_tpu_torch.nn import SynergyNet
+    from synergynet_tpu_torch.nn.layers import cast_layers_
+    g = torch.Generator(device=cuda).manual_seed(1)
+    x = (torch.randint(0, 256, (16, 256, 256, 3), generator=g,
+                       device=cuda).float() - 127.5) / 128.0
+    tree = weights.draw(ref.spec(), 12, cuda)
+    weights.calibrate("hrnetv2_w18", tree, x)
+    model = SynergyNet("hrnetv2_w18", dtype=torch.bfloat16)
+    model.load_state_dict(synergy_state_dict(weights.numpy_tree(tree)))
+    model = cast_layers_(model, torch.bfloat16).to(cuda).eval()
+    served = copy.deepcopy(model)
+    served.backbone.pad_channels_()
+    t = merge(tree["params"], tree["batch_stats"])["backbone"]
+    with torch.no_grad():
+        want, wfeat = model(x)
+        got, feat = served(x)
+        with exact_f32():
+            f32 = ref.forward(Precision("f32"), t, x)
+        trace = tmp_path / "trace.json"
+        pads = {"published": _pad_kernels(lambda: model(x), trace),
+                "served": _pad_kernels(lambda: served(x), trace)}
+
+    def rel(a, b):
+        return ((a - b).norm(dim=-1) / b.norm(dim=-1)).max().item()
+
+    print(f"HRNetV2-W18 served against published (bf16): param62 "
+          f"{rel(got, want):.4f}, feature {rel(feat, wfeat):.4f}; against "
+          f"f32: {rel(got, f32):.4f} (published {rel(want, f32):.4f}); "
+          f"cuDNN pads {pads}")
+    assert feat.shape == (16, 270) and got.shape == (16, 62)
+    assert rel(got, want) < HRNET_REL and rel(feat, wfeat) < HRNET_REL
+    assert rel(got, f32) < HRNET_REL
+    assert pads["served"] <= STEM_PADS < pads["published"], pads
+
+
 @pytest.fixture(scope="module")
 def hrnet_engine(cuda):
     from synergynet_tpu_torch.detect import FaceBoxes
@@ -2754,3 +2852,25 @@ def test_hrnet_process_batch_replay_equals_eager_body(cuda, hrnet_engine, b):
     assert int(got[1].sum()) > 0
     for g, a, w in zip(got, again, want):
         assert torch.equal(g, w) and torch.equal(a, w)
+
+
+@pytest.mark.gpu
+def test_hrnet_replay_pads_the_stem_alone(cuda, hrnet_engine, tmp_path):
+    """A traced ``process_batch`` replay of 2 canvases through the served
+    HRNetV2-W18: cuDNN pads no tensor there but those it pads in the
+    detector run alone and the stem conv's two at most, and BN1 and F1 are
+    credited 243 and 26 launches."""
+    eng = hrnet_engine
+    frames, frames_s2d, hws = _batch(cuda, 2, seed=31)
+    eng.process_batch(frames, frames_s2d, hws)            # captured
+    trace = tmp_path / "trace.json"
+    before = _counts("synergy_bn_act", "synergy_hr_fuse")
+    replay = _pad_kernels(lambda: eng.process_batch(frames, frames_s2d, hws),
+                          trace)
+    assert _counts("synergy_bn_act", "synergy_hr_fuse") == (
+        before[0] + 243, before[1] + 26)
+    with torch.inference_mode():
+        detect = _pad_kernels(lambda: eng.detect_candidates(frames_s2d, hws),
+                              trace)
+    assert eng.api.model.backbone.padded
+    assert replay <= detect + STEM_PADS, (replay, detect)

@@ -13,7 +13,11 @@
   it, bit for bit at scales 1/2/4/8 with 2-4 branches; train mode; F1's
   checks; the autograd Function's gradient plumbing;
 - BN1's wrapper at HRNet's narrow channel counts (18, 36, 270) and its
-  refusal of an odd count in bf16; the site tally of the HRNet.
+  refusal of an odd count in bf16; the site tally of the HRNet;
+- the served layout (``HRNet.pad_channels_``): the padded net against the
+  published one on the same weights, its pad channels exactly 0, every
+  conv at multiples of 8 channels but the stem's image input, padding once,
+  the published shapes everywhere else, the API's serving hook.
 
 F1 and BN1 themselves run only on a card (``tests/test_torch_gpu.py -k
 'hrnet or f1 or bn1'``).
@@ -33,7 +37,8 @@ from perfbench.reference.regressors import hrnetv2_w18 as ref
 from synergynet_tpu_torch.convert import synergy_state_dict
 from synergynet_tpu_torch.nn import SynergyNet, available_backbones
 from synergynet_tpu_torch.nn.backbones import make_backbone
-from synergynet_tpu_torch.nn.backbones.hrnet import HRNet
+from synergynet_tpu_torch.nn.backbones import hrnet
+from synergynet_tpu_torch.nn.backbones.hrnet import HRNet, stored
 from synergynet_tpu_torch.nn.batchnorm import BatchNorm
 from synergynet_tpu_torch.nn.layers import cast_layers_
 from synergynet_tpu_torch.ops import hr_fuse as hr_fuse_mod
@@ -298,7 +303,21 @@ def test_check_counts_the_terms_ahead_of_the_identity():
         assert check_hr_fuse(ident, terms) == i
 
 
-def test_function_gradient_is_the_twins(monkeypatch):
+@pytest.fixture
+def one_thread():
+    """One intra-op thread for the test, the count before restored after.
+    BatchNorm's CPU backward sums each channel's gradient in per-thread
+    partials, so the bits of the affine gradients follow how the thread
+    team splits the batch (2, 3, 4 or 8 threads read other bits than 1);
+    with one thread both sides sum in one order, whatever the rest of the
+    process left the thread pool at."""
+    before = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(before)
+
+
+def test_function_gradient_is_the_twins(monkeypatch, one_thread):
     """Under autograd F1 runs in ``_HrFuse``, whose backward recomputes the
     twin: with the twin standing in for the launch (on the CPU), the
     gradients of the identity, each raw term and each BatchNorm's affine
@@ -360,7 +379,6 @@ def test_every_bn_site_goes_through_bn_act_and_the_tally_puts_back():
     exchange units' inner stride-2 convs 16 (18 and 36 channels), the head
     1 at 270 channels. The tally runs the twins and leaves ``bn_act`` and
     ``hr_fuse`` as it found them."""
-    from synergynet_tpu_torch.nn.backbones import hrnet
     model = HRNet().eval()
     x = _crops(1, 1)
     with torch.inference_mode():
@@ -377,3 +395,159 @@ def test_every_bn_site_goes_through_bn_act_and_the_tally_puts_back():
     assert sum(s[0] == 270 for s in sites) == 1
     with torch.inference_mode():
         assert all(torch.equal(a, b) for a, b in zip(model(x), want))
+
+
+def test_served_tally_runs_the_stored_widths():
+    """The served net's 243 sites at 24, 40, 72, 144 and 272 channels (and
+    the stem's and layer1's 64 and 256): every site on 16-byte rows in
+    bf16, the forms as published."""
+    model = HRNet().eval().pad_channels_()
+    sites = bn_act_sites(model, _crops(1, 1))
+    assert len(sites) == 243
+    assert {s[0] for s in sites} == {64, 256, 24, 40, 72, 144, 272}
+    assert sum(s[0] == 272 for s in sites) == 1
+    assert all(s[0] % 8 == 0 for s in sites)
+
+
+# -- the served layout -------------------------------------------------------
+
+# The padded net adds exact zeros to each conv's sums, so in float32 only
+# the order of those sums moves (oneDNN blocks 24 input channels other than
+# 18): each rounds at 2^-24 relative, which over ~60 convs reads 4e-8 to
+# 8e-8 of the 62 parameters' norm (seeds 3-6); 1e-6 leaves 12x of room and
+# still sees a pad channel or a head offset gone wrong (>1e-2).
+PAD_F32_REL = 1e-6
+
+
+def _served(model):
+    served = copy.deepcopy(model)
+    served.backbone.pad_channels_()
+    return served
+
+
+@pytest.mark.parametrize("seed", [3, 6])
+def test_served_f32_equals_the_published_net(seed):
+    tree, x = _tree(seed), _crops(2, seed)
+    model = _port(tree, torch.float32)
+    with torch.no_grad():
+        want, wfeat = model(x)
+        got, feat = _served(model)(x)
+    assert got.shape == (2, 62) and feat.shape == (2, 270)
+    assert _rel(got, want) < PAD_F32_REL
+    assert _rel(feat, wfeat) < PAD_F32_REL
+
+
+@pytest.mark.parametrize("seed", [3, 5])
+def test_served_bf16_within_one_step_of_the_published_net(seed):
+    """In bf16 each pooled feature within one bf16 step (2^-7 of its value)
+    of the published net's, and so the 62 parameters within 2^-7 of their
+    norm."""
+    tree, x = _tree(seed), _crops(2, seed)
+    model = _port(tree, torch.bfloat16)
+    with torch.no_grad():
+        want, wfeat = model(x)
+        got, feat = _served(model)(x)
+    step = torch.finfo(torch.bfloat16).eps
+    assert feat.shape == (2, 270) and got.dtype == torch.float32
+    assert ((feat - wfeat).abs() <= step * wfeat.abs()).all()
+    assert _rel(got, want) <= step
+
+
+def _pads(c):
+    """The pad channels of a stored width, or None where ``c`` has none."""
+    for width in WIDTHS + (sum(WIDTHS),):
+        if c == stored(width) != width:
+            return slice(width, c)
+    return None
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_every_pad_channel_stays_zero(dtype, monkeypatch):
+    """Forward hooks on every conv, BatchNorm, BasicBlock and exchange unit
+    of the served net, and the head's output where it is pooled: every
+    channel past a published width is exactly 0, at each of the stored
+    widths 24, 40 and 272."""
+    model = _served(_port(_tree(4), dtype)).backbone
+    seen = []
+
+    def check(t):
+        pads = _pads(t.shape[1]) if t.dim() == 4 else None
+        if pads is not None:
+            seen.append(t.shape[1])
+            assert not t[:, pads].any()
+
+    def hook(module, args, out):
+        for t in out if isinstance(out, list) else [out]:
+            check(t)
+
+    for m in model.modules():
+        if m is not model:
+            m.register_forward_hook(hook)
+    pooled = hrnet.spatial_mean
+
+    def spy(y, *args):
+        check(y)
+        return pooled(y, *args)
+
+    monkeypatch.setattr(hrnet, "spatial_mean", spy)
+    with torch.no_grad():
+        _, feat = model(_crops(2, 4))
+    assert feat.shape == (2, 270)
+    assert set(seen) == {24, 40, 272}
+
+
+def test_every_served_conv_runs_multiples_of_8_channels():
+    """Each conv of the served net takes and gives a multiple of 8
+    channels, the stem's 3 image channels alone excepted; the head conv
+    reads the 280-channel concatenation and gives 272."""
+    model = HRNet(**SMALL).eval().pad_channels_()
+    shapes = []
+
+    def hook(module, args, out):
+        shapes.append((args[0].shape[1], out.shape[1]))
+
+    for m in model.modules():
+        if isinstance(m, torch.nn.Conv2d):
+            m.register_forward_hook(hook)
+    with torch.no_grad():
+        model(_crops(1, 2))
+    assert shapes[0] == (3, 64) and shapes[-1] == (280, 272)
+    assert all(cin % 8 == 0 and cout % 8 == 0 for cin, cout in shapes[1:])
+    assert {s for pair in shapes for s in pair} >= {24, 40, 72, 144}
+
+
+def test_padding_is_once_and_the_published_shapes_stay_elsewhere():
+    """A second ``pad_channels_`` changes nothing; the published tree still
+    loads into an unserved net, and not into a served one."""
+    state = synergy_state_dict(weights.numpy_tree(_tree(3)))
+    model = SynergyNet("hrnetv2_w18", **SMALL)
+    model.load_state_dict(state)
+    net = model.backbone
+    assert net.pad_channels_() is net and net.padded
+    once = {k: v.clone() for k, v in model.state_dict().items()}
+    net.pad_channels_()
+    assert all(torch.equal(v, once[k])
+               for k, v in model.state_dict().items())
+    assert once["backbone.Conv_2.weight"].shape == (24, 256, 3, 3)
+    fresh = SynergyNet("hrnetv2_w18", **SMALL)
+    fresh.load_state_dict(state)
+    assert not fresh.backbone.padded
+    with pytest.raises(RuntimeError, match="size mismatch"):
+        model.load_state_dict(state)
+
+
+def test_api_serves_the_stored_widths_and_keeps_the_published_tree():
+    """``SynergyNet3DMM`` pads an HRNet once it is loaded and cast, and
+    keeps the published tree in ``variables``; another backbone has no
+    such hook."""
+    from synergynet_tpu_torch.pipeline import SynergyNet3DMM
+    api = SynergyNet3DMM("hrnetv2_w18", dtype=torch.bfloat16, device="cpu")
+    net = api.model.backbone
+    head = getattr(net, f"Conv_{net._head}")
+    assert net.padded
+    assert head.weight.shape == (272, 280, 1, 1)
+    assert head.weight.dtype == torch.bfloat16
+    SynergyNet("hrnetv2_w18").load_state_dict(
+        synergy_state_dict(api.variables))
+    api = SynergyNet3DMM("mobilenet_v2", device="cpu")
+    assert not hasattr(api.model.backbone, "pad_channels_")
