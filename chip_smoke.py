@@ -213,10 +213,21 @@ each fatal on failure:
    cuDNN's channel pads, traced: the served backbone's no more than its
    stem conv's input and filter, a replay's no more than those and the
    detector's own graph's.
+18. kernels M1, G1 and M2, V-MoE-B/16's routed experts (``moe_phase``):
+   at the served layer's shape (1,024 faces x 197 tokens of 768, 32
+   experts, MLP 3,072) under a balanced and a skewed routing (expert 0
+   holding half the rows), M1 (route and dispatch) and M2 (combine)
+   against their twins on the card's tensors bit for bit, G1 (the grouped
+   expert GEMM, two passes) within one bf16 step; each one's time (median
+   of 20, L2 flushed) against its bound (``perfbench/counts/moe.py``), the
+   twins' and ``torch._grouped_mm``'s at G1's offsets (a yardstick only);
+   then a 128-frame ``process_batch`` through a seeded V-MoE-B/16 API at
+   crop 224, credited 12 M1, 12 G1 and 6 M2 launches (a traced replay
+   runs as many), tallying 2,420,736 routed rows; and the top-2 flips
+   against the float32 reference at three benchmark seeds' weights.
 
-Prints the kernels as one JSON line (B1-B4, N1, C1, R1, BN1 and F1, each with its
-launches on its path,
-error against its twin, kernel, plain and library ms, and the least time
+Prints the kernels as one JSON line (B1-B4, N1, C1, R1, BN1, F1, M1, G1
+and M2, each with its launches on its path, error against its twin, kernel, plain and library ms, and the least time
 the card could take, from this run's shapes; each kernel's ``ms`` is the
 median of 20 runs on the device clock, with ``ms_min`` / ``ms_max`` and
 the entry point's mean ``ms_entry`` beside it; each entry's ``timing``
@@ -246,7 +257,7 @@ RTOL, ATOL = 1e-4, 1e-3     # the dense decode's tolerance (f32)
 STEM_TOL = dict(rtol=1.6e-2, atol=1e-5)     # bf16's own tolerance
 DEVICE = "cuda:0"
 KERNELS = ("fused_decode", "raster_tiled", "stem_s2d8", "nms_greedy",
-           "crop_bilinear", "split_attention", "bn_act", "hr_fuse")
+           "crop_bilinear", "split_attention", "bn_act", "hr_fuse", "moe")
 # Published H100 SXM peaks (dense): HBM bytes/s, bf16 tensor-core and f32
 # (outside the tensor cores) FLOP/s, and TF32 tensor-core FLOP/s (NVIDIA's
 # H100 SXM data sheet, dense TF32).
@@ -2933,6 +2944,313 @@ def hrfuse_phase(torch, dev, card, frames, frames_s2d, hws, det_bf16):
     return out
 
 
+# -- phase 18: kernels M1, G1 and M2, V-MoE-B/16's routed experts --------------
+
+MOE_WIDTH, MOE_EXPERTS, MOE_MLP, MOE_TOKENS_A_FACE = 768, 32, 3072, 197
+MOE_LAYERS = 6
+# G1 against its twin: both round an f32 sum once to bf16 (module doc of
+# tests/test_torch_gpu.py's MOE_GEMM_TOL): one bf16 step.
+MOE_GEMM_RTOL = 2 ** -7
+VMOE_REL = 0.08
+# The benchmark seeds whose weights the routing flips are counted on.
+MOE_FLIP_SEEDS = (2600000011, 2600000027, 2600000043)
+
+
+def moe_inputs(torch, dev, routing, t, seed):
+    """bf16 tokens and an f32 lecun-normal router of the served widths;
+    ``skewed``: every token ranks expert 0 first (half the rows)."""
+    g = torch.Generator(device=dev).manual_seed(seed)
+    u = torch.randn((t, MOE_WIDTH), generator=g, device=dev)
+    w = torch.randn((MOE_EXPERTS, MOE_WIDTH), generator=g,
+                    device=dev) * MOE_WIDTH ** -0.5
+    if routing == "skewed":
+        u[:, 0] = u[:, 0].abs() + 4.0
+        w[0, 0] = 4.0
+    return u.to(torch.bfloat16), w
+
+
+def moe_flips(torch, dev, card, seeds):
+    """The expert choices of the served bf16 V-MoE-B/16 against the float32
+    reference's on 64 seeded noise crops, with each benchmark seed's
+    weights (``perfbench.weights.configuration_weights``): per MoE layer the
+    share of tokens whose top two differ as a set, and whose order alone
+    differs; and param62's largest relative error."""
+    from perfbench import harness, weights
+    from perfbench.reference.precision import Precision, exact_f32
+    from perfbench.reference.regressors import vmoe_b16 as ref
+    from synergynet_tpu_torch.nn.moe import MoeMlp
+    from synergynet_tpu_torch.pipeline import SynergyNet3DMM
+    root = os.path.dirname(os.path.abspath(__file__))
+    cfg = harness.load_cell(root, "vmoe_b16.b128")[3]
+    out = []
+    for seed in seeds:
+        ref_trees, trees = weights.configuration_weights(cfg, root, seed, dev)
+        api = SynergyNet3DMM("vmoe_b16", trees["regressor"],
+                             dtype=torch.bfloat16, device=dev, crop=224)
+        del trees
+        g = torch.Generator(device=dev).manual_seed(seed % 2 ** 31)
+        x = (torch.randint(0, 256, (64, 224, 224, 3), generator=g,
+                           device=dev).float() - 127.5) / 128.0
+        got_routes, want_routes = [], []
+        for m in api.model.modules():
+            if isinstance(m, MoeMlp):
+                m.routes = got_routes
+        with torch.inference_mode():
+            got, _ = api.model(x)
+            with exact_f32():
+                want = ref.forward(Precision("f32"), ref_trees["regressor"],
+                                   x, want_routes)
+        rel = ((got - want).norm(dim=-1) / want.norm(dim=-1)).max().item()
+        sets, order = [], []
+        for a, b in zip(got_routes, want_routes):
+            a = a.long()
+            same_set = (a.sort(-1).values == b.sort(-1).values).all(-1)
+            sets.append(1.0 - same_set.float().mean().item())
+            order.append((same_set & (a != b).any(-1)).float().mean().item())
+        out.append({"seed": seed, "param62_rel": rel,
+                    "set_flip_share": sets, "order_flip_share": order})
+        log(f"phase 18 routing flips, seed {seed}, 64 crops x 197 tokens: "
+            f"top-2 set differs from f32 in "
+            f"{[round(100 * s, 3) for s in sets]} % of tokens a MoE layer, "
+            f"order alone in {[round(100 * s, 3) for s in order]} %; "
+            f"param62 {rel:.4f} of its norm | {card}")
+        del api, ref_trees, got_routes, want_routes
+        torch.cuda.empty_cache()
+    return out
+
+
+def moe_phase(torch, dev, card, frames, frames_s2d, hws, det_bf16):
+    """Kernels M1, G1 and M2 (phase 18) at the served V-MoE-B/16 layer's
+    shape (1,024 faces x 197 tokens of 768, 32 experts, MLP 3,072), under a
+    balanced seeded routing and a skewed one (expert 0 holding half the
+    rows): M1 and M2 against their twins on the same card tensors bit for
+    bit, G1's two passes within one bf16 step; each one's time (min /
+    median / max of 20 L2-flushed runs on the device clock) against its
+    bound (``perfbench/counts/moe.py``), the twins' times, and
+    ``torch._grouped_mm`` at G1's offsets (no bias, no GELU: the library
+    yardstick only; the port never calls it). Then a bf16 V-MoE-B/16 API at
+    crop 224 on the benchmark's seeded tree: one ``process_batch`` of the
+    128 frames credited 12 M1, 12 G1 and 6 M2 launches, the tallies 2T
+    rows a MoE layer, a traced replay's kernels equal to the credits, its
+    time (mean of 3); and the routing flips against the float32 reference
+    at ``MOE_FLIP_SEEDS``' weights. Returns the numbers for the JSON
+    line."""
+    from perfbench.counts import moe as counts
+    from perfbench import weights
+    from perfbench.reference.regressors import vmoe_b16 as ref
+    from synergynet_tpu_torch.core.profiling import recorder
+    from synergynet_tpu_torch.mm3d.codec import full_fp32
+    from synergynet_tpu_torch.ops import cuda_build
+    from synergynet_tpu_torch.ops import moe as M
+    from synergynet_tpu_torch.pipeline import (FusedFrameEngine,
+                                               SynergyNet3DMM)
+
+    t_phase = time.perf_counter()
+    flush = torch.empty(256 * 2 ** 20, dtype=torch.uint8, device=dev)
+    t = FACES * BATCH * MOE_TOKENS_A_FACE
+    d_, e_, h_ = MOE_WIDTH, MOE_EXPERTS, MOE_MLP
+    g = torch.Generator(device=dev).manual_seed(18)
+    w1 = (torch.randn((e_, d_, h_), generator=g, device=dev)
+          * d_ ** -0.5).to(torch.bfloat16)
+    b1 = (0.01 * torch.randn((e_, h_), generator=g, device=dev)).to(
+        torch.bfloat16)
+    w2 = (torch.randn((e_, h_, d_), generator=g, device=dev)
+          * h_ ** -0.5).to(torch.bfloat16)
+    b2 = (0.01 * torch.randn((e_, d_), generator=g, device=dev)).to(
+        torch.bfloat16)
+    z = torch.randn((t, d_), generator=g, device=dev).to(torch.bfloat16)
+    m1_bytes = counts.dispatch_bytes(t, d_, e_, 2, "bfloat16")
+    m1_ops = counts.router_flops(t, d_, e_)
+    m2_bytes = counts.combine_bytes(t, d_, 2, "bfloat16")
+    g1_ops = counts.gemm_flops(t, d_, h_, 2)
+    out = {"tokens": t, "routing": {}}
+    for routing in ("balanced", "skewed"):
+        u, w = moe_inputs(torch, dev, routing, t, 180)
+        with torch.inference_mode():
+            d = M.moe_dispatch(u, w)
+            twin = M.moe_dispatch_reference(u, w)
+            m1_differ = sum(int((a != b).sum()) for a, b in zip(d, twin))
+            counts_e = (d.offsets[1:] - d.offsets[:-1]).tolist()
+            m1 = time_spread(lambda: M.moe_dispatch(u, w), 20, torch,
+                             flush.zero_)
+            m1_plain = time_ms(lambda: M.moe_dispatch_reference(u, w), 1,
+                               torch)
+            h = M.moe_gemm(d.x, w1, b1, d.offsets, d.tiles, True)
+            y = M.moe_gemm(h, w2, b2, d.offsets, d.tiles, False)
+            with full_fp32():
+                h_twin = M.moe_gemm_reference(d.x, w1, b1, d.offsets, True)
+                y_twin = M.moe_gemm_reference(h, w2, b2, d.offsets, False)
+            g1_err = max(
+                ((a.float() - b.float()).abs()
+                 / (b.float().abs() * MOE_GEMM_RTOL + 1e-5)).max().item()
+                for a, b in ((h, h_twin), (y, y_twin)))
+            g1_differ = (h != h_twin).float().mean().item()
+            g1a = time_spread(lambda: M.moe_gemm(d.x, w1, b1, d.offsets,
+                                                 d.tiles, True), 20, torch,
+                              flush.zero_)
+            g1b = time_spread(lambda: M.moe_gemm(h, w2, b2, d.offsets,
+                                                 d.tiles, False), 20, torch,
+                              flush.zero_)
+            with full_fp32():
+                g1_plain = time_ms(lambda: (
+                    M.moe_gemm_reference(d.x, w1, b1, d.offsets, True),
+                    M.moe_gemm_reference(h, w2, b2, d.offsets, False)), 1,
+                    torch)
+            ends = d.offsets[1:].contiguous()
+            try:
+                lib = (time_spread(lambda: torch._grouped_mm(
+                    d.x, w1, offs=ends, out_dtype=torch.bfloat16), 20, torch,
+                    flush.zero_)[1]
+                    + time_spread(lambda: torch._grouped_mm(
+                        h, w2, offs=ends, out_dtype=torch.bfloat16), 20,
+                        torch, flush.zero_)[1])
+            except (RuntimeError, AttributeError, TypeError) as exc:
+                lib = None
+                log(f"phase 18 torch._grouped_mm: {exc!r}"[:300])
+            m2_differ = int((M.moe_combine(z, y, d.slot, d.gate)
+                             != M.moe_combine_reference(z, y, d.slot,
+                                                        d.gate)).sum())
+            m2 = time_spread(lambda: M.moe_combine(z, y, d.slot, d.gate), 20,
+                             torch, flush.zero_)
+            m2_plain = time_ms(lambda: M.moe_combine_reference(
+                z, y, d.slot, d.gate), 3, torch)
+        if m1_differ or m2_differ:
+            fail(f"phase 18 {routing}: M1 differs from its twin in "
+                 f"{m1_differ} values, M2 in {m2_differ}")
+        if g1_err > 1.0:
+            fail(f"phase 18 {routing}: G1 strays {g1_err:.2f} bf16 steps "
+                 f"from its twin")
+        if routing == "skewed" and counts_e[0] != t:
+            fail(f"phase 18: the skewed routing gave expert 0 "
+                 f"{counts_e[0]} rows, not {t}")
+        m1_bound, m1_by = bound(m1_bytes, m1_ops, F32_FLOPS)
+        m2_bound, _ = bound(m2_bytes, 0, BF16_FLOPS)
+        g1_bound, _ = bound(0, g1_ops, BF16_FLOPS)
+        g1_ms = g1a[1] + g1b[1]
+        r = {"counts": counts_e, "m1_ms": m1, "m1_plain_ms": m1_plain,
+             "m1_bound_ms": m1_bound, "m1_bound_by": m1_by,
+             "g1_pass_ms": [g1a, g1b], "g1_ms": g1_ms,
+             "g1_plain_ms": g1_plain, "g1_bound_ms": g1_bound,
+             "g1_steps_from_twin": g1_err, "g1_share_differing": g1_differ,
+             "library_ms": lib, "m2_ms": m2, "m2_plain_ms": m2_plain,
+             "m2_bound_ms": m2_bound}
+        out["routing"][routing] = r
+        log(f"phase 18 {routing} routing ({t} tokens, busiest expert "
+            f"{max(counts_e)} rows of {2 * t}): M1 min/median/max "
+            f"{m1[0]:.4f} / {m1[1]:.4f} / {m1[2]:.4f} ms, bound "
+            f"{m1_bound:.4f} ({m1_by}), {m1_bound / m1[1]:.3f} of bound, "
+            f"bit for bit, twin {m1_plain:.1f} ms | G1 {g1a[1]:.4f} + "
+            f"{g1b[1]:.4f} ms, bound {g1_bound:.4f}, "
+            f"{g1_bound / g1_ms:.3f} of bound, {g1_err:.2f} bf16 steps "
+            f"from the twin at most ({100 * g1_differ:.2f}% of H differ), "
+            f"twin {g1_plain:.1f} ms, torch._grouped_mm "
+            f"{'n/a' if lib is None else f'{lib:.4f}'} ms | M2 "
+            f"{m2[1]:.4f} ms, bound {m2_bound:.4f}, "
+            f"{m2_bound / m2[1]:.3f} of bound, bit for bit, twin "
+            f"{m2_plain:.3f} ms | {card}")
+        del u, w, d, twin, h, y, h_twin, y_twin
+    del w1, b1, w2, b2, z
+    torch.cuda.empty_cache()
+
+    # -- the served net through process_batch ----------------------------------
+    crops = (torch.randint(0, 256, (16, 224, 224, 3), generator=g,
+                           device=dev).float() - 127.5) / 128.0
+    tree = weights.draw(ref.spec(), 18, dev)
+    weights.calibrate("vmoe_b16", tree, crops)
+    api = SynergyNet3DMM("vmoe_b16", weights.numpy_tree(tree),
+                         dtype=torch.bfloat16, device=dev, crop=224)
+    del tree, crops
+    eng = FusedFrameEngine(api, detector=det_bf16, max_faces=FACES)
+    syms = ("synergy_moe_dispatch", "synergy_moe_gemm",
+            "synergy_moe_combine")
+    eng.process_batch(frames, frames_s2d, hws)            # captured
+    torch.cuda.synchronize()
+    recorder.reset()
+    for s in syms:
+        cuda_build.launches[s] = 0
+    eng.process_batch(frames, frames_s2d, hws)
+    torch.cuda.synchronize()
+    credited = [cuda_build.launches[s] for s in syms]
+    c = recorder.counters(f"process_batch.b{frames.shape[0]}",
+                          eng.programs.engine)
+    rows = MOE_LAYERS * 2 * frames.shape[0] * FACES * MOE_TOKENS_A_FACE
+    if credited != [12, 12, 6] or c["moe_rows"] != rows:
+        fail(f"phase 18: process_batch credited {credited} M1/G1/M2 "
+             f"launches and tallied {c['moe_rows']} rows, not [12, 12, 6] "
+             f"and {rows}")
+    path = os.path.join(os.path.dirname(os.path.abspath(__file__)), "build",
+                        "chip_smoke_moe.json")
+    torch.cuda.synchronize()
+    with torch.profiler.profile(activities=[
+            torch.profiler.ProfilerActivity.CPU,
+            torch.profiler.ProfilerActivity.CUDA]) as prof:
+        eng.process_batch(frames, frames_s2d, hws)
+        torch.cuda.synchronize()
+    prof.export_chrome_trace(path)
+    traced = trace_kernel_counts(path, {s: s.replace("synergy_", "")
+                                        for s in syms})
+    if [traced[s] for s in syms] != credited:
+        fail(f"phase 18: a traced replay ran {traced}, credited {credited}")
+    ms_b = time_ms(lambda: eng.process_batch(frames, frames_s2d, hws), 3,
+                   torch)
+    load = c["moe_rows_max"] / (c["moe_rows"] / MOE_EXPERTS)
+    out["process_batch"] = {
+        "launches": dict(zip(syms, credited)), "moe_rows": c["moe_rows"],
+        "moe_rows_max": c["moe_rows_max"], "load_max": load, "ms": ms_b,
+        "faces_per_s": frames.shape[0] * FACES / ms_b * 1e3,
+        "peak_gib": torch.cuda.max_memory_allocated(dev) / 2 ** 30}
+    log(f"phase 18 V-MoE-B/16 process_batch, {frames.shape[0]} frames at "
+        f"crop 224: M1/G1/M2 launches {credited} credited = traced; "
+        f"moe_rows {c['moe_rows']} (2T x 6 layers), busiest expert "
+        f"{load:.3f}x the mean; {ms_b:.2f} ms a call (mean of 3), "
+        f"{out['process_batch']['faces_per_s']:.0f} face slots/s | {card}")
+    del eng, api
+    torch.cuda.empty_cache()
+    out["flips"] = moe_flips(torch, dev, card, MOE_FLIP_SEEDS)
+    log(f"phase 18 (kernels M1, G1, M2): {time.perf_counter() - t_phase:.1f}"
+        f" s")
+    return out
+
+
+def moe_kernels(moe, spread_timing):
+    """Phase 18's kernels M1, G1 and M2 as entries of the JSON line: the
+    balanced routing's numbers, the skewed routing's beside them."""
+    bal, skew = moe["routing"]["balanced"], moe["routing"]["skewed"]
+    timing = (spread_timing.split("; ms_entry")[0] + "; plain_ms: the twin "
+              "on the card's tensors, one run (M2's: mean of 3); launches: "
+              "phase 18's process_batch call through the V-MoE-B/16 API")
+    common = {"route": "cuda", "note": "not a TPU kernel: the JAX package "
+              "has no mixture of experts", "tokens": moe["tokens"],
+              "timing": timing}
+    pb = moe["process_batch"]["launches"]
+    return [
+        dict(common, name="moe_dispatch", kernel="M1",
+             source="synergynet_tpu_torch/csrc/moe.cu",
+             launches=pb["synergy_moe_dispatch"], differ=0,
+             ms=bal["m1_ms"][1], ms_min=bal["m1_ms"][0],
+             ms_max=bal["m1_ms"][2], plain_ms=bal["m1_plain_ms"],
+             bound_ms=bal["m1_bound_ms"], bound_by=bal["m1_bound_by"],
+             library_ms=None, ms_skewed=skew["m1_ms"][1]),
+        dict(common, name="moe_gemm", kernel="G1",
+             source="synergynet_tpu_torch/ops/moe_gemm_triton.py",
+             launches=pb["synergy_moe_gemm"],
+             bf16_steps_from_twin=bal["g1_steps_from_twin"],
+             ms=bal["g1_ms"], pass_ms=bal["g1_pass_ms"],
+             plain_ms=bal["g1_plain_ms"], bound_ms=bal["g1_bound_ms"],
+             bound_by="operations", library_ms=bal["library_ms"],
+             library="torch._grouped_mm at G1's offsets, both passes, no "
+             "bias or GELU (a yardstick: the port never calls it)",
+             ms_skewed=skew["g1_ms"], library_ms_skewed=skew["library_ms"]),
+        dict(common, name="moe_combine", kernel="M2",
+             source="synergynet_tpu_torch/csrc/moe.cu",
+             launches=pb["synergy_moe_combine"], differ=0,
+             ms=bal["m2_ms"][1], ms_min=bal["m2_ms"][0],
+             ms_max=bal["m2_ms"][2], plain_ms=bal["m2_plain_ms"],
+             bound_ms=bal["m2_bound_ms"], bound_by="bytes",
+             library_ms=None, ms_skewed=skew["m2_ms"][1],
+             process_batch=moe["process_batch"], flips=moe["flips"])]
+
+
 def trace_kernel_counts(path, names):
     """Kernel launches per name fragment in a Chrome trace."""
     with open(path) as f:
@@ -3957,6 +4275,9 @@ def main():
     # -- 17. kernel F1 at the served HRNetV2-W18's exchange units -------------
     f1 = hrfuse_phase(torch, dev, card, frames, frames_s2d, hws, det)
 
+    # -- 18. kernels M1, G1 and M2 at the served V-MoE-B/16's layer ----------
+    moe = moe_phase(torch, dev, card, frames, frames_s2d, hws, det)
+
     log(f"chip_smoke: all phases in {time.perf_counter() - t_start:.1f} s")
 
     ms8, plain8, lib8, bound8, _, spread8, entry8 = kernel_stats[FACES]
@@ -4171,7 +4492,8 @@ def main():
         "plain_ms: the twin on the card, mean of 3 an output; launches: "
         "phase 17's process_batch call through the HRNetV2-W18 API",
         "faces": FACES * BATCH, "shapes": f1["shapes"],
-        "process_batch": f1["process_batch"]}],
+        "process_batch": f1["process_batch"]},
+        *moe_kernels(moe, spread_timing)],
         "e2e_faces_per_s": {str(b): v[1] for b, v in e2e.items()},
         "e2e_ms": {str(b): v[0] for b, v in e2e.items()},
         "e2e_fused_stem_ms": {str(b): v[0] for b, v in e2e_p.items()},

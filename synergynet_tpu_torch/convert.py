@@ -7,6 +7,10 @@ key is its flax path joined by dots with the leaf renamed:
 - ``kernel`` (conv, HWIO) -> ``weight`` (OIHW); a depthwise ``(3, 3, 1, C)``
   kernel becomes ``(C, 1, 3, 3)`` by the same transpose;
 - ``kernel`` (Dense, ``(in, out)``) -> ``weight`` (Linear, ``(out, in)``);
+- ``kernel`` of a mixture-of-experts layer's stacked experts, ``(in, E,
+  out)`` (fan-in first, as flax's ``DenseGeneral`` to features ``(E,
+  out)`` keeps it) -> ``weight`` ``(E, in, out)``
+  (``nn.layers.ExpertDense``);
 - BatchNorm and LayerNorm ``scale`` / ``bias`` and BatchNorm ``mean`` /
   ``var`` -> ``weight`` / ``bias`` / ``running_mean`` / ``running_var``;
 - a Vision Transformer's learned embeddings ``cls`` (1, 1, D) and
@@ -44,6 +48,8 @@ def _param_leaf(name: str, arr: np.ndarray) -> Tuple[str, np.ndarray]:
             return "weight", arr.transpose(3, 2, 0, 1)      # HWIO -> OIHW
         if arr.ndim == 2:
             return "weight", arr.T                          # (in,out) -> (out,in)
+        if arr.ndim == 3:
+            return "weight", arr.transpose(1, 0, 2)         # experts first
         raise ValueError(f"kernel of rank {arr.ndim} has no torch layout")
     if name == "scale":
         return "weight", arr
@@ -102,6 +108,9 @@ def flax_from_state_dict(state: Dict[str, torch.Tensor]) -> dict:
             _put(out["params"], path + ["kernel"], arr.transpose(2, 3, 1, 0))
         elif leaf == "weight" and arr.ndim == 2:
             _put(out["params"], path + ["kernel"], arr.T.copy())
+        elif leaf == "weight" and arr.ndim == 3:
+            _put(out["params"], path + ["kernel"],
+                 arr.transpose(1, 0, 2).copy())
         elif leaf == "weight" and arr.ndim == 1:
             _put(out["params"], path + ["scale"], arr)
         elif leaf == "bias" or leaf in EMBEDDINGS:

@@ -30,8 +30,9 @@ The serving path measures itself through one process-wide
   device's global timer into the program's ring of 64 rows on the device,
   a row per call; on the CPU the host clock goes into a CPU ring the same
   way. The body's :func:`tally` adds what it served into the same device
-  tensor. Only the body that its program captures (or runs, on the CPU)
-  stamps: a stage called on its own, or a warm-up call, stamps nothing.
+  tensor, all of the program's tallies at once or some of them by name.
+  Only the body that its program captures (or runs, on the CPU) stamps: a
+  stage called on its own, or a warm-up call, stamps nothing.
 
 Nothing reads the device inside a call: :meth:`Recorder.stage_ms`,
 :meth:`Recorder.counters` and :meth:`Recorder.spans` read on request.
@@ -450,18 +451,31 @@ class Recorder:
         if seq is not None:
             seq.done(stage)
 
-    def tally(self, values: Callable[[], Sequence[torch.Tensor]]) -> None:
-        """Add ``values()`` (0-dim integer tensors on the body's device) to
-        the stamped body's tallies, in their order. ``values`` is called
-        only inside a stamped body, so elsewhere it costs nothing."""
+    def tally(self, values: Callable[[], Sequence[torch.Tensor]],
+              names: Optional[Sequence[str]] = None) -> None:
+        """Add ``values()`` (0-dim integer tensors on the body's device, or
+        one 1-D integer tensor) to the stamped body's tallies: to all of
+        them in their order, or to ``names``, a run of them in their order
+        (a body whose program tallies none of ``names`` adds nothing).
+        ``values`` is called only where it is added, so elsewhere it costs
+        nothing."""
         seq = getattr(self._local, "seq", None)
         if seq is None:
             return
+        names = seq.tally_names if names is None else tuple(names)
+        if names[0] not in seq.tally_names:
+            return
+        first = seq.tally_names.index(names[0])
+        if seq.tally_names[first:first + len(names)] != names:
+            raise ValueError(f"the body tallies {seq.tally_names}; {names} "
+                             f"is not a run of them")
         vals = values()
-        if len(vals) != len(seq.tally_names):
-            raise ValueError(f"the body tallies {seq.tally_names}, given "
-                             f"{len(vals)} values")
-        seq.tallies.add_(torch.stack(vals).to(torch.int64))
+        vals = (vals if isinstance(vals, torch.Tensor) else
+                torch.stack(list(vals)))
+        if len(vals) != len(names):
+            raise ValueError(f"the body tallies {names}, given {len(vals)} "
+                             f"values")
+        seq.tallies[first:first + len(names)].add_(vals.to(torch.int64))
 
     def stage_rows(self, key: str, engine: Optional[str] = None
                    ) -> List[Tuple[Optional[int], Dict[str, float]]]:

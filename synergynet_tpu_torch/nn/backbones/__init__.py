@@ -4,7 +4,8 @@ The same names and factories as ``synergynet_tpu/nn/backbones/__init__.py``:
 MobileNetV2 at widths 1.0, 0.5 and 1.4; MobileNetV1 at six widen factors;
 GhostNet; the ResNet, ResNeXt and wide-ResNet variants; ResNeSt at four
 depths and its six "fast" ablations; and, in the port alone, the Vision
-Transformer ViT-B/16 (``vit_b16``, :mod:`.vit`) and HRNetV2-W18 in its
+Transformer ViT-B/16 (``vit_b16``, :mod:`.vit`), its sparse
+mixture-of-experts form V-MoE-B/16 (``vmoe_b16``) and HRNetV2-W18 in its
 facial-landmark form (``hrnetv2_w18``, :mod:`.hrnet`). Each factory takes
 ``dtype`` and ``dropout`` (and the family's own options). :func:`register_backbone`
 adds a name: ``SynergyNet(arch=name)`` then builds it, and the
@@ -27,7 +28,7 @@ from synergynet_tpu_torch.nn.backbones.mobilenet_v2 import MobileNetV2
 from synergynet_tpu_torch.nn.backbones.resnest import (
     RESNEST_FAST_VARIANTS, RESNEST_LAYERS, make_resnest)
 from synergynet_tpu_torch.nn.backbones.resnet import RESNET_LAYERS, make_resnet
-from synergynet_tpu_torch.nn.backbones.vit import VisionTransformer
+from synergynet_tpu_torch.nn.backbones.vit import VisionTransformer, vmoe_b16
 
 _REGISTRY: Dict[str, Callable[..., nn.Module]] = {
     "mobilenet_v2": MobileNetV2,
@@ -42,6 +43,7 @@ _REGISTRY: Dict[str, Callable[..., nn.Module]] = {
     **{n: (lambda n=n, **kw: make_resnest(n, **kw))
        for n in (*RESNEST_LAYERS, *RESNEST_FAST_VARIANTS)},
     "vit_b16": VisionTransformer,
+    "vmoe_b16": vmoe_b16,
     "hrnetv2_w18": HRNet,
 }
 

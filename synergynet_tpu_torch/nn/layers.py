@@ -12,11 +12,14 @@ them in the module's dtype.
   Dense is one bf16 GEMM with the bias in its epilogue, accumulated in
   f32; a bf16 LayerNorm takes its mean and variance in f32 and rounds its
   output once.
-- :func:`cast_layers_` rounds every conv, Dense and LayerNorm weight and
-  bias once, so a bf16 serving model rounds the 1x1 biased convs
-  (ResNeSt's ``fc1``/``fc2``, GhostNet's squeeze-excite and head conv) as
-  flax rounds them per call. The parameter head's plain ``nn.Linear``
-  layers stay f32.
+- :class:`ExpertDense` holds a mixture-of-experts layer's stacked expert
+  Dense layers, ``weight`` (E, in, out) and ``bias`` (E, out); the layer
+  (:mod:`synergynet_tpu_torch.nn.moe`) computes with them itself.
+- :func:`cast_layers_` rounds every conv, Dense, :class:`ExpertDense` and
+  LayerNorm weight and bias once, so a bf16 serving model rounds the 1x1
+  biased convs (ResNeSt's ``fc1``/``fc2``, GhostNet's squeeze-excite and
+  head conv) as flax rounds them per call. The parameter head's plain
+  ``nn.Linear`` layers, and a mixture-of-experts router (one), stay f32.
 - :func:`to_nchw` and :func:`spatial_mean` are the backbones' entry
   (NHWC in, channels-last NCHW inside) and ``jnp.mean`` over the spatial
   axes (an fp32 accumulator, one rounding to the input's dtype).
@@ -51,6 +54,17 @@ class Dense(nn.Linear):
         return F.linear(x, self.weight.to(x.dtype), self.bias.to(x.dtype))
 
 
+class ExpertDense(nn.Module):
+    """``ExpertDense(experts, cin, cout)``: ``experts`` biased Dense layers
+    stacked, ``weight`` (experts, cin, cout) in flax's kernel layout and
+    ``bias`` (experts, cout)."""
+
+    def __init__(self, experts: int, cin: int, cout: int):
+        super().__init__()
+        self.weight = nn.Parameter(torch.empty(experts, cin, cout))
+        self.bias = nn.Parameter(torch.zeros(experts, cout))
+
+
 class LayerNorm(nn.LayerNorm):
     """``LayerNorm(width, eps)`` over the last axis, in the input's dtype
     (module doc)."""
@@ -62,12 +76,12 @@ class LayerNorm(nn.LayerNorm):
 
 
 def cast_layers_(model: nn.Module, dtype: torch.dtype) -> nn.Module:
-    """Store every conv, :class:`Dense` and :class:`LayerNorm` weight and
-    bias of ``model`` in ``dtype`` (in place), for inference: they round to
-    ``dtype`` once, as the per-call cast of a training model rounds them
-    each call."""
+    """Store every conv, :class:`Dense`, :class:`ExpertDense` and
+    :class:`LayerNorm` weight and bias of ``model`` in ``dtype`` (in
+    place), for inference: they round to ``dtype`` once, as the per-call
+    cast of a training model rounds them each call."""
     for m in model.modules():
-        if isinstance(m, (nn.Conv2d, Dense, LayerNorm)):
+        if isinstance(m, (nn.Conv2d, Dense, ExpertDense, LayerNorm)):
             m.to(dtype)
     return model
 

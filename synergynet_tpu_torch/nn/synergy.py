@@ -23,6 +23,7 @@ from synergynet_tpu_torch.losses import param_loss, wing_loss
 from synergynet_tpu_torch.mm3d.assets import ParamPack
 from synergynet_tpu_torch.mm3d.codec import decode_landmarks
 from synergynet_tpu_torch.nn.backbones import make_backbone
+from synergynet_tpu_torch.nn.layers import ExpertDense
 from synergynet_tpu_torch.nn.pointnet import MLPFor, MLPRev
 
 REFINE_SCALE = 0.05   # lmk + 0.05 * residual (reference model_building.py:150)
@@ -78,7 +79,8 @@ def init_synergy_(model: nn.Module, generator: torch.Generator
                   ) -> nn.Module:
     """Draw every parameter of ``model`` as flax initializes the JAX tree:
     conv and dense kernels lecun-normal (a normal truncated at two standard
-    deviations, rescaled to variance 1 / fan_in), biases zero, BatchNorm
+    deviations, rescaled to variance 1 / fan_in; each stacked expert's
+    kernel over its own fan-in, a router's too), biases zero, BatchNorm
     scale 1 (0 where the module sets ``zero_init``, as flax's
     ``scale_init=zeros`` in ResNet's blocks) and bias 0, running mean 0
     and variance 1; LayerNorm scale 1 and bias 0; a Vision Transformer's
@@ -97,6 +99,11 @@ def init_synergy_(model: nn.Module, generator: torch.Generator
                                   generator=generator)
             if m.bias is not None:
                 m.bias.zero_()
+        elif isinstance(m, ExpertDense):
+            std = math.sqrt(1.0 / m.weight.shape[1]) / .87962566103423978
+            nn.init.trunc_normal_(m.weight, 0.0, std, -2 * std, 2 * std,
+                                  generator=generator)
+            m.bias.zero_()
         elif isinstance(m, nn.LayerNorm):
             m.weight.fill_(1.0)
             m.bias.zero_()

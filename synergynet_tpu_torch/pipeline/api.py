@@ -36,8 +36,11 @@ What an operator can read (:mod:`synergynet_tpu_torch.core.profiling`,
 into its own ring (device ms per stage of every replay:
 ``recorder.stage_ms``) and its body tallies ``TALLIES`` (candidates with a
 positive score, candidates kept by greedy NMS and the visibility
-threshold, faces returned), read with the program's calls, frames and
-bytes by ``recorder.counters``; under a profiler the calls show the spans
+threshold, faces returned) and those its regressor's modules list (their
+``tallies``: a mixture-of-experts regressor's routed rows and busiest
+experts' rows, :mod:`synergynet_tpu_torch.nn.moe`), read with the
+program's calls, frames and bytes by ``recorder.counters``; under a
+profiler the calls show the spans
 ``synergy.process_batch`` and, in ``__call__``, ``synergy.frame`` >
 ``synergy.prep`` (fit, upload, pack: host work and its uploads),
 ``synergy.to_host`` (the outputs' copies to numpy: where the host waits
@@ -273,9 +276,13 @@ class FusedFrameEngine:
         self.max_faces = max_faces
         self._det_mean = self.detector.mean
         # Built now: the path's kernel libraries and those its backbone's
-        # modules launch (their ``kernels``).
+        # modules launch (their ``kernels``). The body tallies ``TALLIES``
+        # and what the modules add to (their ``tallies``).
         nets = {k for m in api.model.modules()
                 for k in getattr(m, "kernels", ())}
+        self.tallies = TALLIES + tuple(dict.fromkeys(
+            t for m in api.model.modules()
+            for t in getattr(m, "tallies", ())))
         self.programs = ProgramCache(
             api.device, "frame",
             kernels=("stem_s2d8", "nms_greedy", "crop_bilinear",
@@ -302,7 +309,8 @@ class FusedFrameEngine:
         face_scores = torch.where(keep, top_scores,
                                   torch.full_like(top_scores, -1.0))
         n_faces = (face_scores > 0).sum(-1)
-        tally(lambda: ((scores > 0).sum(), kept.sum(), n_faces.sum()))
+        tally(lambda: ((scores > 0).sum(), kept.sum(), n_faces.sum()),
+              TALLIES)
         return face_scores, n_faces, face_boxes
 
     def regress(self, frames: torch.Tensor, rois: torch.Tensor
@@ -342,9 +350,9 @@ class FusedFrameEngine:
                             frames_s2d: torch.Tensor, true_hws: torch.Tensor):
         """The eager body of :meth:`process_batch`, op by op on the frames'
         device: what a card's program captures and what the CPU runs. Run
-        by its program it stamps ``BATCH_STAGES`` and tallies ``TALLIES``
-        (module docstring); called directly, like a stage called on its
-        own, it stamps nothing."""
+        by its program it stamps ``BATCH_STAGES`` and tallies
+        ``self.tallies`` (module docstring); called directly, like a stage
+        called on its own, it stamps nothing."""
         face_scores, n_faces, rois, param62 = self.head(frames, frames_s2d,
                                                         true_hws)
         b, f = rois.shape[:2]
@@ -368,7 +376,7 @@ class FusedFrameEngine:
             return self.programs.run(
                 f"process_batch.b{frames.shape[0]}", self.process_batch_eager,
                 frames, frames_s2d, true_hws, stages=BATCH_STAGES,
-                tallies=TALLIES)
+                tallies=self.tallies)
 
     def __call__(self, img_bgr: np.ndarray) -> Tuple[List, List, List]:
         """One BGR uint8 frame -> reference-format (pts_res, vertices_lst,

@@ -78,11 +78,11 @@ def crops(b=2, seed=0):
 
 
 def test_registry_equals_jax():
-    """The JAX registry's 29 names, and ViT-B/16 and HRNetV2-W18, which the
-    port alone has."""
-    assert available_backbones() == sorted(jax_names()
-                                           + ["vit_b16", "hrnetv2_w18"])
-    assert len(available_backbones()) == 31
+    """The JAX registry's 29 names, and ViT-B/16, V-MoE-B/16 and
+    HRNetV2-W18, which the port alone has."""
+    assert available_backbones() == sorted(
+        jax_names() + ["vit_b16", "vmoe_b16", "hrnetv2_w18"])
+    assert len(available_backbones()) == 32
 
 
 @pytest.mark.parametrize("arch", jax_names())

@@ -2874,3 +2874,377 @@ def test_hrnet_replay_pads_the_stem_alone(cuda, hrnet_engine, tmp_path):
                               trace)
     assert eng.api.model.backbone.padded
     assert replay <= detect + STEM_PADS, (replay, detect)
+
+
+# -- kernels M1, G1 and M2: V-MoE's routed experts ------------------------------
+
+# The served V-MoE-B/16 layer: 128 canvases x 8 faces x 197 tokens of 768,
+# 32 experts, MLP 3072.
+MOE_TOKENS, MOE_WIDTH, MOE_EXPERTS, MOE_MLP = 1024 * 197, 768, 32, 3072
+
+
+def _moe_inputs(cuda, routing, seed=0, t=MOE_TOKENS):
+    """Layer-normed-like bf16 tokens and an f32 lecun-normal router; with
+    ``routing`` "skewed" every token ranks expert 0 first, so expert 0
+    holds half the 2T rows."""
+    g = torch.Generator(device=cuda).manual_seed(seed)
+    u = torch.randn((t, MOE_WIDTH), generator=g, device=cuda)
+    w = torch.randn((MOE_EXPERTS, MOE_WIDTH), generator=g,
+                    device=cuda) * MOE_WIDTH ** -0.5
+    if routing == "skewed":
+        u[:, 0] = u[:, 0].abs() + 4.0
+        w[0, 0] = 4.0
+    return u.to(torch.bfloat16), w
+
+
+def _dispatches_equal(got, want):
+    for name, a, b in zip(got._fields, got, want):
+        assert a.dtype == b.dtype and a.shape == b.shape, name
+        assert torch.equal(a, b), (name, int((a != b).sum()))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("routing", ["balanced", "skewed"])
+def test_moe_dispatch_kernel_matches_twin_bit_for_bit(cuda, routing):
+    """M1 at the served shape (201,728 tokens, 768 wide, 32 experts) against
+    its twin run on the same card tensors: experts, gates, slots, offsets,
+    tiles, the dispatched rows and the stats, bit for bit; two launches."""
+    from synergynet_tpu_torch.ops.moe import (moe_dispatch,
+                                              moe_dispatch_reference)
+    u, w = _moe_inputs(cuda, routing)
+    before = launches["synergy_moe_dispatch"]
+    got = moe_dispatch(u, w)
+    torch.cuda.synchronize()
+    assert launches["synergy_moe_dispatch"] == before + 2
+    want = moe_dispatch_reference(u, w)
+    _dispatches_equal(got, want)
+    counts = (got.offsets[1:] - got.offsets[:-1]).tolist()
+    assert got.stats.tolist() == [2 * MOE_TOKENS, max(counts)]
+    if routing == "skewed":
+        assert counts[0] == MOE_TOKENS
+    else:
+        assert max(counts) < 4 * 2 * MOE_TOKENS // MOE_EXPERTS, counts
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("t", [1, 3, 1000])
+def test_moe_dispatch_kernel_matches_twin_at_small_counts(cuda, t):
+    """Fewer tokens than blocks, and a ragged last block: bit for bit."""
+    from synergynet_tpu_torch.ops.moe import (moe_dispatch,
+                                              moe_dispatch_reference)
+    u, w = _moe_inputs(cuda, "balanced", seed=t, t=t)
+    _dispatches_equal(moe_dispatch(u, w), moe_dispatch_reference(u, w))
+
+
+@pytest.mark.gpu
+def test_moe_dispatch_kernel_ties_to_the_lower_expert(cuda):
+    """Zero tokens tie all 32 experts: experts 0 and 1, gates 1/32."""
+    from synergynet_tpu_torch.ops.moe import moe_dispatch
+    u = torch.zeros((64, MOE_WIDTH), dtype=torch.bfloat16, device=cuda)
+    _, w = _moe_inputs(cuda, "balanced")
+    d = moe_dispatch(u, w)
+    assert d.expert.tolist() == [[0, 1]] * 64
+    assert (d.gate == 1 / 32).all()
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("routing", ["balanced", "skewed"])
+def test_moe_combine_kernel_matches_twin_bit_for_bit(cuda, routing):
+    """M2 at the served shape against its twin on the same card tensors,
+    bit for bit, on M1's slots and gates; one launch."""
+    from synergynet_tpu_torch.ops.moe import (moe_combine,
+                                              moe_combine_reference,
+                                              moe_dispatch)
+    u, w = _moe_inputs(cuda, routing, seed=1)
+    d = moe_dispatch(u, w)
+    g = torch.Generator(device=cuda).manual_seed(2)
+    y = torch.randn((2 * MOE_TOKENS, MOE_WIDTH), generator=g,
+                    device=cuda).to(torch.bfloat16)
+    z = torch.randn((MOE_TOKENS, MOE_WIDTH), generator=g,
+                    device=cuda).to(torch.bfloat16)
+    before = launches["synergy_moe_combine"]
+    got = moe_combine(z, y, d.slot, d.gate)
+    torch.cuda.synchronize()
+    assert launches["synergy_moe_combine"] == before + 1
+    want = moe_combine_reference(z, y, d.slot, d.gate)
+    assert torch.equal(got, want), int((got != want).sum())
+
+
+# G1 accumulates each row's products in f32 in wgmma's order, its twin in
+# cuBLAS's (TF32 off), and both round the f32 result once to bf16: the f32
+# sums agree to ~1e-6 relative, so an output differs from the twin's by at
+# most one bf16 step (2^-8 relative, where a sum falls by a rounding
+# boundary), and most are equal.
+MOE_GEMM_TOL = dict(rtol=2 ** -7, atol=1e-5)
+
+
+def _gemm_pair(cuda, x, w, b, offsets, tiles, gelu):
+    from synergynet_tpu_torch.ops.moe import moe_gemm, moe_gemm_reference
+    before = launches["synergy_moe_gemm"]
+    got = moe_gemm(x, w, b, offsets, tiles, gelu)
+    torch.cuda.synchronize()
+    assert launches["synergy_moe_gemm"] == before + 1
+    with full_fp32():
+        want = moe_gemm_reference(x, w, b, offsets, gelu)
+    return got, want
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("routing", ["balanced", "skewed"])
+def test_moe_gemm_kernel_matches_twin(cuda, routing):
+    """G1's two passes at the served shape on M1's offsets, each against
+    the twin on the same input, within one bf16 step."""
+    from synergynet_tpu_torch.ops.moe import moe_dispatch
+    u, w = _moe_inputs(cuda, routing, seed=3)
+    d = moe_dispatch(u, w)
+    g = torch.Generator(device=cuda).manual_seed(4)
+    w1 = (torch.randn((MOE_EXPERTS, MOE_WIDTH, MOE_MLP), generator=g,
+                      device=cuda) * MOE_WIDTH ** -0.5).to(torch.bfloat16)
+    b1 = (torch.randn((MOE_EXPERTS, MOE_MLP), generator=g, device=cuda)
+          * 0.01).to(torch.bfloat16)
+    w2 = (torch.randn((MOE_EXPERTS, MOE_MLP, MOE_WIDTH), generator=g,
+                      device=cuda) * MOE_MLP ** -0.5).to(torch.bfloat16)
+    b2 = (torch.randn((MOE_EXPERTS, MOE_WIDTH), generator=g, device=cuda)
+          * 0.01).to(torch.bfloat16)
+    h, want_h = _gemm_pair(cuda, d.x, w1, b1, d.offsets, d.tiles, True)
+    torch.testing.assert_close(h.float(), want_h.float(), **MOE_GEMM_TOL)
+    y, want_y = _gemm_pair(cuda, want_h, w2, b2, d.offsets, d.tiles, False)
+    torch.testing.assert_close(y.float(), want_y.float(), **MOE_GEMM_TOL)
+    share = (h != want_h).float().mean().item()
+    print(f"G1 {routing}: {share:.2e} of H differ from the twin")
+    assert share < 0.05
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("counts", [[0, 0, 1000, 0], [1000, 0, 0, 0],
+                                    [0, 0, 0, 1000], [0, 1, 999, 0],
+                                    [129, 0, 127, 744]])
+def test_moe_gemm_kernel_takes_empty_experts_and_one_with_every_row(
+        cuda, counts):
+    g = torch.Generator(device=cuda).manual_seed(5)
+    x = torch.randn((1000, 256), generator=g, device=cuda).to(torch.bfloat16)
+    w = (torch.randn((4, 256, 512), generator=g, device=cuda) / 16).to(
+        torch.bfloat16)
+    b = torch.randn((4, 512), generator=g, device=cuda).to(torch.bfloat16)
+    c = torch.tensor(counts)
+    bm = 128
+    offsets = torch.cat([c.new_zeros(1), c.cumsum(0)]).to(torch.int32)
+    tiles = torch.cat([c.new_zeros(1), ((c + bm - 1) // bm).cumsum(0)]).to(
+        torch.int32)
+    got, want = _gemm_pair(cuda, x, w, b, offsets.to(cuda), tiles.to(cuda),
+                           False)
+    torch.testing.assert_close(got.float(), want.float(), **MOE_GEMM_TOL)
+
+
+@pytest.mark.gpu
+def test_moe_layer_captures_with_no_host_sync(cuda):
+    """The served layer (M1, G1 twice, M2) on 2,048 tokens: no host sync
+    under ``set_sync_debug_mode("error")``, captured into a CUDA graph,
+    whose replay equals the eager call bit for bit on new tokens, and the
+    twins' layer within one bf16 step of the norm (G1's rounding)."""
+    from synergynet_tpu_torch.nn.moe import MoeMlp
+    from synergynet_tpu_torch.nn.synergy import init_synergy_
+    from synergynet_tpu_torch.nn.layers import cast_layers_
+    from synergynet_tpu_torch.ops.moe import moe_mlp_reference
+    layer = MoeMlp(MOE_WIDTH, MOE_MLP, MOE_EXPERTS)
+    init_synergy_(layer, torch.Generator().manual_seed(0))
+    layer = cast_layers_(layer, torch.bfloat16).to(cuda).eval()
+    g = torch.Generator(device=cuda).manual_seed(6)
+    z = torch.randn((2, 1024, MOE_WIDTH), generator=g, device=cuda).to(
+        torch.bfloat16)
+    u = torch.randn((2, 1024, MOE_WIDTH), generator=g, device=cuda).to(
+        torch.bfloat16)
+    with torch.inference_mode():
+        layer(z, u)                                  # builds and compiles
+        torch.cuda.synchronize()
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            eager = layer(z, u)
+            side = torch.cuda.Stream(cuda)
+            side.wait_stream(torch.cuda.current_stream(cuda))
+            graph = torch.cuda.CUDAGraph()
+            with torch.cuda.graph(graph, stream=side):
+                out = layer(z, u)
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+        torch.cuda.current_stream(cuda).wait_stream(side)
+        graph.replay()
+        torch.cuda.synchronize()
+        assert torch.equal(out, eager)
+        z.copy_(torch.randn_like(z, dtype=torch.float32).to(torch.bfloat16))
+        u.copy_(torch.randn_like(u, dtype=torch.float32).to(torch.bfloat16))
+        graph.replay()
+        want = layer(z, u)
+        torch.cuda.synchronize()
+        assert torch.equal(out, want)
+        w1, w2 = layer.Dense_0, layer.Dense_1
+        with full_fp32():
+            twin, _ = moe_mlp_reference(
+                z.reshape(-1, MOE_WIDTH), u.reshape(-1, MOE_WIDTH),
+                layer.Router.weight, w1.weight, w1.bias, w2.weight, w2.bias)
+        rel = ((want.reshape(-1, MOE_WIDTH) - twin).float().norm()
+               / twin.float().norm()).item()
+    assert rel < 2 ** -7, rel
+
+
+@pytest.mark.gpu
+def test_moe_under_autograd_launches_the_kernels_with_the_twins_gradient(
+        cuda, monkeypatch):
+    """Where autograd records the call the kernels still run forward: the
+    bf16 V-MoE-B/16 net's grad-enabled forward on 2 crops of 224 credits
+    12 M1, 12 G1 and 6 M2 launches, as a served call, and its backward
+    reaches every expert. One served layer on 2,048 tokens: its output
+    equals the no-grad call's bit for bit, and the gradients of tokens,
+    router and experts match the twins' layer's (the backward recomputes
+    the twins on the same inputs)."""
+    from synergynet_tpu_torch.nn import SynergyNet
+    from synergynet_tpu_torch.nn import moe as nn_moe
+    from synergynet_tpu_torch.nn.layers import cast_layers_
+    from synergynet_tpu_torch.nn.synergy import init_synergy_
+    from synergynet_tpu_torch.ops import moe as ops
+    net = SynergyNet("vmoe_b16", dtype=torch.bfloat16)
+    init_synergy_(net, torch.Generator().manual_seed(0))
+    net = cast_layers_(net, torch.bfloat16).to(cuda).eval()
+    g = torch.Generator(device=cuda).manual_seed(12)
+    x = torch.randn((2, 224, 224, 3), generator=g, device=cuda)
+    syms = ("synergy_moe_dispatch", "synergy_moe_gemm", "synergy_moe_combine")
+    before = _counts(*syms)
+    params, _ = net(x)
+    torch.cuda.synchronize()
+    assert tuple(a - b for a, b in zip(_counts(*syms), before)) == (12, 12, 6)
+    params.float().square().sum().backward()
+    layers = [m for m in net.modules() if isinstance(m, nn_moe.MoeMlp)]
+    assert len(layers) == 6
+    for m in layers:
+        for p in (m.Router.weight, m.Dense_0.weight, m.Dense_1.bias):
+            assert p.grad is not None and torch.isfinite(p.grad).all()
+
+    layer = layers[-1]
+    z, u = (torch.randn((1, 2048, MOE_WIDTH), generator=g, device=cuda).to(
+        torch.bfloat16).requires_grad_() for _ in range(2))
+    leaves = [z, u, layer.Router.weight, layer.Dense_0.weight,
+              layer.Dense_0.bias, layer.Dense_1.weight, layer.Dense_1.bias]
+    with torch.no_grad():
+        plain = layer(z, u)
+    before = _counts(*syms)
+    out = layer(z, u)
+    torch.cuda.synchronize()
+    assert tuple(a - b for a, b in zip(_counts(*syms), before)) == (2, 2, 1)
+    assert torch.equal(out, plain)
+    grad = torch.randn(out.shape, generator=g, device=cuda).to(out.dtype)
+    got = torch.autograd.grad(out, leaves, grad)
+
+    monkeypatch.setattr(nn_moe, "moe_mlp", ops.moe_mlp_reference)
+    want = torch.autograd.grad(layer(z, u), leaves, grad)
+    for a, b in zip(got, want):
+        assert a.dtype == b.dtype and a.shape == b.shape
+        torch.testing.assert_close(a.float(), b.float(), **MOE_GEMM_TOL)
+
+
+# V-MoE-B/16 in bf16 against the float32 reference at the published widths,
+# on the served crops of a captured process_batch: as ViT-B/16 (VIT_REL),
+# plus the tokens whose top two change experts between bf16 and f32 near a
+# tie; the same reference in fp8 must fall outside.
+VMOE_REL = 0.08
+
+
+@pytest.fixture(scope="module")
+def vmoe_engine(cuda):
+    """A bf16 V-MoE-B/16 API at crop 224 on the benchmark's seeded tree,
+    its head calibrated on 16 crops as the benchmark does, behind a seeded
+    bf16 detector; and the reference's tree."""
+    from perfbench import weights
+    from perfbench.reference.nets import merge
+    from perfbench.reference.regressors import vmoe_b16 as ref
+    from synergynet_tpu_torch.detect import FaceBoxes
+    from synergynet_tpu_torch.detect.detector import random_init_variables
+    from synergynet_tpu_torch.pipeline import FusedFrameEngine, SynergyNet3DMM
+    g = torch.Generator(device=cuda).manual_seed(0)
+    x = (torch.randint(0, 256, (16, 224, 224, 3), generator=g,
+                       device=cuda).float() - 127.5) / 128.0
+    tree = weights.draw(ref.spec(), 11, cuda)
+    weights.calibrate("vmoe_b16", tree, x)
+    api = SynergyNet3DMM("vmoe_b16", weights.numpy_tree(tree),
+                         dtype=torch.bfloat16, device=cuda, crop=224)
+    eng = FusedFrameEngine(api, detector=FaceBoxes(
+        random_init_variables(0), dtype=torch.bfloat16, device=cuda,
+        stem_mode="pallas"), max_faces=8)
+    return eng, merge(tree["params"], tree["batch_stats"])["backbone"]
+
+
+@pytest.mark.gpu
+def test_vmoe_process_batch_replay_matches_the_f32_reference(cuda,
+                                                             vmoe_engine):
+    """``process_batch`` of 2 canvases (16 face slots) replayed from its
+    captured graph: its param62 against the float32 reference (TF32 off)
+    on the same crops within VMOE_REL, the fp8 reference outside; the
+    replay equal to the eager body bit for bit; M1, G1 and M2 credited 12,
+    12 and 6 launches a replay; the tallies 2T rows a MoE layer."""
+    from perfbench.reference.precision import Precision, exact_f32
+    from perfbench.reference.regressors import vmoe_b16 as ref
+    from synergynet_tpu_torch.core.profiling import recorder
+    from synergynet_tpu_torch.pipeline.device_crop import crop_resize_bilinear
+    eng, t = vmoe_engine
+    args = _batch(cuda, 2, seed=9)
+    want_eager = eng.process_batch_eager(*args)
+    syms = ("synergy_moe_dispatch", "synergy_moe_gemm",
+            "synergy_moe_combine", "attention")
+    eng.process_batch(*args)                        # captured
+    recorder.reset()
+    before = _counts(*syms)
+    got = eng.process_batch(*args)
+    torch.cuda.synchronize()
+    assert _counts(*syms) == (before[0] + 12, before[1] + 12,
+                              before[2] + 6, before[3] + 12)
+    for g, w in zip(got, want_eager):
+        assert torch.equal(g, w)
+    c = recorder.counters("process_batch.b2", eng.programs.engine)
+    assert c["moe_rows"] == 6 * 2 * 16 * 197
+    assert 2 * 16 * 197 * 6 // 32 <= c["moe_rows_max"] <= 6 * 16 * 197
+    rois, param62 = got[2].reshape(-1, 4), got[3].reshape(-1, 62)
+    crops = crop_resize_bilinear(args[0], got[2], 224).reshape(-1, 224, 224,
+                                                                3)
+    x = (crops - 127.5) / 128.0
+    with torch.no_grad(), exact_f32():
+        want = ref.forward(Precision("f32"), t, x)
+        fp8 = ref.forward(Precision("fp8"), t, x)
+
+    def rel(a):
+        return ((a - want).norm(dim=-1) / want.norm(dim=-1)).max().item()
+
+    print(f"V-MoE-B/16 process_batch bf16 against f32: {rel(param62):.4f}, "
+          f"fp8 {rel(fp8):.4f}")
+    assert rois.shape == (16, 4)
+    assert rel(param62) < VMOE_REL < rel(fp8), (rel(param62), rel(fp8))
+
+
+@pytest.mark.gpu
+def test_vmoe_traced_replay_launches_what_it_credits(cuda, vmoe_engine,
+                                                    tmp_path):
+    """A traced replay of the V-MoE program runs 12 ``moe_dispatch``, 12
+    ``moe_gemm`` and 6 ``moe_combine`` kernels, as the launch table
+    credits, and no library grouped GEMM."""
+    import json
+    eng, _ = vmoe_engine
+    args = _batch(cuda, 2, seed=10)
+    eng.process_batch(*args)
+    syms = ("synergy_moe_dispatch", "synergy_moe_gemm",
+            "synergy_moe_combine")
+    before = _counts(*syms)
+    torch.cuda.synchronize()
+    with torch.profiler.profile(activities=[
+            torch.profiler.ProfilerActivity.CPU,
+            torch.profiler.ProfilerActivity.CUDA]) as prof:
+        eng.process_batch(*args)
+        torch.cuda.synchronize()
+    credited = tuple(a - b for a, b in zip(_counts(*syms), before))
+    path = tmp_path / "trace.json"
+    prof.export_chrome_trace(str(path))
+    with open(path) as f:
+        trace = json.load(f)
+    events = trace["traceEvents"] if isinstance(trace, dict) else trace
+    kernels = [e["name"] for e in events if e.get("cat") == "kernel"]
+    traced = tuple(sum(frag in k for k in kernels)
+                   for frag in ("moe_dispatch", "moe_gemm", "moe_combine"))
+    assert traced == credited == (12, 12, 6), (traced, credited)
+    assert not any("grouped" in k.lower() for k in kernels)

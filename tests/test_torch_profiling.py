@@ -319,6 +319,32 @@ def test_tally_needs_one_value_per_name():
                   tallies=("n", "m"))
 
 
+def _named_body(names, values):
+    def body(x):
+        tally(lambda: torch.tensor(values), names)
+        return (x + 1,)
+    return body
+
+
+def test_named_tallies_add_a_run_and_pass_over_unknown_names():
+    """``tally(values, names)`` adds to a run of the program's tallies in
+    their order, adds nothing in a program that tallies none of the names,
+    and refuses names that are not a run of them."""
+    recorder.reset()
+    cache = _cache()
+    run = dict(stages=STAGES, tallies=("a", "b", "c"))
+    cache.run("test.named", _named_body(("b", "c"), [3, 4]), torch.ones(2),
+              **run)
+    assert recorder.counters("test.named", cache.engine)["c"] == 4
+    assert _record(cache, "test.named").sequence.read()[1] == [0, 3, 4]
+    cache.run("test.unnamed", _named_body(("x", "y"), [5, 6]),
+              torch.ones(2), **run)
+    assert _record(cache, "test.unnamed").sequence.read()[1] == [0, 0, 0]
+    with pytest.raises(ValueError, match="not a run"):
+        cache.run("test.gap", _named_body(("a", "c"), [1, 2]),
+                  torch.ones(2), **run)
+
+
 # -- the serving engine's CPU body --------------------------------------------
 
 @pytest.fixture(scope="module")
@@ -338,6 +364,17 @@ def _frames(b, seed):
     packs = [prepare_frame(rng.integers(0, 256, (720, 1088, 3), np.uint8),
                            8, "cpu") for _ in range(b)]
     return tuple(torch.stack([p[i] for p in packs]) for i in range(3))
+
+
+def test_a_dense_engine_tallies_the_face_counts_alone(cpu_engine):
+    """A regressor with no module that lists ``tallies`` leaves the
+    program the body's own three."""
+    from synergynet_tpu_torch.pipeline.api import TALLIES
+    recorder.reset()
+    cpu_engine.process_batch(*_frames(1, 4))
+    seq = _record(cpu_engine.programs, "process_batch.b1").sequence
+    assert cpu_engine.tallies == seq.tally_names == TALLIES == (
+        "valid", "kept", "faces")
 
 
 def test_process_batch_stamps_one_whole_row(cpu_engine):
